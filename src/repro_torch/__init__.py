@@ -1,0 +1,11 @@
+"""repro_torch — the ArBB reproduction ported to PyTorch and CUDA (Hopper).
+
+A package beside ``repro`` (the JAX/Pallas reference).  It imports ``torch``
+and numpy, never ``jax`` and nothing of ``repro``.
+
+    core       the DSL: containers, operators, control flow, registry
+    kernels    hand-written CUDA kernels (``kernels/csrc``), their plain
+               PyTorch versions and the registered entry points
+    numerics   the paper's four Euroben kernels and the CG solver
+    interop    carries the JAX package's objects (as numpy) across
+"""

@@ -1,0 +1,12 @@
+"""repro_torch.kernels — hand-written CUDA kernels for the paper's hot spots.
+
+    csrc/*.cu     CUDA C++ for sm_90a, built by _lib.py with nvcc at first use
+    _lib.py       build + ctypes binding
+    matmul.py     tiled f32-accumulating matmul    (mod2am)
+    spmv.py       ELL + DIA SpMV                   (mod2as, banded)
+    fft.py        split-stream butterfly stage     (mod2f)
+    ops.py        entry points registered with repro_torch.core.registry
+    ref.py        plain PyTorch oracles
+
+Importing this package builds nothing; the first launch does.
+"""

@@ -1,0 +1,72 @@
+"""The carry-across function (repro_torch.interop.carry): the JAX package's
+containers become the port's with the same arrays, and an operation on the
+carried objects agrees with the same operation in the JAX package."""
+import numpy as np
+import pytest
+import torch
+
+import repro.core as J
+from repro.numerics import sparse as j_sp, spmv as j_spmv
+from repro_torch import interop
+from repro_torch.numerics import sparse as t_sp, spmv as t_spmv
+
+CPU = "cpu"
+
+
+@pytest.fixture
+def matrix():
+    return j_sp.random_sparse(48, 10.0, seed=9)
+
+
+def test_carry_csr(matrix):
+    jc = j_sp.csr_from_dense(matrix)
+    tc = interop.carry(jc, device=CPU)
+    assert isinstance(tc, t_sp.CSR) and tc.shape == jc.shape
+    for f in ("matvals", "indx", "rowp"):
+        np.testing.assert_array_equal(getattr(tc, f).numpy(),
+                                      np.asarray(getattr(jc, f)))
+    assert tc.indx.dtype == tc.rowp.dtype == torch.int32
+    x = np.random.default_rng(0).standard_normal(48).astype(np.float32)
+    np.testing.assert_allclose(
+        t_spmv.arbb_spmv2(tc, interop.carry(J.bind(x), device=CPU)).read(),
+        j_spmv.arbb_spmv2(jc, J.bind(x)).read(), rtol=1e-4, atol=1e-4)
+
+
+def test_carry_ell_and_dia(matrix):
+    je = j_sp.ell_from_csr(j_sp.csr_from_dense(matrix), pad_to=4)
+    te = interop.carry(je, device=CPU)
+    assert isinstance(te, t_sp.ELL) and te.width == je.width
+    np.testing.assert_array_equal(te.values.numpy(), np.asarray(je.values))
+    np.testing.assert_array_equal(te.cols.numpy(), np.asarray(je.cols))
+    band = j_sp.banded_spd(30, 4, seed=1)
+    jd = j_sp.dia_from_dense(band)
+    td = interop.carry(jd, device=CPU)
+    assert isinstance(td, t_sp.DIA) and td.offsets == jd.offsets
+    np.testing.assert_array_equal(td.diags.numpy(), np.asarray(jd.diags))
+
+
+def test_carry_numpy_fields_and_arrays():
+    """Fields given as plain numpy arrays (no JAX object at all) carry the
+    same way; float64 narrows to float32 unless a dtype is asked for."""
+    class Fields:
+        matvals = np.array([1.0, 2.0, 3.0])
+        indx = np.array([0, 2, 1], np.int64)
+        rowp = np.array([0, 2, 2, 3], np.int64)
+        shape = (3, 3)
+
+    tc = interop.carry(Fields(), device=CPU)
+    assert tc.matvals.dtype == torch.float32 and tc.indx.dtype == torch.int32
+    np.testing.assert_array_equal(tc.todense(),
+                                  [[1, 0, 2], [0, 0, 0], [0, 3, 0]])
+    d = interop.carry(np.arange(4.0), device=CPU)
+    assert d.dtype == torch.float32 and d.shape == (4,)
+    d = interop.carry(np.arange(4.0), device=CPU, dtype=torch.float64)
+    assert d.dtype == torch.float64
+    z = interop.carry(J.bind(np.ones(4, np.complex64)), device=CPU)
+    assert z.dtype == torch.complex64
+
+
+def test_carry_follows_the_device_rule(monkeypatch, matrix):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.carry(j_sp.csr_from_dense(matrix))
