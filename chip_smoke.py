@@ -7,15 +7,25 @@
    src/repro_torch/kernels/csrc with nvcc (timed).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones.
-3. Run the main path, the paper's four Euroben suites at their largest
-   configurations, with data made from fixed seeds, and validate each as
-   benchmarks/*.py does:
+3. Run the two paths of the port, each with data made from fixed seeds and
+   validated as benchmarks/*.py does, and each with the launch counts set
+   to 0 just before it and read just after; every kernel of a path must
+   have launched during that path.
+   a. The paper's four Euroben suites at their largest configurations:
      mod2am  n = 1024 via ops.matmul and arbb_mxm1/2a/2b (arbb_mxm0 at 256)
      mod2as  n = 10240, 5.72 % fill via ops.spmv_ell, arbb_spmv1/2
      mod2f   n = 2^20 via ops.fft and split_stream_fft
      CG      Table-2 conf 18 (n = 1024, half-bandwidth 511) with the spmv2
              and dia formulations, plus ops.spmv_dia on the same matrix
-   Every kernel must have launched during this phase.
+   b. The blocked-sparse plane at the suites' full sizes:
+     SpMM    benchmarks/spmm.py: n = 1024, the four format classes through
+             sparse.matrix (the selector must pick dia/bsr/ell/csr) and
+             sparse.spmm at k = 8 and 64, max error < 1e-3
+     block-CG the suite's CG_BLOCK systems (auto format: DIA), plus
+             (512, 127, 8) pinned to BSR and to ELL, relative residual
+             < 1e-5
+     SpGEMM  benchmarks/spgemm.py: n = 2048, block 8, clustered 0.02 /
+             0.08 / 0.2 and banded bw 31 / 127, relative error < 1e-3
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
@@ -110,7 +120,360 @@ def max_err(torch, got, want, rtol: float, atol: float, what: str) -> float:
     return float((got.to(want.dtype) - want).abs().max())
 
 
+# The blocked-sparse suites' inputs, with their seeds (benchmarks/spmm.py,
+# benchmarks/spgemm.py; copied, since this script imports nothing of the
+# JAX package).
+SPMM_N = 1024
+SPMM_RHS = (8, 64)
+CG_BLOCK = ((256, 31, 4), (512, 63, 4), (512, 127, 8))
+SPGEMM_N = 2048
+SPGEMM_BLOCK = 8
+
+
+def spmm_classes(sparse, n: int):
+    """(label, dense f32 matrix, format the selector must pick) per class."""
+    banded = sparse.banded_spd(n, 31, seed=1).astype(np.float32)
+    rng = np.random.default_rng(2)
+    nb, block = n // 8, 8
+    blocked = np.zeros((n, n), np.float32)
+    for p in rng.choice(nb * nb, size=max(1, int(nb * nb * 0.06)),
+                        replace=False):
+        i, j = divmod(int(p), nb)
+        blocked[i * block:(i + 1) * block, j * block:(j + 1) * block] = \
+            rng.standard_normal((block, block))
+    rng = np.random.default_rng(3)
+    uniform = np.zeros((n, n), np.float32)
+    for i in range(n):
+        uniform[i, rng.choice(n, size=16, replace=False)] = \
+            rng.standard_normal(16)
+    ragged = sparse.random_sparse(n, 2.0, seed=4).astype(np.float32)
+    rng = np.random.default_rng(5)
+    for i in rng.choice(n, size=4, replace=False):
+        ragged[i, :] = rng.standard_normal(n)
+    return (("banded", banded, "dia"), ("blocked", blocked, "bsr"),
+            ("uniform", uniform, "ell"), ("ragged", ragged, "csr"))
+
+
+def clustered(n: int, frac: float, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    nb = n // SPGEMM_BLOCK
+    occ = rng.random((nb, nb)) < frac
+    d = rng.standard_normal((n, n)).astype(np.float32)
+    return np.where(np.kron(occ, np.ones((SPGEMM_BLOCK, SPGEMM_BLOCK), bool)),
+                    d, 0.0).astype(np.float32)
+
+
+def spgemm_cases(sparse, n: int):
+    for frac in (0.02, 0.08, 0.2):
+        yield (f"clustered_f{frac}", clustered(n, frac, 1),
+               clustered(n, frac, 2))
+    for bw in (31, 127):
+        yield (f"banded_bw{bw}",
+               sparse.banded_spd(n, bw, seed=3).astype(np.float32),
+               sparse.banded_spd(n, bw, seed=4).astype(np.float32))
+
+
+def random_bsr(S, torch, rng, nbrows: int, nbcols: int, bs: int,
+               fill: float, empty_rows=()):
+    """A random BSR on the card with the block-rows in ``empty_rows``
+    empty."""
+    occ = rng.random((nbrows, nbcols)) < fill
+    occ[list(empty_rows)] = False
+    cols, rowp = S.block_pattern(occ)
+    vals = rng.standard_normal((cols.size, bs, bs)).astype(np.float32)
+    dev = torch.device("cuda")
+    return S.BSR(torch.as_tensor(vals, device=dev),
+                 torch.as_tensor(cols, device=dev),
+                 torch.as_tensor(rowp, device=dev),
+                 (nbrows * bs, nbcols * bs), bs)
+
+
+def spgemm_args(S, torch, a, b):
+    """The numeric-phase kernel's arguments for ``a @ b`` (the plan on the
+    card) and the plan."""
+    plan = S.spgemm_symbolic(a, b)
+    dev = a.device
+    return ((a.values, a.cols, a.rowp, b.values, b.cols, b.rowp,
+             torch.as_tensor(plan.c_cols, device=dev),
+             torch.as_tensor(plan.c_rowp, device=dev)), plan)
+
+
+def sparse_inputs():
+    """The blocked-sparse path's operands on the card: the SpMM suite's
+    four classes through sparse.matrix, the block-CG systems (auto format,
+    then the last one pinned to BSR and to ELL) and the SpGEMM cases."""
+    from repro_torch import sparse as S
+    from repro_torch.numerics import sparse
+
+    classes = spmm_classes(sparse, SPMM_N)
+    cg_systems = []
+    for cn, cbw, k in CG_BLOCK:
+        a = sparse.banded_spd(cn, cbw, seed=cn + cbw).astype(np.float32)
+        b = np.random.default_rng(cn).standard_normal((cn, k)).astype(
+            np.float32)
+        cg_systems.append((f"n{cn}bw{cbw}k{k}", a, b, "auto"))
+    label, a, b, _ = cg_systems[-1]
+    cg_systems += [(label, a, b, "bsr"), (label, a, b, "ell")]
+    return {
+        "classes": classes,
+        "mats": {label: S.matrix(a) for label, a, _ in classes},
+        "cg_systems": cg_systems,
+        "cg_mats": {(label, fmt): S.matrix(a, format=fmt)
+                    for label, a, _, fmt in cg_systems},
+        "gemm_cases": [(case, A, B, S.bsr_from_dense(A, block=SPGEMM_BLOCK),
+                        S.bsr_from_dense(B, block=SPGEMM_BLOCK))
+                       for case, A, B in spgemm_cases(sparse, SPGEMM_N)],
+    }
+
+
+def hold_sparse_kernels(torch, inp, mod2as_ell, kernels) -> None:
+    """Phase 1 for the blocked-sparse kernels.  f32 sums run in another
+    order than in the plain versions (an FMA chain per output against
+    einsum/bmm + index_add_).  max_abs_err is taken at the path's shapes;
+    the ragged cases follow."""
+    from repro_torch import sparse as S
+    from repro_torch.kernels import spgemm as spgemm_k
+    from repro_torch.kernels import spmm as spmm_k
+    from repro_torch.numerics import sparse
+
+    dev = torch.device("cuda")
+    last = inp["cg_systems"][-1][0]
+    ell_uni, ell_cg = inp["mats"]["uniform"], inp["cg_mats"][(last, "ell")]
+    errs = []
+    for what, m, k in (("uniform", ell_uni, 8), ("uniform", ell_uni, 64),
+                       ("block-CG", ell_cg, 8), ("mod2as", mod2as_ell, 64)):
+        x = torch.randn(m.shape[1], k, device=dev)
+        errs.append(max_err(
+            torch, spmm_k.spmm_ell(m.values, m.cols, x),
+            spmm_k.spmm_ell_plain(m.values, m.cols, x), 1e-4, 1e-4,
+            f"spmm_ell {what} k={k}"))
+    kernels["spmm_ell"]["max_abs_err"] = max(errs)
+    odd = sparse.ell_from_csr(sparse.csr_from_dense(
+        sparse.random_sparse(37, 20.0, seed=37)))
+    for m in (ell_uni, odd):
+        for k in (1, 3, 65):
+            x = torch.randn(m.shape[1], k, device=dev)
+            max_err(torch, spmm_k.spmm_ell(m.values, m.cols, x),
+                    spmm_k.spmm_ell_plain(m.values, m.cols, x), 1e-4, 1e-4,
+                    f"spmm_ell n={m.shape[0]} k={k}")
+
+    errs = []
+    for what, m, k in (("blocked", inp["mats"]["blocked"], 8),
+                       ("blocked", inp["mats"]["blocked"], 64),
+                       ("clustered 0.2", inp["gemm_cases"][2][3], 64),
+                       ("block-CG", inp["cg_mats"][(last, "bsr")], 8)):
+        x = torch.randn(m.shape[1], k, device=dev)
+        errs.append(max_err(
+            torch, spmm_k.spmm_bsr(m.values, m.cols, m.rowp, x),
+            spmm_k.spmm_bsr_plain(m.values, m.cols, m.rowp, x), 1e-4, 1e-4,
+            f"spmm_bsr {what} bs={m.block} k={k}"))
+    kernels["spmm_bsr"]["max_abs_err"] = max(errs)
+    rng = np.random.default_rng(12)
+    for bs in (8, 16, 32):
+        m = random_bsr(S, torch, rng, 40, 30, bs, 0.2, empty_rows=(0, 17, 39))
+        for k in (1, 3, 65):
+            x = torch.randn(m.shape[1], k, device=dev)
+            got = spmm_k.spmm_bsr(m.values, m.cols, m.rowp, x)
+            max_err(torch, got,
+                    spmm_k.spmm_bsr_plain(m.values, m.cols, m.rowp, x),
+                    1e-4, 1e-4, f"spmm_bsr bs={bs} k={k}")
+            if got[17 * bs:18 * bs].any():
+                raise AssertionError(f"spmm_bsr bs={bs}: empty block-row "
+                                     f"not zero")
+    empty = random_bsr(S, torch, rng, 4, 4, 8, 0.0)
+    before = spmm_k.spmm_bsr.launches
+    y = spmm_k.spmm_bsr(empty.values, empty.cols, empty.rowp,
+                        torch.ones(32, 3, device=dev))
+    if y.shape != (32, 3) or y.any() or spmm_k.spmm_bsr.launches != before:
+        raise AssertionError("spmm_bsr with no blocks: not zeros, or it "
+                             "launched")
+
+    errs = []
+    for case, _, _, a, b in inp["gemm_cases"]:
+        args, _ = spgemm_args(S, torch, a, b)
+        want = spgemm_k.spgemm_bsr_plain(*args, ncols=b.shape[1])
+        # banded products reach O(1e4): the bar scales with the product
+        scale = max(1.0, float(want.abs().max()))
+        errs.append(max_err(
+            torch, spgemm_k.spgemm_bsr(*args, ncols=b.shape[1]), want, 1e-5,
+            1e-5 * scale, f"spgemm_bsr {case}"))
+    kernels["spgemm_bsr"]["max_abs_err"] = max(errs)
+    for bs in (16, 32):
+        a = random_bsr(S, torch, rng, 24, 24, bs, 0.3, empty_rows=(3, 11))
+        b = random_bsr(S, torch, rng, 24, 24, bs, 0.3, empty_rows=(5,))
+        args, _ = spgemm_args(S, torch, a, b)
+        max_err(torch, spgemm_k.spgemm_bsr(*args, ncols=b.shape[1]),
+                spgemm_k.spgemm_bsr_plain(*args, ncols=b.shape[1]), 1e-5,
+                1e-4, f"spgemm_bsr bs={bs}")
+    # no pairs: A's only live block-column meets an empty block-row of B
+    a = np.zeros((32, 32), np.float32)
+    a[:8, :8] = 1.0
+    b = np.zeros((32, 32), np.float32)
+    b[8:16, :8] = 1.0
+    args, plan = spgemm_args(S, torch, S.bsr_from_dense(a),
+                             S.bsr_from_dense(b))
+    before = spgemm_k.spgemm_bsr.launches
+    c = spgemm_k.spgemm_bsr(*args, ncols=32)
+    if plan.npairs or c.shape != (0, 8, 8) \
+            or spgemm_k.spgemm_bsr.launches != before:
+        raise AssertionError("spgemm_bsr with no pairs: wrong result")
+    # a pattern that lacks a tile some product reaches: the kernel raises
+    a = random_bsr(S, torch, rng, 6, 6, 8, 0.5)
+    args, plan = spgemm_args(S, torch, a, a)
+    row = int(np.flatnonzero(np.diff(plan.c_rowp))[0])  # first live row
+    cut = int(plan.c_rowp[row + 1]) - 1                  # its last tile
+    c_rowp = torch.as_tensor(plan.c_rowp, device=dev)
+    c_rowp[row + 1:] -= 1
+    args = args[:6] + (torch.cat((args[6][:cut], args[6][cut + 1:])), c_rowp)
+    try:
+        spgemm_k.spgemm_bsr(*args, ncols=48)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("spgemm_bsr took a pattern missing a tile")
+    torch.cuda.synchronize()
+
+
+def run_sparse_path(torch, inp) -> None:
+    """Phase 2b: the blocked-sparse path through the entry points a user
+    calls, validated as benchmarks/spmm.py and benchmarks/spgemm.py do."""
+    import repro_torch.core as C
+    from repro_torch import sparse as S
+    from repro_torch.core import registry
+    from repro_torch.numerics import solvers
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    rows = []
+    for label, a, expect in inp["classes"]:
+        m = inp["mats"][label]
+        fmt = S.format_of(m)
+        if fmt != expect:
+            raise AssertionError(f"selector: {label} gave {fmt}, not "
+                                 f"{expect}")
+        for k in SPMM_RHS:
+            x = rng.standard_normal((SPMM_N, k)).astype(np.float32)
+            y = S.spmm(m, C.bind(x)).read()
+            err = float(np.abs(y - a.astype(np.float64) @ x).max())
+            if not err < 1e-3:
+                raise AssertionError(f"spmm {label} k={k}: max error {err}")
+        rows.append(f"{label}->{fmt}")
+    log(f"spmm n={SPMM_N} k={SPMM_RHS}: {', '.join(rows)} ok")
+
+    rows = []
+    for label, a, b, fmt in inp["cg_systems"]:
+        t = time.perf_counter()
+        m = inp["cg_mats"][(label, fmt)]
+        res = solvers.cg_block_solve(m, C.bind(b), stop=1e-12,
+                                     max_iters=2 * a.shape[0])
+        x = res.x.read()
+        rel = float((np.linalg.norm(a.astype(np.float64) @ x - b, axis=0)
+                     / np.linalg.norm(b, axis=0)).max())
+        if not rel < 1e-5:
+            raise AssertionError(f"block-CG {label} {fmt}: relative "
+                                 f"residual {rel}")
+        blk = f" bs={m.block}" if S.format_of(m) == "bsr" else ""
+        rows.append(f"{label} {S.format_of(m)}{blk}: "
+                    f"{int(res.iterations)} iters, rel {rel:.1e}, "
+                    f"{time.perf_counter() - t:.2f} s")
+    log("block-CG: " + "; ".join(rows))
+
+    rows = []
+    for case, A, B, a, b in inp["gemm_cases"]:
+        name = registry.select("spgemm", a, b).name
+        if name != "bsr":
+            raise AssertionError(f"spgemm {case}: selected {name!r}")
+        c = S.spgemm(a, b)
+        ref = (torch.as_tensor(A, dtype=torch.float64, device=dev)
+               @ torch.as_tensor(B, dtype=torch.float64, device=dev))
+        got = torch.as_tensor(c.todense(), dtype=torch.float64, device=dev)
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max()) / scale
+        if not err < 1e-3:
+            raise AssertionError(f"spgemm {case}: relative error {err}")
+        rows.append(f"{case}: {c.nblocks} blocks, rel err {err:.1e}")
+    log(f"spgemm n={SPGEMM_N} block {SPGEMM_BLOCK}: " + "; ".join(rows))
+    torch.cuda.synchronize()
+
+
+def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
+                        csr_tensor) -> dict:
+    """Phase 3 for the blocked-sparse kernels; returns the call that
+    launches each kernel, for the profiler pass."""
+    from repro_torch import sparse as S
+    from repro_torch.kernels import spgemm as spgemm_k
+    from repro_torch.kernels import spmm as spmm_k
+
+    dev = torch.device("cuda")
+    k = 64
+    # spmm_ell: the mod2as Table-1 matrix times a k = 64 panel.  Bound: the
+    # matrix's nonzeros (value + column; ELL's padding is storage, not work)
+    # read once, X read once, Y written once, 2 flops per nonzero and column.
+    vals, cols = mod2as_ell.values, mod2as_ell.cols
+    n = mod2as_ell.shape[0]
+    x_as = torch.randn(n, k, device=dev)
+    lib_as = csr_tensor(mod2as_csr)
+    nnz = mod2as_csr.nnz
+    rec = kernels["spmm_ell"]
+    rec["ms"] = cold_ms(lambda: spmm_k.spmm_ell(vals, cols, x_as), 50)
+    rec["plain_ms"] = cold_ms(
+        lambda: spmm_k.spmm_ell_plain(vals, cols, x_as), 5)
+    rec["library_ms"] = cold_ms(lambda: lib_as @ x_as, 50)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        nnz * 8 + 2 * n * k * 4, 2.0 * nnz * k)
+
+    # spmm_bsr: the SpGEMM suite's clustered 0.2 operand times k = 64.  Its
+    # live blocks are dense (normal draws), so the stored entries are the
+    # matrix's nonzeros.
+    m = inp["gemm_cases"][2][3]
+    bv, bc, br = m.values, m.cols, m.rowp
+    x_bsr = torch.randn(m.shape[1], k, device=dev)
+    rec = kernels["spmm_bsr"]
+    rec["ms"] = cold_ms(lambda: spmm_k.spmm_bsr(bv, bc, br, x_bsr), 50)
+    rec["plain_ms"] = cold_ms(
+        lambda: spmm_k.spmm_bsr_plain(bv, bc, br, x_bsr), 20)
+    lib_bsr = torch.sparse_bsr_tensor(br.long(), bc.long(), bv,
+                                      size=m.shape, check_invariants=False)
+    try:
+        lib_bsr @ x_bsr
+        torch.cuda.synchronize()
+        note = "torch.sparse BSR @ dense"
+    except (RuntimeError, NotImplementedError) as exc:
+        lib_bsr = csr_tensor(S.csr_from_bsr(m))
+        note = f"torch.sparse CSR @ dense (BSR @ dense refused: {exc})"
+    rec["library_ms"] = cold_ms(lambda: lib_bsr @ x_bsr, 50)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        m.nnz * 4 + m.nblocks * 4 + br.numel() * 4 + 2 * m.shape[0] * k * 4,
+        2.0 * m.nnz * k)
+    log(f"spmm_bsr timed: n={m.shape[0]} bs={m.block} {m.nblocks} blocks "
+        f"k={k}; library call: {note}")
+
+    # spgemm_bsr: the clustered 0.2 A @ B, numeric phase only (the plan is
+    # made once on the host).  The library call, torch.sparse CSR @ CSR,
+    # also runs its own symbolic phase.
+    _, _, _, a, b = inp["gemm_cases"][2]
+    args, plan = spgemm_args(S, torch, a, b)
+    ncols = b.shape[1]
+    rec = kernels["spgemm_bsr"]
+    rec["ms"] = cold_ms(lambda: spgemm_k.spgemm_bsr(*args, ncols=ncols), 20)
+    rec["plain_ms"] = cold_ms(
+        lambda: spgemm_k.spgemm_bsr_plain(*args, ncols=ncols), 5)
+    lib_a = csr_tensor(S.csr_from_bsr(a))
+    lib_b = csr_tensor(S.csr_from_bsr(b))
+    rec["library_ms"] = cold_ms(lambda: lib_a @ lib_b, 10)
+    bs = a.block
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        (a.nblocks + b.nblocks + plan.nc) * bs * bs * 4,
+        2.0 * plan.npairs * bs ** 3)
+    log(f"spgemm_bsr timed: {plan.npairs} pairs, {plan.nc} output blocks, "
+        f"{2.0 * plan.npairs * bs ** 3 / 1e6:.1f} MFLOP")
+    return {"spmm_ell": lambda: spmm_k.spmm_ell(vals, cols, x_as),
+            "spmm_bsr": lambda: spmm_k.spmm_bsr(bv, bc, br, x_bsr),
+            "spgemm_bsr": lambda: spgemm_k.spgemm_bsr(*args, ncols=ncols)}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -129,6 +492,8 @@ def main() -> int:
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels import fft as fft_k
     from repro_torch.kernels import matmul as mm_k
+    from repro_torch.kernels import spgemm as spgemm_k
+    from repro_torch.kernels import spmm as spmm_k
     from repro_torch.kernels import spmv as spmv_k
     from repro_torch.numerics import fft as nfft
     from repro_torch.numerics import matmul as mm
@@ -143,7 +508,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
     dev = torch.device("cuda")
     kernels = {k: {"name": k} for k in
-               ("matmul", "spmv_ell", "spmv_dia", "fft_stage")}
+               ("matmul", "spmv_ell", "spmv_dia", "fft_stage", "spmm_ell",
+                "spmm_bsr", "spgemm_bsr")}
 
     # -- inputs of the main path (fixed seeds, as benchmarks/*.py) ----------
     n_mm = 1024
@@ -173,6 +539,8 @@ def main() -> int:
     bcg_np = np.random.default_rng(conf).standard_normal(n_cg).astype(
         np.float32)
     BCG = C.bind(bcg_np)
+
+    sparse_in = sparse_inputs()
 
     # -- phase 1: every kernel against its plain version --------------------
     kernels["matmul"]["max_abs_err"] = max_err(
@@ -234,10 +602,12 @@ def main() -> int:
         atol = 4 * torch.finfo(got.real.dtype).eps * nz ** 0.5 * (
             nz.bit_length() - 1)
         max_err(torch, got, plain, 1e-5, atol, f"fft {nz}")
-    torch.cuda.synchronize()
-    log("phase 1: 4 kernels agree with their plain versions")
 
-    # -- phase 2: the main path, counted ------------------------------------
+    hold_sparse_kernels(torch, sparse_in, ell, kernels)
+    torch.cuda.synchronize()
+    log("phase 1: 7 kernels agree with their plain versions")
+
+    # -- phase 2a: the paper's path, counted --------------------------------
     wrappers = {"matmul": mm_k.matmul, "spmv_ell": spmv_k.spmv_ell,
                 "spmv_dia": spmv_k.spmv_dia, "fft_stage": fft_k.fft_stage}
     for w in wrappers.values():
@@ -293,12 +663,30 @@ def main() -> int:
         + "; ops.spmv_dia ok")
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    log(f"phase 2: main path in {time.perf_counter() - t_path:.2f} s, "
+    log(f"phase 2a: paper path in {time.perf_counter() - t_path:.2f} s, "
         f"kernel launches {launches}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on the paper path: "
                              f"{missing}")
+
+    # -- phase 2b: the blocked-sparse path, counted -------------------------
+    sparse_wrappers = {"spmm_ell": spmm_k.spmm_ell,
+                       "spmm_bsr": spmm_k.spmm_bsr,
+                       "spgemm_bsr": spgemm_k.spgemm_bsr}
+    for w in sparse_wrappers.values():
+        w.launches = 0
+    t_path = time.perf_counter()
+    run_sparse_path(torch, sparse_in)
+    sparse_launches = {k: w.launches for k, w in sparse_wrappers.items()}
+    log(f"phase 2b: blocked-sparse path in "
+        f"{time.perf_counter() - t_path:.2f} s, kernel launches "
+        f"{sparse_launches}")
+    missing = [k for k, v in sparse_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the blocked-sparse "
+                             f"path: {missing}")
+    launches.update(sparse_launches)
 
     # -- phase 3: times, cold L2 --------------------------------------------
     scrub = scrub_buffer(torch)
@@ -357,6 +745,9 @@ def main() -> int:
         8 * n_f + (tw_re.numel() + tw_im.numel()) * 4 + 8 * n_f,
         stages * 5.0 * n_f)
 
+    timed_sparse = time_sparse_kernels(torch, sparse_in, csr, ell, kernels,
+                                       cold_ms, csr_tensor)
+
     routes = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:35"),
@@ -366,12 +757,19 @@ def main() -> int:
                      "src/repro/kernels/spmv.py:88"),
         "fft_stage": ("src/repro_torch/kernels/csrc/fft.cu",
                       "src/repro/kernels/fft.py:36"),
+        "spmm_ell": ("src/repro_torch/kernels/csrc/spmm.cu",
+                     "src/repro/kernels/spmm.py:41"),
+        "spmm_bsr": ("src/repro_torch/kernels/csrc/spmm.cu",
+                     "src/repro/kernels/spmm.py:91"),
+        "spgemm_bsr": ("src/repro_torch/kernels/csrc/spgemm.cu",
+                       "src/repro/kernels/spgemm.py:45"),
     }
     timed = {"matmul": lambda: mm_k.matmul(a, b),
              "spmv_ell": lambda: spmv_k.spmv_ell(vals, cols, x),
              "spmv_dia": lambda: spmv_k.spmv_dia(diags, offs, xcg),
              "fft_stage": lambda: ops.stage_loop(re0, im0, tw_re, tw_im,
-                                                 fft_k.fft_stage)}
+                                                 fft_k.fft_stage),
+             **timed_sparse}
     for name, fn in timed.items():
         kernels[name]["kernel_ms"] = kernel_ms(torch, fn, 20,
                                                f"{name}_kernel", scrub)
@@ -386,6 +784,7 @@ def main() -> int:
                     "library_ms": r["library_ms"],
                     "kernel_ms": r["kernel_ms"]})
     log(json.dumps({"kernels": out}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

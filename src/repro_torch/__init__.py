@@ -6,6 +6,8 @@ and numpy, never ``jax`` and nothing of ``repro``.
     core       the DSL: containers, operators, control flow, registry
     kernels    hand-written CUDA kernels (``kernels/csrc``), their plain
                PyTorch versions and the registered entry points
-    numerics   the paper's four Euroben kernels and the CG solver
+    numerics   the paper's four Euroben kernels, CG and block-CG
+    sparse     the blocked-sparse plane: BSR, statistics, the format
+               selector, SpMM and SpGEMM
     interop    carries the JAX package's objects (as numpy) across
 """

@@ -2,7 +2,8 @@
 ``repro.core.registry``), chip scope only.
 
 Every operator (``matmul``, ``spmv_ell``, ``spmv_dia``, ``fft``, the solver
-SpMV formulations) registers variants, and :func:`dispatch` picks one.
+SpMV formulations, the blocked-sparse ``spmm`` and ``spgemm``) registers
+variants, and :func:`dispatch` picks one.
 
     plane     how a variant executes:
               'cuda'  a hand-written kernel (``repro_torch/kernels/csrc``),
@@ -61,14 +62,15 @@ class Cost:
     """Named static cost tiers (DESIGN.md §6).
 
     Plane tiers: ``CUDA`` (hand-written kernel) < ``TORCH`` (plain eager
-    version) < ``ORACLE``.  Sparse-layout ranks (``DIA`` < ``ELL`` < ``CSR``)
-    mirror the format selector's strongest-first ordering."""
+    version) < ``ORACLE``.  Sparse-layout ranks (``DIA`` < ``BSR`` < ``ELL``
+    < ``CSR``) mirror the format selector's strongest-first ordering."""
 
     CUDA = 1.0
     TORCH = 2.0
     ORACLE = 20.0
 
     DIA = 4.0
+    BSR = 5.0
     ELL = 6.0
     CSR = ORACLE
 
@@ -79,7 +81,9 @@ _PROVIDERS = {
     "spmv_ell": ("repro_torch.kernels.ops",),
     "spmv_dia": ("repro_torch.kernels.ops",),
     "fft": ("repro_torch.kernels.ops",),
-    "solver_spmv": ("repro_torch.numerics.spmv",),
+    "solver_spmv": ("repro_torch.numerics.spmv", "repro_torch.sparse.spmm"),
+    "spmm": ("repro_torch.sparse.spmm",),
+    "spgemm": ("repro_torch.sparse.spgemm",),
 }
 
 _loaded_providers: set = set()

@@ -5,7 +5,11 @@
     matmul.py     tiled f32-accumulating matmul    (mod2am)
     spmv.py       ELL + DIA SpMV                   (mod2as, banded)
     fft.py        split-stream butterfly stage     (mod2f)
-    ops.py        entry points registered with repro_torch.core.registry
+    spmm.py       ELL + BSR SpMM                   (blocked-sparse spmm)
+    spgemm.py     BSR x BSR numeric phase          (blocked-sparse spgemm)
+    ops.py        the paper kernels' entry points, registered with
+                  repro_torch.core.registry (the sparse ones register from
+                  repro_torch.sparse)
     ref.py        plain PyTorch oracles
 
 Importing this package builds nothing; the first launch does.

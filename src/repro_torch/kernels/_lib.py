@@ -31,12 +31,13 @@ import torch
 from repro_torch.core.registry import device_type_of
 
 __all__ = ["lib", "check", "stream_of", "on_host", "require_cuda",
-           "SOURCES", "BUILD_DIR"]
+           "require_dtypes", "SOURCES", "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("common.cu", "matmul.cu", "spmv.cu", "fft.cu")
+SOURCES = ("common.cu", "matmul.cu", "spmv.cu", "fft.cu", "spmm.cu",
+           "spgemm.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -48,6 +49,10 @@ _SIGNATURES = {
     "spmv_ell_launch": (_P, _P, _P, _P, _I, _I, _P),
     "spmv_dia_launch": (_P, _P, _P, _P, _I, _I, _P),
     "fft_stage_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "spmm_ell_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "spmm_bsr_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "spgemm_bsr_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _P),
 }
 
 
@@ -139,3 +144,13 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
                              f"got {[str(x.device) for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
+
+
+def require_dtypes(what: str, floats, ints) -> None:
+    """f32 for every tensor in ``floats`` and int32 for every one in
+    ``ints``, or raise: the sparse kernels take nothing else and nothing
+    is cast quietly."""
+    if any(t.dtype != torch.float32 for t in floats) \
+            or any(t.dtype != torch.int32 for t in ints):
+        raise ValueError(f"{what}: takes f32 values and int32 indices, got "
+                         f"{[t.dtype for t in (*floats, *ints)]}")

@@ -127,9 +127,10 @@ spmv_dia_jit = call(spmv_dia)
 
 
 # The solver-facing SpMV formulations.  DSL-level (plane=None); ``accepts``
-# keys on the matrix layout and a 1-D x (the multi-RHS route waits for the
-# blocked-sparse slice), and costs order the CSR variants by the paper's
-# measured ranking (spmv2's contiguity rewrite beats spmv1).
+# keys on the matrix layout and a 1-D x (a 2-D x, and a BSR matrix, take the
+# ``spmm`` route that repro_torch.sparse.spmm registers), and costs order the
+# CSR variants by the paper's measured ranking (spmv2's contiguity rewrite
+# beats spmv1).
 def _takes(layout):
     return lambda m, v, **_: (isinstance(m, layout)
                               and getattr(unwrap(v), "ndim", 1) == 1)

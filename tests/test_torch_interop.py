@@ -70,3 +70,41 @@ def test_carry_follows_the_device_rule(monkeypatch, matrix):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.carry(j_sp.csr_from_dense(matrix))
+
+
+def test_carry_bsr_is_not_mistaken_for_ell():
+    """A BSR has ELL's fields (values, cols, shape) too; it must come
+    across as a BSR, with its block, arrays and statistics."""
+    import dataclasses
+
+    from repro import sparse as j_sparse
+    from repro_torch import sparse as t_sparse
+
+    a = np.zeros((64, 64), np.float32)
+    a[:8, 8:16] = 1.0
+    a[40:48, :8] = np.arange(64, dtype=np.float32).reshape(8, 8)
+    jb = j_sparse.bsr_from_dense(a, block=8)
+    tb = interop.carry(jb, device=CPU)
+    assert isinstance(tb, t_sparse.BSR) and not isinstance(tb, t_sp.ELL)
+    assert (tb.shape, tb.block, tb.nblocks) == (jb.shape, jb.block,
+                                                jb.nblocks)
+    for f in ("values", "cols", "rowp"):
+        np.testing.assert_array_equal(getattr(tb, f).numpy(),
+                                      np.asarray(getattr(jb, f)))
+    assert tb.cols.dtype == tb.rowp.dtype == torch.int32
+    np.testing.assert_array_equal(tb.todense(), a)
+    assert isinstance(tb.stats, t_sparse.SparseStats)
+    assert dataclasses.asdict(tb.stats) == dataclasses.asdict(jb.stats)
+    # the carried statistics feed the symbolic phase's bound check
+    plan = t_sparse.spgemm_symbolic(tb, tb)
+    assert plan.npairs <= tb.stats.product_block_bound(tb.stats)
+
+
+def test_carry_bsr_without_stats():
+    import dataclasses
+
+    from repro import sparse as j_sparse
+
+    jb = j_sparse.bsr_from_dense(np.eye(16, dtype=np.float32), block=8)
+    tb = interop.carry(dataclasses.replace(jb, stats=None), device=CPU)
+    assert tb.stats is None and tb.nblocks == 2

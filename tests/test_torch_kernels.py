@@ -16,6 +16,8 @@ from repro_torch.core import registry
 from repro_torch.kernels import fft as fft_k
 from repro_torch.kernels import matmul as mm_k
 from repro_torch.kernels import ops
+from repro_torch.kernels import spgemm as spgemm_k
+from repro_torch.kernels import spmm as spmm_k
 from repro_torch.kernels import spmv as spmv_k
 
 @pytest.fixture
@@ -25,6 +27,14 @@ def jax_ops():
     from repro.kernels import ops as jops, ref as jref
 
     return jnp, jops, jref
+
+
+@pytest.fixture
+def jax_spmm():
+    """The JAX package's Pallas SpMM kernels, imported on use."""
+    from repro.kernels import spmm as jspmm
+
+    return jspmm
 
 
 @pytest.fixture
@@ -125,6 +135,125 @@ def test_fft_stage_plain_matches_jax_ref(jax_ops):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
                                    atol=1e-6)
+
+
+def _bsr_operand(rng, nbrows, nbcols, bs, fill, empty_rows=()):
+    """Random BSR arrays (numpy): live blocks at ``fill``, sorted columns,
+    the block-rows in ``empty_rows`` left empty."""
+    occ = rng.random((nbrows, nbcols)) < fill
+    occ[list(empty_rows)] = False
+    rows, cols = np.nonzero(occ)
+    rowp = np.zeros(nbrows + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=nbrows), out=rowp[1:])
+    vals = _randn(rng, (cols.size, bs, bs))
+    return vals, cols.astype(np.int32), rowp
+
+
+@pytest.mark.parametrize("nrows,width,k", [(16, 4, 1), (40, 9, 3),
+                                           (100, 17, 65)])
+def test_spmm_ell_matches_jax(nrows, width, k, jax_ops, jax_spmm):
+    """The wrapper's host path against the JAX Pallas kernel (interpret
+    mode, one block per axis) and the JAX oracle."""
+    jnp, _, jref = jax_ops
+    rng = np.random.default_rng(nrows + width + k)
+    vals = _randn(rng, (nrows, width))
+    cols = rng.integers(0, nrows, (nrows, width)).astype(np.int32)
+    vals[::3, -1], cols[::3, -1] = 0.0, 0               # ELL padding
+    x = _randn(rng, (nrows, k))
+    want = jax_spmm.spmm_ell(jnp.asarray(vals), jnp.asarray(cols),
+                             jnp.asarray(x), block_rows=nrows,
+                             block_width=width, block_rhs=k, interpret=True)
+    got = spmm_k.spmm_ell(*map(torch.as_tensor, (vals, cols, x)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.spmm_ell_ref(*map(jnp.asarray,
+                                                       (vals, cols, x)))),
+        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bs,k", [(8, 1), (8, 3), (16, 8), (32, 65)])
+def test_spmm_bsr_matches_jax(bs, k, jax_ops, jax_spmm):
+    jnp, _, jref = jax_ops
+    rng = np.random.default_rng(bs * 100 + k)
+    vals, cols, rowp = _bsr_operand(rng, 6, 5, bs, 0.4, empty_rows=(2,))
+    x = _randn(rng, (5 * bs, k))
+    args = (vals, cols, rowp, x)
+    want = jax_spmm.spmm_bsr(*map(jnp.asarray, args), block_rhs=k,
+                             interpret=True)
+    got = spmm_k.spmm_bsr(*map(torch.as_tensor, args))
+    assert got.shape == (6 * bs, k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.spmm_bsr_ref(*map(jnp.asarray, args))),
+        rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got.numpy()[2 * bs:3 * bs], 0.0)
+
+
+def test_spmm_bsr_empty_matrix_gives_zeros(jax_ops):
+    jnp, _, jref = jax_ops
+    vals = np.zeros((0, 8, 8), np.float32)
+    cols, rowp = np.zeros(0, np.int32), np.zeros(5, np.int32)
+    x = np.ones((32, 3), np.float32)
+    got = spmm_k.spmm_bsr(*map(torch.as_tensor, (vals, cols, rowp, x)))
+    want = jref.spmm_bsr_ref(*map(jnp.asarray, (vals, cols, rowp, x)))
+    assert got.shape == want.shape == (32, 3)
+    np.testing.assert_array_equal(got.numpy(), 0.0)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_spgemm_bsr_plain_matches_jax_ref(bs, jax_ops):
+    """The wrapper's host path (pairs enumerated in torch) against the
+    dense JAX oracle's live tiles.  The JAX Pallas kernel cannot run on
+    this jax (``pl.store``), so the oracle is ``ref.spgemm_bsr_ref``."""
+    from repro import sparse as JS
+
+    jnp, _, jref = jax_ops
+    rng = np.random.default_rng(bs)
+    nb = 6
+    av, ac, ar = _bsr_operand(rng, nb, nb, bs, 0.4, empty_rows=(1,))
+    bv, bc, br = _bsr_operand(rng, nb, nb, bs, 0.4, empty_rows=(3,))
+    shape = (nb * bs, nb * bs)
+    ja = JS.BSR(jnp.asarray(av), jnp.asarray(ac), jnp.asarray(ar), shape, bs)
+    jb = JS.BSR(jnp.asarray(bv), jnp.asarray(bc), jnp.asarray(br), shape, bs)
+    plan = JS.spgemm_symbolic(ja, jb)
+    got = spgemm_k.spgemm_bsr(
+        *map(torch.as_tensor, (av, ac, ar, bv, bc, br, plan.c_cols,
+                               plan.c_rowp)), ncols=shape[1])
+    dense = np.asarray(jref.spgemm_bsr_ref(
+        *map(jnp.asarray, (av, ac, ar, bv, bc, br)), a_shape=shape,
+        b_shape=shape))
+    tiles = dense.reshape(nb, bs, nb, bs).transpose(0, 2, 1, 3)
+    brows = np.repeat(np.arange(nb), np.diff(plan.c_rowp))
+    np.testing.assert_allclose(got.numpy(), tiles[brows, plan.c_cols],
+                               rtol=1e-5, atol=1e-4)
+
+
+def _spgemm_args_missing_a_tile(dev):
+    """spgemm_bsr's arguments for a random A @ B at bs 8, with one tile
+    that a product reaches taken out of the output pattern."""
+    from repro_torch import sparse
+
+    rng = np.random.default_rng(21)
+    nb, bs = 6, 8
+    a, b = (sparse.BSR(*(torch.as_tensor(v, device=dev) for v in
+                         _bsr_operand(rng, nb, nb, bs, 0.5)),
+                       (nb * bs, nb * bs), bs) for _ in range(2))
+    plan = sparse.spgemm_symbolic(a, b)
+    c_rowp = plan.c_rowp.copy()
+    c_rowp[1:] -= 1                      # drop block-row 0's last tile
+    c_cols = np.delete(plan.c_cols, plan.c_rowp[1] - 1)
+    assert plan.c_rowp[1] > 0
+    return ((a.values, a.cols, a.rowp, b.values, b.cols, b.rowp,
+             torch.as_tensor(c_cols, device=dev),
+             torch.as_tensor(c_rowp, device=dev)), nb * bs)
+
+
+def test_spgemm_bsr_plain_raises_on_a_tile_missing_from_the_plan():
+    args, ncols = _spgemm_args_missing_a_tile("cpu")
+    with pytest.raises(ValueError, match="not in c_cols"):
+        spgemm_k.spgemm_bsr(*args, ncols=ncols)
 
 
 def test_non_power_of_two_fft_has_no_variant():
@@ -231,3 +360,118 @@ def test_cuda_operands_select_cuda_plane(card):
         assert registry.select("matmul", a, a).plane == "torch"
     from repro_torch.core import bind
     assert bind(np.ones(3)).device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,fill,k", [(10240, 5.72, 64), (100, 3.5, 1),
+                                      (37, 20.0, 3), (37, 20.0, 65)])
+def test_spmm_ell_kernel_matches_plain(n, fill, k, card):
+    from repro_torch.numerics import sparse
+
+    a = sparse.random_sparse(n, fill, seed=n)
+    ell = sparse.ell_from_csr(sparse.csr_from_dense(a, device=card))
+    g = torch.Generator(device=card).manual_seed(k)
+    x = torch.randn(n, k, device=card, generator=g)
+    before = spmm_k.spmm_ell.launches
+    got = spmm_k.spmm_ell(ell.values, ell.cols, x)
+    want = spmm_k.spmm_ell_plain(ell.values, ell.cols, x)
+    torch.cuda.synchronize()
+    assert spmm_k.spmm_ell.launches == before + 1
+    # f32 sums in another order (FMA chain per thread vs einsum)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("k", [1, 3, 65])
+def test_spmm_bsr_kernel_matches_plain(bs, k, card):
+    rng = np.random.default_rng(bs * 1000 + k)
+    vals, cols, rowp = _bsr_operand(rng, 40, 30, bs, 0.2,
+                                    empty_rows=(0, 17, 39))
+    vals, cols, rowp = (torch.as_tensor(v, device=card)
+                        for v in (vals, cols, rowp))
+    x = torch.as_tensor(_randn(rng, (30 * bs, k)), device=card)
+    before = spmm_k.spmm_bsr.launches
+    got = spmm_k.spmm_bsr(vals, cols, rowp, x)
+    want = spmm_k.spmm_bsr_plain(vals, cols, rowp, x)
+    torch.cuda.synchronize()
+    assert spmm_k.spmm_bsr.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[17 * bs:18 * bs].any()           # an empty block-row
+
+
+@pytest.mark.cuda
+def test_spmm_bsr_no_blocks_gives_zeros_without_launch(card):
+    vals = torch.zeros((0, 8, 8), device=card)
+    cols = torch.zeros(0, dtype=torch.int32, device=card)
+    rowp = torch.zeros(5, dtype=torch.int32, device=card)
+    before = spmm_k.spmm_bsr.launches
+    y = spmm_k.spmm_bsr(vals, cols, rowp, torch.ones(32, 3, device=card))
+    assert y.shape == (32, 3) and not y.any()
+    assert spmm_k.spmm_bsr.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_spgemm_bsr_kernel_matches_plain(bs, card):
+    from repro_torch import sparse
+
+    rng = np.random.default_rng(bs)
+    nb = 24
+    shape = (nb * bs, nb * bs)
+    a, b = (sparse.BSR(*(torch.as_tensor(v, device=card) for v in
+                         _bsr_operand(rng, nb, nb, bs, 0.3,
+                                      empty_rows=(3, 11))), shape, bs)
+            for _ in range(2))
+    plan = sparse.spgemm_symbolic(a, b)
+    args = (a.values, a.cols, a.rowp, b.values, b.cols, b.rowp,
+            torch.as_tensor(plan.c_cols, device=card),
+            torch.as_tensor(plan.c_rowp, device=card))
+    before = spgemm_k.spgemm_bsr.launches
+    got = spgemm_k.spgemm_bsr(*args, ncols=shape[1])
+    want = spgemm_k.spgemm_bsr_plain(*args, ncols=shape[1])
+    torch.cuda.synchronize()
+    assert spgemm_k.spgemm_bsr.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_spgemm_bsr_no_pairs_gives_zeros(card):
+    """A's only live block-column meets an empty block-row of B: the plan
+    has no pairs and no output tiles, and nothing launches."""
+    from repro_torch import sparse
+
+    a_np = np.zeros((32, 32), np.float32)
+    a_np[:8, :8] = 1.0
+    b_np = np.zeros((32, 32), np.float32)
+    b_np[8:16, :8] = 1.0
+    a = sparse.bsr_from_dense(a_np, device=card)
+    b = sparse.bsr_from_dense(b_np, device=card)
+    before = spgemm_k.spgemm_bsr.launches
+    c = sparse.spgemm(a, b)
+    assert c.nblocks == 0 and c.device.type == "cuda"
+    assert spgemm_k.spgemm_bsr.launches == before
+    np.testing.assert_array_equal(c.todense(), np.zeros((32, 32)))
+
+
+@pytest.mark.cuda
+def test_spgemm_bsr_kernel_raises_on_a_tile_missing_from_the_plan(card):
+    args, ncols = _spgemm_args_missing_a_tile(card)
+    before = spgemm_k.spgemm_bsr.launches
+    with pytest.raises(ValueError, match="not in c_cols"):
+        spgemm_k.spgemm_bsr(*args, ncols=ncols)
+    assert spgemm_k.spgemm_bsr.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_sparse_ops_select_the_kernels(card):
+    from repro_torch import sparse
+
+    a = np.zeros((64, 64), np.float32)
+    a[:16, 16:32] = 1.0
+    x = torch.ones(64, 4, device=card)
+    for fmt, name in (("bsr", "bsr"), ("ell", "ell")):
+        m = sparse.matrix(a, format=fmt, device=card)
+        assert registry.select("spmm", m, x).name == name
+    m = sparse.matrix(a, format="bsr", device=card)
+    assert registry.select("spgemm", m, m).name == "bsr"

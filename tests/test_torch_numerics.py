@@ -134,8 +134,9 @@ class TestMod2as:
         assert registry.select("solver_spmv", t_sp.ell_from_csr(tc), x).name == "ell"
         assert registry.select("solver_spmv", t_sp.dia_from_dense(a, device=CPU),
                                x).name == "dia"
-        with pytest.raises(LookupError):
-            registry.select("solver_spmv", tc, _tb(np.ones((16, 2))))
+        # a 2-D x takes the multi-RHS route of the blocked-sparse plane
+        assert registry.select("solver_spmv", tc,
+                               _tb(np.ones((16, 2)))).name == "spmm"
 
 
 class TestMod2f:
