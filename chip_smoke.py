@@ -26,10 +26,21 @@
              < 1e-5
      SpGEMM  benchmarks/spgemm.py: n = 2048, block 8, clustered 0.02 /
              0.08 / 0.2 and banded bw 31 / 127, relative error < 1e-3
+   c. Serving qwen3-1.7b at full width (28 layers, bf16, seeded random
+      weights): Engine.generate on 4 prompts of 512 tokens, 32 new tokens,
+      greedy (the prefill runs the tiles kernel), and ContinuousEngine.serve
+      on 8 requests of 64-1024 prompt tokens and 16-64 new tokens, 4 slots,
+      chunks of 128 (the lens-state and tiles-state kernels).  Checks: the
+      Engine's prefill logits on the cuda plane against the torch plane on
+      the same tensors; and, at full width in f32 with 2 layers, the
+      ContinuousEngine's greedy tokens equal the fixed Engine's per request
+      (a differing token must sit at a top-2 logit margin <= 1e-3).
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
-   trace (``kernel_ms``), and print one JSON line of kernel records.
+   trace (``kernel_ms``); profile a short window of each engine's work
+   (device time by kernel group, the device's idle share); print one JSON
+   line of kernel records.
 5. Print the contract line {"ok": true, "device": {...}} last.
 
 Any failure raises and exits nonzero before the last line.  Without a CUDA
@@ -38,6 +49,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,10 +60,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
-# float32 FMA rate outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
+# float32 FMA rate outside the tensor cores, the bf16 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 L2_SCRUB_BYTES = 256 << 20
 
 
@@ -59,9 +72,10 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = PEAK_F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -472,6 +486,450 @@ def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
             "spgemm_bsr": lambda: spgemm_k.spgemm_bsr(*args, ncols=ncols)}
 
 
+# -- the attention kernels and the serve path (qwen3-1.7b) --------------------
+
+ARCH = "qwen3-1.7b"
+#: Engine.generate: 4 prompts of 512 tokens, 32 new tokens, greedy.
+FIXED_BATCH, FIXED_PROMPT, FIXED_NEW = 4, 512, 32
+#: ContinuousEngine.serve: 8 requests (prompt tokens, new tokens), 4 slots,
+#: chunks of 128, slot capacity 1152 = 9 x 128 tokens.
+SERVE_REQS = ((64, 16), (1024, 64), (200, 32), (512, 48), (777, 16),
+              (128, 64), (333, 24), (960, 40))
+SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_LEN = 4, 128, 1152
+#: The profiled windows: the Engine's prompts with 8 new tokens, and the
+#: first 4 requests with 8 new tokens each through the ContinuousEngine.
+PROFILE_NEW = 8
+#: Timed shapes: the prefill attention (B, Hq, Hkv, L, d) and paged decode
+#: (B slots, Lq = 1, capacity Lk).
+ATTN_SHAPE = (4, 16, 8, 512, 128)
+DECODE_B, DECODE_LK = 8, 2048
+#: A prime length: every block leaves a short last tile.
+PRIME_LEN = 1021
+
+
+def attn_inputs(torch, dtype, b, hq, hkv, lq, lk, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, device="cuda", generator=g).to(dtype)
+                 for shape in ((b, hq, lq, d), (b, hkv, lk, d),
+                               (b, hkv, lk, d)))
+
+
+def attn_tol(torch, dtype) -> tuple[float, float]:
+    """f32: the kernels sum q.k serially over d and the plain versions
+    through a BLAS product, a few ulps apart.  bf16: both round P and o to
+    bf16, and a last-bit difference in f32 flips a rounding: one bf16 ulp
+    of the output (up to 2^-7 relative) plus 2e-3 for the P roundings."""
+    if dtype == torch.float32:
+        return 1e-5, 1e-5
+    return 2.0 ** -7, 2e-3
+
+
+def hold_attention_kernels(torch, kernels) -> None:
+    """Phase 1 for the three attention kernels, in f32 and bf16: the dense
+    grid (causal and not, with and without state), the lens kernel (kv_len
+    0 to full; o and l compared on rows with a live key, m must be NEG_INF
+    on the others), the tiles kernel over causal_layout, a window spec (the
+    band path) and a global-token spec (the bias path), GQA groups 1 and 2;
+    the serve path's own decode and chunk shapes and a prime length at full
+    width; then the f32 bitwise equality of tiles and dense causal, at the
+    prefill shape and at the prime length."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import (MaskSpec, causal_layout,
+                                                 compile_layout)
+
+    b, hq, hkv, L, d = ATTN_SHAPE
+    errs = {"flash_attention": [], "flash_attention_lens": [],
+            "flash_attention_tiles": []}
+
+    def close(got, want, dtype, what, rows=None):
+        got, want = got.float(), want.float()
+        if rows is not None:
+            got, want = got[rows], want[rows]
+        rtol, atol = attn_tol(torch, dtype)
+        return max_err(torch, got, want, rtol, atol, what)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for group in (1, 2):
+            q, k, v = attn_inputs(torch, dtype, b, hq, hq // group, L, L, d,
+                                  group)
+            for causal in (False, True):
+                got = fa_k.flash_attention(q, k, v, causal=causal,
+                                           row_extents=False,
+                                           return_state=True)
+                want = fa_k.flash_attention_plain(q, k, v, causal=causal,
+                                                  return_state=True)
+                e = close(got[0], want[0], dtype,
+                          f"flash_attention {dtype} g{group} causal={causal}")
+                torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                                           atol=1e-5)
+                torch.testing.assert_close(got[2], want[2], rtol=1e-5,
+                                           atol=1e-5 * L)
+                o = fa_k.flash_attention(q, k, v, causal=causal,
+                                         row_extents=False)
+                if not torch.equal(o, got[0]):
+                    raise AssertionError("flash_attention: o differs with "
+                                         "and without state")
+                if dtype == torch.bfloat16 and group == 2 and not causal:
+                    errs["flash_attention"].append(e)
+            for name, spec in (("causal", MaskSpec(causal=True)),
+                               ("window", MaskSpec(causal=True,
+                                                   window=L // 4)),
+                               ("globals", MaskSpec(causal=True,
+                                                    window=L // 4,
+                                                    global_tokens=(0, 1,
+                                                                   L // 2)))):
+                lay = compile_layout(spec, L, L, 128, 128)
+                got = fa_k.flash_attention_tiles(q, k, v, lay,
+                                                 return_state=True)
+                want = fa_k.flash_attention_tiles_plain(q, k, v, lay,
+                                                        return_state=True)
+                e = close(got[0], want[0], dtype,
+                          f"flash_attention_tiles {name} {dtype} g{group}")
+                torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                                           atol=1e-5)
+                if dtype == torch.bfloat16 and group == 2 and \
+                        name == "causal":
+                    errs["flash_attention_tiles"].append(e)
+        # lens: the timed decode (8 slots, Lq = 1, capacity 2048), the serve
+        # path's decode (4 slots, its gathered capacity 1152), a chunk's
+        # prefix (B = 1, Lq = 128 against 1152) and a prime capacity
+        for bsz, lq, lk in ((DECODE_B, 1, DECODE_LK),
+                            (SERVE_SLOTS, 1, SERVE_MAX_LEN),
+                            (1, SERVE_CHUNK, SERVE_MAX_LEN),
+                            (DECODE_B, 1, PRIME_LEN)):
+            q, k, v = attn_inputs(torch, dtype, bsz, hq, hkv, lq, lk, d,
+                                  lq + bsz)
+            kv_len = torch.tensor([0, lk, 1, 7, lk // 2, lk - 1, 129,
+                                   1000][:bsz] if bsz > 1 else [lk // 2 + 1],
+                                  dtype=torch.int32, device="cuda")
+            got = fa_k.flash_attention_lens(q, k, v, kv_len,
+                                            return_state=True)
+            want = fa_k.flash_attention_plain(q, k, v, causal=False,
+                                              kv_len=kv_len,
+                                              return_state=True)
+            live = kv_len > 0
+            if not torch.all(got[1][~live] == fa_k.NEG_INF):
+                raise AssertionError("flash_attention_lens: a row with no "
+                                     "live key has m != NEG_INF")
+            e = close(got[0], want[0], dtype,
+                      f"flash_attention_lens {dtype} B={bsz} Lq={lq} "
+                      f"Lk={lk}", live)
+            torch.testing.assert_close(got[2][live], want[2][live],
+                                       rtol=1e-5, atol=1e-5 * lk)
+            if dtype == torch.bfloat16 and (bsz, lk) == (DECODE_B,
+                                                         DECODE_LK):
+                errs["flash_attention_lens"].append(e)
+        # the ContinuousEngine's chunk against itself (B = 1, 128 x 128,
+        # causal, with state: the tiles walk), and the fixed Engine's
+        # prefill at a prime length (short last Q and K tiles), through the
+        # wrapper's routing at the full width
+        for n in (SERVE_CHUNK, PRIME_LEN):
+            q, k, v = attn_inputs(torch, dtype, 1, hq, hkv, n, n, d, n)
+            for causal in (False, True) if n == PRIME_LEN else (True,):
+                before = fa_k.flash_attention_tiles.launches
+                got = fa_k.flash_attention(q, k, v, causal=causal,
+                                           return_state=True)
+                if causal != (fa_k.flash_attention_tiles.launches
+                              == before + 1):
+                    raise AssertionError("flash_attention: causal calls "
+                                         "must route to the tiles walk")
+                want = (fa_k.flash_attention_tiles_plain(
+                    q, k, v, causal_layout(n, n, 128, 128),
+                    return_state=True) if causal else
+                    fa_k.flash_attention_plain(q, k, v, causal=False,
+                                               return_state=True))
+                close(got[0], want[0], dtype,
+                      f"flash_attention L={n} causal={causal} {dtype}")
+                torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                                           atol=1e-5)
+    for name, e in errs.items():
+        kernels[name]["max_abs_err"] = max(e)
+    # the f32 bitwise property (the JAX package's
+    # test_causal_row_extents_bitwise_parity)
+    for bsz, n in ((b, L), (1, PRIME_LEN)):
+        q, k, v = attn_inputs(torch, torch.float32, bsz, hq, hkv, n, n, d, 7)
+        tiles = fa_k.flash_attention_tiles(
+            q, k, v, causal_layout(n, n, 128, 128), return_state=True)
+        dense = fa_k.flash_attention(q, k, v, causal=True, row_extents=False,
+                                     return_state=True)
+        if not all(torch.equal(t, g) for t, g in zip(tiles, dense)):
+            raise AssertionError(f"tiles over causal_layout are not bitwise "
+                                 f"equal to the dense causal grid in f32 at "
+                                 f"L={n}")
+    torch.cuda.synchronize()
+
+
+def serve_requests(vocab: int):
+    rng = np.random.default_rng(13)
+    return [(rng.integers(0, vocab, size=n).astype(np.int32), m)
+            for n, m in SERVE_REQS]
+
+
+def device_breakdown(torch, fn) -> dict:
+    """Run ``fn`` once unprofiled (host clock, synchronised), then once
+    under torch.profiler (CUDA activity only, which keeps its host cost
+    low), and sum the device time of the run's CUDA kernels by group.  The
+    busy share is that sum over the unprofiled wall time; one stream, so
+    kernels do not overlap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups: dict = {}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        name, low = e.key, e.key.lower()
+        if "flash_attention_lens_kernel" in name:
+            g = "flash_attention_lens"
+        elif "flash_attention_tiles_kernel" in name:
+            g = "flash_attention_tiles"
+        elif "flash_attention_kernel" in name:
+            g = "flash_attention"
+        elif any(t in low for t in ("gemm", "gemv", "cutlass", "xmma",
+                                    "nvjet", "cublas", "splitk")):
+            g = "matmul (cuBLAS)"
+        elif any(t in low for t in ("index", "gather", "scatter")):
+            g = "gather/scatter"
+        elif "copy" in low or "cat" in low:
+            g = "copies"
+        else:
+            g = "elementwise/reduce"
+        t_s = e.device_time_total / 1e6
+        groups[g] = groups.get(g, 0.0) + t_s
+        top.append((t_s, name[:70]))
+    busy = sum(groups.values())
+    return {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall,
+            "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "top": sorted(top, reverse=True)[:6]}
+
+
+def fmt_breakdown(b: dict) -> str:
+    if not b["groups"]:
+        return "no device time in the trace"
+    parts = ", ".join(f"{g} {t * 1e3:.1f} ms ({t / b['busy_s']:.0%})"
+                      for g, t in b["groups"].items())
+    top = "; ".join(f"{n} {t * 1e3:.1f} ms" for t, n in b["top"])
+    return (f"wall {b['wall_s'] * 1e3:.1f} ms, device busy "
+            f"{b['busy_s'] * 1e3:.1f} ms, idle share {b['idle_share']:.0%}: "
+            f"{parts}\n    top kernels: {top}")
+
+
+def run_serve_path(torch, wrappers) -> dict:
+    """Phase 2c: qwen3-1.7b at full width in bf16 through both engines
+    (launch counts reset just before each engine's measured run and read
+    just after it), a profile of each engine's run, then checks (a) and
+    (b).  Returns the path's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import ContinuousEngine, Engine, SamplingParams
+
+    cfg = get_config(ARCH)
+    lm = LM(cfg)
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    t = time.perf_counter()
+    params = lm.init(0, device="cuda")
+    torch.cuda.synchronize()
+
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(x) for x in tree.values())
+        if isinstance(tree, list):
+            return sum(count(x) for x in tree)
+        return tree.numel()
+
+    out = {"init_s": time.perf_counter() - t, "params": count(params)}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (FIXED_BATCH, FIXED_PROMPT),
+                            generator=g, device="cuda")
+    greedy = SamplingParams(greedy=True)
+    eng = Engine(lm, params, max_len=FIXED_PROMPT + FIXED_NEW,
+                 sampling=greedy)
+    eng.generate(prompts[:, :64], max_new_tokens=2)        # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = eng.generate(prompts, max_new_tokens=1)
+    torch.cuda.synchronize()
+    out["fixed_ttft_s"] = time.perf_counter() - t
+    reset()
+    t = time.perf_counter()
+    toks = eng.generate(prompts, max_new_tokens=FIXED_NEW)
+    torch.cuda.synchronize()
+    out["fixed_s"] = time.perf_counter() - t
+    out["fixed_launches"] = read()
+    out["fixed_step_s"] = (out["fixed_s"] - out["fixed_ttft_s"]) / (
+        FIXED_NEW - 1)
+    out["fixed_tok_s"] = FIXED_BATCH * FIXED_NEW / out["fixed_s"]
+    if toks.shape != (FIXED_BATCH, FIXED_NEW) or not torch.equal(
+            toks[:, :1], first) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"Engine.generate: bad tokens {toks.shape}")
+
+    reqs = serve_requests(cfg.vocab_size)
+    ce = ContinuousEngine(lm, params, num_slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN, chunk_size=SERVE_CHUNK,
+                          sampling=greedy)
+    torch.cuda.synchronize()
+    reset()
+    t = time.perf_counter()
+    got, stats = ce.serve(reqs, collect_stats=True)
+    torch.cuda.synchronize()
+    out["cont_s"] = time.perf_counter() - t
+    out["cont_launches"] = read()
+    ntok = sum(len(x) for x in got)
+    if [len(x) for x in got] != [m for _, m in reqs] or len(
+            ce.decode_inputs) != 1:
+        raise AssertionError(f"ContinuousEngine.serve: lengths "
+                             f"{[len(x) for x in got]}, decode input "
+                             f"signatures {len(ce.decode_inputs)}")
+    out["cont_tok_s"] = ntok / out["cont_s"]
+    out["cont_ttft_s"] = float(np.mean(stats.first_token_times))
+    out["cont_iter_s"] = out["cont_s"] / len(stats.iter_times)
+    out["cont_iters"] = len(stats.iter_times)
+    out["launches"] = {k: out["fixed_launches"][k] + out["cont_launches"][k]
+                       for k in wrappers}
+
+    # where the device time goes, on a shorter window of each engine's
+    # work (a trace of the whole serve holds ~10^5 kernels and takes
+    # minutes); the caller runs it after the kernel timings, whose
+    # profiler traces lose events after a large trace
+    sub = [(p, PROFILE_NEW) for p, _ in reqs[:SERVE_SLOTS]]
+    out["profile"] = lambda: (
+        device_breakdown(torch, lambda: eng.generate(
+            prompts, max_new_tokens=PROFILE_NEW)),
+        device_breakdown(torch, lambda: ContinuousEngine(
+            lm, params, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+            chunk_size=SERVE_CHUNK, sampling=greedy).serve(sub)))
+
+    # (a) prefill logits, cuda plane against the torch plane
+    logits, _ = lm.prefill(params, prompts)
+    with registry.use_backend("torch"):
+        plain, _ = lm.prefill(params, prompts)
+    diff = (logits.float() - plain.float()).abs()
+    scale = float(plain.float().abs().max())
+    out["a_max_abs"], out["a_scale"] = float(diff.max()), scale
+    out["a_argmax_agree"] = float(
+        (logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    # bf16 keeps 8 bits: over 28 layers the two planes round P and o at
+    # different places, so the logits drift apart by a few bf16 ulps of
+    # their scale (2^-8 relative each); 8 ulps bounds it.
+    if not out["a_max_abs"] <= 8 * 2.0 ** -8 * scale:
+        raise AssertionError(f"(a) prefill logits: max |cuda - torch| "
+                             f"{out['a_max_abs']} above 8 bf16 ulps of "
+                             f"{scale}")
+
+    # (b) f32 at full width, 2 layers: continuous == fixed, per request
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                param_dtype="float32")
+    lm32 = LM(cfg32)
+    p32 = lm32.init(0, device="cuda")
+    fixed = Engine(lm32, p32, max_len=SERVE_MAX_LEN, sampling=greedy)
+    want = [fixed.generate(torch.as_tensor(p[None], device="cuda"),
+                           max_new_tokens=m)[0].tolist() for p, m in reqs]
+    cont = ContinuousEngine(lm32, p32, num_slots=SERVE_SLOTS,
+                            max_len=SERVE_MAX_LEN, chunk_size=SERVE_CHUNK,
+                            sampling=greedy).serve(reqs)
+    out["b_equal"], out["b_margins"] = 0, []
+    for (p, m), w, c in zip(reqs, want, cont):
+        c = c.tolist()
+        if c == w:
+            out["b_equal"] += 1
+            continue
+        i = next(j for j in range(m) if c[j] != w[j])
+        seq = torch.as_tensor(np.concatenate([p, np.asarray(w[:i],
+                                                             np.int32)]),
+                              device="cuda")
+        lg, _ = lm32.prefill(p32, seq[None])
+        top = torch.topk(lg[0].float(), 2).values
+        margin = float(top[0] - top[1])
+        out["b_margins"].append(margin)
+        log(f"(b) request of {len(p)} tokens: first divergence at token {i} "
+            f"({c[i]} vs {w[i]}), top-2 logit margin {margin:.3e}")
+        if margin > 1e-3:
+            raise AssertionError("(b) continuous and fixed engines differ "
+                                 "at a margin above 1e-3")
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_attention_kernels(torch, kernels, cold_ms) -> dict:
+    """Phase 3 for the attention kernels, bf16: row 8 at the prefill shape
+    non-causal, row 10 at the same shape causal (the prefill), row 9 at
+    paged decode (8 slots, Lq = 1, capacity 2048, kv_len spread over
+    1..2048).  Bound: the larger of q, k, v, o (and m, l) bytes at HBM rate
+    and 4 * B * Hq * (live query-key pairs) * d flops at the bf16
+    tensor-core rate.  Library: scaled_dot_product_attention on the same
+    inputs (timed only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import causal_layout
+
+    b, hq, hkv, L, d = ATTN_SHAPE
+    q, k, v = attn_inputs(torch, torch.bfloat16, b, hq, hkv, L, L, d, 21)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    lay = causal_layout(L, L, 128, 128)
+    calls = {
+        "flash_attention": (
+            lambda: fa_k.flash_attention(q, k, v, causal=False),
+            lambda: fa_k.flash_attention_plain(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   enable_gqa=True),
+            nbytes, 4.0 * b * hq * L * L * d),
+        "flash_attention_tiles": (
+            lambda: fa_k.flash_attention_tiles(q, k, v, lay),
+            lambda: fa_k.flash_attention_tiles_plain(q, k, v, lay),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            nbytes, 4.0 * b * hq * (L * (L + 1) // 2) * d),
+    }
+    qd, kd, vd = attn_inputs(torch, torch.bfloat16, DECODE_B, hq, hkv, 1,
+                             DECODE_LK, d, 22)
+    kv_len = torch.linspace(1, DECODE_LK, DECODE_B, device="cuda").round().to(
+        torch.int32)
+    live = int(kv_len.sum())
+    mask = (torch.arange(DECODE_LK, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    calls["flash_attention_lens"] = (
+        lambda: fa_k.flash_attention_lens(qd, kd, vd, kv_len,
+                                          return_state=True),
+        lambda: fa_k.flash_attention_plain(qd, kd, vd, causal=False,
+                                           kv_len=kv_len, return_state=True),
+        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                               enable_gqa=True),
+        # q, o; the live keys and values; m, l
+        2 * 2 * qd.numel() + 2 * 2 * live * hkv * d + 8 * DECODE_B * hq,
+        4.0 * hq * live * d)
+    timed = {}
+    for name, (kern, plain, lib, nb, flops) in calls.items():
+        rec = kernels[name]
+        rec["ms"] = cold_ms(kern, 50)
+        rec["plain_ms"] = cold_ms(plain, 5)
+        rec["library_ms"] = cold_ms(lib, 50)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flops,
+                                                    PEAK_BF16_FLOP_PER_S)
+        timed[name] = kern
+    log(f"attention timed: bf16, prefill B={b} Hq/Hkv={hq}/{hkv} L={L} d={d};"
+        f" decode B={DECODE_B} Lk={DECODE_LK} kv_len {kv_len.tolist()}")
+    return timed
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -491,6 +949,7 @@ def main() -> int:
     import repro_torch.core as C
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels import fft as fft_k
+    from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import matmul as mm_k
     from repro_torch.kernels import spgemm as spgemm_k
     from repro_torch.kernels import spmm as spmm_k
@@ -509,7 +968,8 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = {k: {"name": k} for k in
                ("matmul", "spmv_ell", "spmv_dia", "fft_stage", "spmm_ell",
-                "spmm_bsr", "spgemm_bsr")}
+                "spmm_bsr", "spgemm_bsr", "flash_attention",
+                "flash_attention_lens", "flash_attention_tiles")}
 
     # -- inputs of the main path (fixed seeds, as benchmarks/*.py) ----------
     n_mm = 1024
@@ -604,8 +1064,9 @@ def main() -> int:
         max_err(torch, got, plain, 1e-5, atol, f"fft {nz}")
 
     hold_sparse_kernels(torch, sparse_in, ell, kernels)
+    hold_attention_kernels(torch, kernels)
     torch.cuda.synchronize()
-    log("phase 1: 7 kernels agree with their plain versions")
+    log(f"phase 1: {len(kernels)} kernels agree with their plain versions")
 
     # -- phase 2a: the paper's path, counted --------------------------------
     wrappers = {"matmul": mm_k.matmul, "spmv_ell": spmv_k.spmv_ell,
@@ -688,6 +1149,43 @@ def main() -> int:
                              f"path: {missing}")
     launches.update(sparse_launches)
 
+    # -- phase 2c: the serve path, counted ----------------------------------
+    attn_wrappers = {"flash_attention": fa_k.flash_attention,
+                     "flash_attention_lens": fa_k.flash_attention_lens,
+                     "flash_attention_tiles": fa_k.flash_attention_tiles}
+    t_path = time.perf_counter()
+    serve = run_serve_path(torch, attn_wrappers)
+    attn_launches = serve["launches"]
+    log(f"phase 2c: {ARCH} serve path and its checks in "
+        f"{time.perf_counter() - t_path:.2f} s, kernel launches: Engine "
+        f"{serve['fixed_launches']}, ContinuousEngine "
+        f"{serve['cont_launches']}")
+    missing = [f"Engine {k}" for k in ("flash_attention_tiles",)
+               if serve["fixed_launches"][k] == 0] + [
+        f"ContinuousEngine {k}" for k in ("flash_attention_lens",
+                                          "flash_attention_tiles")
+        if serve["cont_launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the serve path: "
+                             f"{missing}")
+    launches.update(attn_launches)
+    log(f"{ARCH} ({serve['params']} parameters, bf16, init "
+        f"{serve['init_s']:.2f} s) on {smi[0]}:")
+    log(f"  Engine: {FIXED_BATCH} x {FIXED_PROMPT} prompt tokens, "
+        f"{FIXED_NEW} new: {serve['fixed_tok_s']:.1f} tok/s, time to first "
+        f"token {serve['fixed_ttft_s'] * 1e3:.1f} ms, "
+        f"{serve['fixed_step_s'] * 1e3:.2f} ms per decode step")
+    log(f"  ContinuousEngine: {len(SERVE_REQS)} requests, {SERVE_SLOTS} "
+        f"slots, chunk {SERVE_CHUNK}: {serve['cont_tok_s']:.1f} tok/s, "
+        f"mean time to first token {serve['cont_ttft_s'] * 1e3:.1f} ms, "
+        f"{serve['cont_iters']} iterations of "
+        f"{serve['cont_iter_s'] * 1e3:.2f} ms")
+    log(f"  (a) prefill logits cuda vs torch plane: max abs diff "
+        f"{serve['a_max_abs']:.4g} (logit scale {serve['a_scale']:.4g}), "
+        f"argmax agreement {serve['a_argmax_agree']:.3f}")
+    log(f"  (b) f32, 2 layers: {serve['b_equal']}/{len(SERVE_REQS)} requests "
+        f"token-equal; margins at divergences {serve['b_margins']}")
+
     # -- phase 3: times, cold L2 --------------------------------------------
     scrub = scrub_buffer(torch)
 
@@ -747,6 +1245,7 @@ def main() -> int:
 
     timed_sparse = time_sparse_kernels(torch, sparse_in, csr, ell, kernels,
                                        cold_ms, csr_tensor)
+    timed_attn = time_attention_kernels(torch, kernels, cold_ms)
 
     routes = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
@@ -763,16 +1262,29 @@ def main() -> int:
                      "src/repro/kernels/spmm.py:91"),
         "spgemm_bsr": ("src/repro_torch/kernels/csrc/spgemm.cu",
                        "src/repro/kernels/spgemm.py:45"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:154"),
+        "flash_attention_lens": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:183"),
+        "flash_attention_tiles": (
+            "src/repro_torch/kernels/csrc/flash_attention_tiles.cu",
+            "src/repro/kernels/flash_attention.py:275"),
     }
     timed = {"matmul": lambda: mm_k.matmul(a, b),
              "spmv_ell": lambda: spmv_k.spmv_ell(vals, cols, x),
              "spmv_dia": lambda: spmv_k.spmv_dia(diags, offs, xcg),
              "fft_stage": lambda: ops.stage_loop(re0, im0, tw_re, tw_im,
                                                  fft_k.fft_stage),
-             **timed_sparse}
+             **timed_sparse, **timed_attn}
     for name, fn in timed.items():
         kernels[name]["kernel_ms"] = kernel_ms(torch, fn, 20,
                                                f"{name}_kernel", scrub)
+    fixed_prof, cont_prof = serve["profile"]()
+    log(f"{ARCH} device time by kernel group on {smi[0]}:")
+    log(f"  Engine, {PROFILE_NEW} new tokens: {fmt_breakdown(fixed_prof)}")
+    log(f"  ContinuousEngine, first {SERVE_SLOTS} requests with "
+        f"{PROFILE_NEW} new tokens: {fmt_breakdown(cont_prof)}")
     out = []
     for name, r in kernels.items():
         src, replaces = routes[name]

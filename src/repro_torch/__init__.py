@@ -8,6 +8,11 @@ and numpy, never ``jax`` and nothing of ``repro``.
                PyTorch versions and the registered entry points
     numerics   the paper's four Euroben kernels, CG and block-CG
     sparse     the blocked-sparse plane: BSR, statistics, the format
-               selector, SpMM and SpGEMM
+               selector, SpMM and SpGEMM, and the attention mask compiler
+    configs    model configurations (qwen3-1.7b so far)
+    models     the LM: layers, GQA attention, the dense block
+    serve      the fixed and continuous-batching engines, the paged cache
+    launch     command-line entry points (``python -m
+               repro_torch.launch.serve``)
     interop    carries the JAX package's objects (as numpy) across
 """

@@ -1,0 +1,21 @@
+"""qwen3-1.7b [dense]: 28L d_model=2048 16H (GQA kv=8) d_ff=6144 vocab=151936.
+
+qk_norm, GQA, head_dim=128.  [hf:Qwen/Qwen3-8B family; hf-verified]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen3-1.7b",
+    family="dense",
+    num_layers=28,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=6144,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,          # qwen3-1.7b ties embeddings
+    param_dtype="bfloat16",
+))

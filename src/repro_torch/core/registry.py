@@ -2,8 +2,8 @@
 ``repro.core.registry``), chip scope only.
 
 Every operator (``matmul``, ``spmv_ell``, ``spmv_dia``, ``fft``, the solver
-SpMV formulations, the blocked-sparse ``spmm`` and ``spgemm``) registers
-variants, and :func:`dispatch` picks one.
+SpMV formulations, the blocked-sparse ``spmm`` and ``spgemm``, and the
+attention ops) registers variants, and :func:`dispatch` picks one.
 
     plane     how a variant executes:
               'cuda'  a hand-written kernel (``repro_torch/kernels/csrc``),
@@ -61,11 +61,16 @@ PLANES = ("cuda", "torch")
 class Cost:
     """Named static cost tiers (DESIGN.md §6).
 
-    Plane tiers: ``CUDA`` (hand-written kernel) < ``TORCH`` (plain eager
-    version) < ``ORACLE``.  Sparse-layout ranks (``DIA`` < ``BSR`` < ``ELL``
-    < ``CSR``) mirror the format selector's strongest-first ordering."""
+    Plane tiers: ``BLOCKSPARSE`` (the tile-skipping attention kernel,
+    admissible only when its density gate passes) < ``CUDA`` (hand-written
+    kernel) < ``TORCH_CHUNKED`` (streamed plain schedule) < ``TORCH``
+    (plain eager version) < ``ORACLE``.  Sparse-layout ranks (``DIA`` <
+    ``BSR`` < ``ELL`` < ``CSR``) mirror the format selector's
+    strongest-first ordering."""
 
+    BLOCKSPARSE = 0.75
     CUDA = 1.0
+    TORCH_CHUNKED = 1.5
     TORCH = 2.0
     ORACLE = 20.0
 
@@ -84,6 +89,10 @@ _PROVIDERS = {
     "solver_spmv": ("repro_torch.numerics.spmv", "repro_torch.sparse.spmm"),
     "spmm": ("repro_torch.sparse.spmm",),
     "spgemm": ("repro_torch.sparse.spgemm",),
+    "flash_attention": ("repro_torch.kernels.ops",),
+    "flash_attention_state": ("repro_torch.kernels.ops",),
+    "paged_attention": ("repro_torch.kernels.ops",),
+    "chunk_attention": ("repro_torch.kernels.ops",),
 }
 
 _loaded_providers: set = set()

@@ -7,6 +7,9 @@ shape)`` and ``BSR(values, cols, rowp, shape, block, stats)``.
 arrays, or anything ``numpy.asarray`` reads) and returns the counterpart
 here, on the device chosen by the ``bind`` rule.  It reads the fields by
 name and imports neither ``jax`` nor ``repro``.
+
+:func:`carry_params` turns the JAX LM's parameter pytree (as numpy) into
+the port's LM parameters, so that both compute the same function.
 """
 from __future__ import annotations
 
@@ -14,13 +17,14 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.containers import Dense, resolve_device, to_device
 from repro_torch.numerics.sparse import CSR, DIA, ELL, index_array
 from repro_torch.sparse.formats import BSR
 from repro_torch.sparse.stats import SparseStats
 
-__all__ = ["carry"]
+__all__ = ["carry", "carry_params"]
 
 
 def _carry_stats(src: Any) -> Optional[SparseStats]:
@@ -66,3 +70,33 @@ def carry(obj: Any, *, device: Any = None, dtype: Any = None):
     if hasattr(obj, "data") and not isinstance(obj, np.ndarray):
         return Dense(to_device(obj.data, dtype, dev))
     return Dense(to_device(obj, dtype, dev))
+
+
+def _leaf(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # through f32: numpy has no bfloat16 that torch reads, and bf16 -> f32
+    # -> bf16 is exact
+    return torch.as_tensor(np.array(x, np.float32), device=device).to(dtype)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    return fn(x)
+
+
+def carry_params(params: dict, cfg, *, device: Any = None) -> dict:
+    """The port's LM parameters from the JAX LM's pytree ``params`` (leaves
+    as numpy arrays or anything ``numpy.asarray`` reads), in ``cfg.pdtype``
+    on the device chosen by the ``bind`` rule.  Layer-stacked
+    ``(num_layers, ...)`` leaves of ``params["layers"]`` become a list of
+    per-layer dicts; every weight keeps its layout (``linear`` weights are
+    (in, out) in both packages)."""
+    dev = resolve_device(device)
+    dtype = cfg.pdtype
+    out = {k: _tree(v, lambda a: _leaf(a, dtype, dev))
+           for k, v in params.items() if k != "layers"}
+    stacked = params["layers"]
+    out["layers"] = [_tree(stacked, lambda a, i=i: _leaf(np.asarray(a)[i],
+                                                         dtype, dev))
+                     for i in range(cfg.num_layers)]
+    return out

@@ -7,9 +7,11 @@
     fft.py        split-stream butterfly stage     (mod2f)
     spmm.py       ELL + BSR SpMM                   (blocked-sparse spmm)
     spgemm.py     BSR x BSR numeric phase          (blocked-sparse spgemm)
-    ops.py        the paper kernels' entry points, registered with
-                  repro_torch.core.registry (the sparse ones register from
-                  repro_torch.sparse)
+    flash_attention.py  dense-grid, key-length and tile-skipping flash
+                  attention                        (the serve tier)
+    ops.py        the entry points of the paper kernels and of attention,
+                  registered with repro_torch.core.registry (the sparse
+                  ones register from repro_torch.sparse)
     ref.py        plain PyTorch oracles
 
 Importing this package builds nothing; the first launch does.

@@ -37,12 +37,13 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("common.cu", "matmul.cu", "spmv.cu", "fft.cu", "spmm.cu",
-           "spgemm.cu")
+           "spgemm.cu", "flash_attention.cu", "flash_attention_tiles.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C entry point -> argument types (pointers and the stream as c_void_p).
 _SIGNATURES = {
     "matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -53,6 +54,11 @@ _SIGNATURES = {
     "spmm_bsr_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "spgemm_bsr_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _I, _I, _P),
+    "flash_attention_tiles_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _F, _I, _I, _P),
 }
 
 
@@ -146,11 +152,15 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: operands must be contiguous")
 
 
-def require_dtypes(what: str, floats, ints) -> None:
-    """f32 for every tensor in ``floats`` and int32 for every one in
-    ``ints``, or raise: the sparse kernels take nothing else and nothing
-    is cast quietly."""
-    if any(t.dtype != torch.float32 for t in floats) \
+def require_dtypes(what: str, floats, ints,
+                   allowed=(torch.float32,)) -> None:
+    """One dtype from ``allowed`` shared by every tensor in ``floats`` and
+    int32 for every one in ``ints``, or raise: nothing is cast quietly.
+    The sparse kernels allow f32 only; the attention kernels f32 or bf16
+    (``cuda_bf16.h``)."""
+    if any(t.dtype != floats[0].dtype for t in floats) \
+            or floats[0].dtype not in allowed \
             or any(t.dtype != torch.int32 for t in ints):
-        raise ValueError(f"{what}: takes f32 values and int32 indices, got "
+        raise ValueError(f"{what}: takes one of {list(allowed)} for values "
+                         f"and int32 indices, got "
                          f"{[t.dtype for t in (*floats, *ints)]}")

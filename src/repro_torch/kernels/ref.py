@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the paper's four kernels and the blocked-sparse
-plane (counterpart of all but the attention half of ``repro.kernels.ref``).
+"""Plain PyTorch oracles for the paper's four kernels, the blocked-sparse
+plane and attention (counterpart of ``repro.kernels.ref``).
 
 Each is the transparent formulation: the 'torch' plane of the main path,
 the plain version each CUDA kernel is held against, and the oracle of the
@@ -15,7 +15,12 @@ from repro_torch.numerics.sparse import csr_row_ids
 
 __all__ = ["matmul_ref", "spmv_ell_ref", "spmv_dia_ref", "spmm_ell_ref",
            "spmm_bsr_ref", "bsr_todense_ref", "spgemm_bsr_ref",
-           "fft_stage_ref", "fft_ref"]
+           "fft_stage_ref", "fft_ref", "attention_ref", "attention_state_ref",
+           "attention_masked_ref", "attention_chunked", "NEG_INF"]
+
+#: The additive mask value (finite, so exp() underflows to 0 instead of
+#: giving inf - inf = nan); ``kernels.flash_attention.NEG_INF`` is this.
+NEG_INF = -1e30
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None
@@ -110,3 +115,97 @@ def fft_stage_ref(data_re, data_im, tw_re, tw_im):
 
 def fft_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.fft.fft(x)
+
+
+def _expand_kv(k: torch.Tensor, v: torch.Tensor, hq: int):
+    """K/V (b, hk, lk, d) repeated along heads to ``hq`` (GQA: q-head h
+    reads kv-head h // (hq / hk))."""
+    group = hq // k.shape[1]
+    if group == 1:
+        return k, v
+    return (k.repeat_interleave(group, dim=1),
+            v.repeat_interleave(group, dim=1))
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale=None
+                  ) -> torch.Tensor:
+    """(b, hq, lq, d) x (b, hk, lk, d) GQA attention, f32 softmax."""
+    return attention_state_ref(q, k, v, causal=causal, scale=scale)[0]
+
+
+def attention_state_ref(q, k, v, *, causal: bool = True, scale=None,
+                        kv_len=None):
+    """:func:`attention_ref` that also returns the online-softmax state
+    ``(o, m, l)``, ``m``/``l`` (b, hq, lq) f32.  Causal masks align the
+    tails (``tril(k=lk - lq)``).  ``kv_len`` (b,) masks keys at positions
+    ``>= kv_len[b]``; a row with no live key keeps ``m == NEG_INF`` and
+    garbage ``l`` (a state merge weights it by exactly 0)."""
+    b, hq, lq, d = q.shape
+    lk = k.shape[2]
+    kk, vv = _expand_kv(k, v, hq)
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+    if causal:
+        mask = torch.ones((lq, lk), dtype=torch.bool,
+                          device=q.device).tril(lk - lq)
+        s = torch.where(mask, s, NEG_INF)
+    if kv_len is not None:
+        live = torch.arange(lk, device=q.device)[None, None, None, :] \
+            < kv_len.to(q.device)[:, None, None, None]
+        s = torch.where(live, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv.float())
+    out = out / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype), m, l
+
+
+def attention_masked_ref(q, k, v, mask, *, scale=None) -> torch.Tensor:
+    """GQA attention under a bool mask (lq, lk), True = attend: the oracle
+    of the tile-skipping kernel.  Fully masked rows output exactly 0."""
+    d = q.shape[3]
+    kk, vv = _expand_kv(k, v, q.shape[1])
+    scale = scale if scale is not None else d ** -0.5
+    mask = torch.as_tensor(mask, device=q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    # dead rows: exp(0) = 1 per entry; zero them so the row sums to 0
+    p = torch.where(mask, p, 0.0)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv.float())
+    return (out / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, scale=None,
+                      block_kv: int = 1024) -> torch.Tensor:
+    """Streaming-softmax attention: a loop over KV blocks with a running
+    (max, denom, acc) carry, which never materialises (lq, lk) scores."""
+    b, hq, lq, d = q.shape
+    lk = k.shape[2]
+    kk, vv = _expand_kv(k, v, hq)
+    scale = scale if scale is not None else d ** -0.5
+    if lk % block_kv:
+        raise ValueError(f"attention_chunked: lk={lk} does not tile by "
+                         f"{block_kv}")
+    q32 = q.float() * scale
+    qi = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    m = torch.full((b, hq, lq), float("-inf"), device=q.device)
+    l = torch.zeros((b, hq, lq), device=q.device)
+    acc = torch.zeros((b, hq, lq, d), device=q.device)
+    for j0 in range(0, lk, block_kv):
+        s = torch.einsum("bhqd,bhkd->bhqk", q32,
+                         kk[:, :, j0:j0 + block_kv].float())
+        if causal:
+            kj = j0 + torch.arange(block_kv, device=q.device)[None, :]
+            s = torch.where(qi >= kj, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p, vv[:, :, j0:j0 + block_kv].float())
+        m = m_new
+    return (acc / l[..., None]).to(q.dtype)

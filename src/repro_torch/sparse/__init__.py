@@ -12,13 +12,16 @@ SpMM and SpGEMM:
 Banded inputs run the gather-free DIA path, clustered blocks the BSR CUDA
 kernel, uniform rows the ELL CUDA kernel, everything else the CSR oracle.
 
-Not ported here: the attention mask compiler (``MaskSpec``, ``TileLayout``,
-``compile_layout``, ...), which comes with the attention slice (ROADMAP
-queue 1 item 6).
+The attention mask compiler (``MaskSpec`` -> ``TileLayout``, DESIGN.md §12)
+lowers attention masks to the same rowptr/packed-column layout; the
+tile-skipping flash kernel walks it.
 """
 from repro_torch.sparse.formats import (BSR, CSR, DIA, ELL, block_pattern,
                                         bsr_from_csr, bsr_from_dense,
                                         csr_from_bsr)
+from repro_torch.sparse.maskcompiler import (MaskSpec, TileLayout,
+                                             causal_layout, compile_layout,
+                                             dense_mask, dense_masked_layout)
 from repro_torch.sparse.selector import (BLOCKSPARSE_MAX_DENSITY, FORMATS,
                                          autotune_block, format_of, matrix,
                                          select_format)
@@ -33,4 +36,6 @@ __all__ = [
     "FORMATS", "select_format", "autotune_block", "matrix", "format_of",
     "BLOCKSPARSE_MAX_DENSITY",
     "spmm", "spgemm", "spgemm_symbolic", "SpgemmPlan",
+    "MaskSpec", "TileLayout", "dense_mask", "compile_layout",
+    "causal_layout", "dense_masked_layout",
 ]

@@ -108,3 +108,43 @@ def test_carry_bsr_without_stats():
     jb = j_sparse.bsr_from_dense(np.eye(16, dtype=np.float32), block=8)
     tb = interop.carry(dataclasses.replace(jb, stats=None), device=CPU)
     assert tb.stats is None and tb.nblocks == 2
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_carry_params_gives_jax_logits(param_dtype):
+    """JAX LM.init parameters carried over: per-layer weights in the same
+    (in, out) layout, and the port's logits within 1e-5 of JAX's (f32
+    activations; bf16 parameters carry exactly through f32)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as j_get_config
+    from repro.models.lm import LM as JLM
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    def small(cfg):
+        return dataclasses.replace(
+            cfg, num_layers=3, d_model=64, num_heads=4, num_kv_heads=2,
+            head_dim=16, d_ff=96, vocab_size=300, dtype="float32",
+            param_dtype=param_dtype)
+
+    jcfg, tcfg = small(j_get_config("qwen3-1.7b")), small(
+        get_config("qwen3-1.7b"))
+    jlm = JLM(jcfg)
+    jp = jlm.init(jax.random.PRNGKey(3))
+    tp = interop.carry_params(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                              device=CPU)
+    assert len(tp["layers"]) == 3 and "unembed" not in tp
+    wq = tp["layers"][1]["attn"]["wq"]
+    assert wq.dtype == tcfg.pdtype and wq.shape == (64, 4 * 16)
+    np.testing.assert_array_equal(
+        wq.float().numpy(),
+        np.asarray(jp["layers"]["attn"]["wq"][1], np.float32))
+    tok = np.random.default_rng(4).integers(0, 300, (2, 10)).astype(np.int32)
+    want, _ = jlm.forward(jp, jnp.asarray(tok))
+    got, _ = LM(tcfg).forward(tp, torch.as_tensor(tok))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

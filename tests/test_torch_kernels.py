@@ -475,3 +475,220 @@ def test_sparse_ops_select_the_kernels(card):
         assert registry.select("spmm", m, x).name == name
     m = sparse.matrix(a, format="bsr", device=card)
     assert registry.select("spgemm", m, m).name == "bsr"
+
+
+# ---------------------------------------------------------------------------
+# the attention kernels against their plain versions (card only)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
+from repro_torch.sparse.maskcompiler import (MaskSpec,  # noqa: E402
+                                             causal_layout, compile_layout)
+
+#: f32: the kernel sums q.k serially over d and the plain version through
+#: a BLAS product, a few ulps apart.  bf16: P is rounded to bf16 before
+#: P.V in both, and a rounding that flips by one ulp moves o by about
+#: 2^-8 * p * |v| / l; with |v| ~ 0.1 that is under 1e-3, the JAX bar.
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _attn_inputs(card, dtype, b=2, hq=4, hkv=2, lq=64, lk=64, d=64,
+                 seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(b, hq, lq, d, device=card, generator=g).to(dtype)
+    k = torch.randn(b, hkv, lk, d, device=card, generator=g).to(dtype)
+    v = (0.1 * torch.randn(b, hkv, lk, d, device=card, generator=g)).to(
+        dtype)
+    return q, k, v
+
+
+def _close(got, want, tol, what, rows=None):
+    got, want = got.float(), want.float()
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv,d,lq,lk,bk",
+                         [(4, 4, 32, 64, 64, 16), (4, 2, 64, 100, 100, 100),
+                          (4, 2, 128, 256, 256, 128), (2, 1, 128, 48, 96, 32),
+                          (4, 2, 64, 77, 77, 32)])
+def test_flash_attention_kernel_matches_plain(dtype, causal, hq, hkv, d, lq,
+                                              lk, bk, card):
+    q, k, v = _attn_inputs(card, dtype, hq=hq, hkv=hkv, lq=lq, lk=lk, d=d)
+    before = fa_k.flash_attention.launches
+    got = fa_k.flash_attention(q, k, v, causal=causal, block_k=bk,
+                               row_extents=False, return_state=True)
+    assert fa_k.flash_attention.launches == before + 1
+    want = fa_k.flash_attention_plain(q, k, v, causal=causal, block_k=bk,
+                                      return_state=True)
+    for g, w, what in zip(got, want, "oml"):
+        _close(g, w, ATTN_TOL[dtype] * (lk if what == "l" else 1), what)
+    o = fa_k.flash_attention(q, k, v, causal=causal, block_k=bk,
+                             row_extents=False)
+    assert torch.equal(o, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,bk,causal", [(1, 2048, 128, False),
+                                             (1, 96, 96, False),
+                                             (32, 256, 128, False),
+                                             (64, 64, 16, True),
+                                             (1, 1000, 128, False)])
+def test_flash_attention_lens_kernel_matches_plain(dtype, lq, lk, bk, causal,
+                                                   card):
+    b = 5
+    q, k, v = _attn_inputs(card, dtype, b=b, hq=4, hkv=2, lq=lq, lk=lk,
+                           d=128)
+    kv_len = torch.tensor([0, lk, 1, lk // 2 + 3, lk - 1],
+                          dtype=torch.int32, device=card)
+    before = fa_k.flash_attention_lens.launches
+    got = fa_k.flash_attention_lens(q, k, v, kv_len, causal=causal,
+                                    block_k=bk, return_state=True)
+    assert fa_k.flash_attention_lens.launches == before + 1
+    want = fa_k.flash_attention_plain(q, k, v, causal=causal, block_k=bk,
+                                      kv_len=kv_len, return_state=True)
+    live = kv_len > 0                   # rows with a live key
+    assert torch.all(got[1][~live] == fa_k.NEG_INF)
+    _close(got[0], want[0], ATTN_TOL[dtype], "o", live)
+    _close(got[1], want[1], ATTN_TOL[dtype], "m", live)
+    _close(got[2], want[2], ATTN_TOL[dtype] * lk, "l", live)
+
+
+_TILE_SPECS = {
+    "causal": lambda lq, lk: MaskSpec(causal=True),
+    "window": lambda lq, lk: MaskSpec(causal=True, window=lq // 4),
+    "bidir_window": lambda lq, lk: MaskSpec(window=lq // 3),
+    "globals": lambda lq, lk: MaskSpec(causal=True, window=lq // 4,
+                                       global_tokens=(0, 1, lk // 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec", sorted(_TILE_SPECS))
+@pytest.mark.parametrize("hkv", [4, 2])
+@pytest.mark.parametrize("lq,lk,bq,bk", [(128, 128, 32, 32),
+                                         (64, 192, 64, 16),
+                                         (77, 77, 32, 32), (37, 101, 16, 32)])
+def test_flash_attention_tiles_kernel_matches_plain(dtype, spec, hkv, lq, lk,
+                                                    bq, bk, card):
+    q, k, v = _attn_inputs(card, dtype, hq=4, hkv=hkv, lq=lq, lk=lk, d=64)
+    layout = compile_layout(_TILE_SPECS[spec](lq, lk), lq, lk, bq, bk)
+    before = fa_k.flash_attention_tiles.launches
+    got = fa_k.flash_attention_tiles(q, k, v, layout, return_state=True)
+    assert fa_k.flash_attention_tiles.launches == before + 1
+    want = fa_k.flash_attention_tiles_plain(q, k, v, layout,
+                                            return_state=True)
+    for g, w, what in zip(got, want, "oml"):
+        _close(g, w, ATTN_TOL[dtype] * (lk if what == "l" else 1), what)
+
+
+@pytest.mark.cuda
+def test_flash_attention_tiles_dead_rows_and_empty_layout(card):
+    q, k, v = _attn_inputs(card, torch.float32, lq=64, lk=64, d=32)
+    pat = np.zeros((4, 4), bool)
+    pat[0] = True                       # Q tiles 1-3 attend to nothing
+    lay = compile_layout(MaskSpec.from_block_mask(pat, 16), 64, 64, 16, 16)
+    o, m, l = fa_k.flash_attention_tiles(q, k, v, lay, return_state=True)
+    assert torch.all(o[:, :, 16:] == 0) and torch.all(l[:, :, 16:] == 0)
+    assert torch.all(m[:, :, 16:] == fa_k.NEG_INF)
+    want = fa_k.flash_attention_tiles_plain(q, k, v, lay)
+    _close(o, want, 1e-5, "o")
+    empty = compile_layout(MaskSpec.from_block_mask(np.zeros((4, 4), bool),
+                                                    16), 64, 64, 16, 16)
+    before = fa_k.flash_attention_tiles.launches
+    o, m, l = fa_k.flash_attention_tiles(q, k, v, empty, return_state=True)
+    assert fa_k.flash_attention_tiles.launches == before
+    assert not o.any() and not l.any() and torch.all(m == fa_k.NEG_INF)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,bq,bk,d", [(128, 32, 32, 64), (512, 128, 128, 128),
+                                        (96, 48, 32, 32), (77, 32, 32, 64),
+                                        (1021, 128, 128, 128)])
+def test_tiles_kernel_bitwise_equals_dense_causal_f32(lq, bq, bk, d, card):
+    q, k, v = _attn_inputs(card, torch.float32, hq=4, hkv=2, lq=lq, lk=lq,
+                           d=d)
+    tiles = fa_k.flash_attention_tiles(q, k, v,
+                                       causal_layout(lq, lq, bq, bk),
+                                       return_state=True)
+    dense = fa_k.flash_attention(q, k, v, causal=True, block_q=bq,
+                                 block_k=bk, row_extents=False,
+                                 return_state=True)
+    for t, g in zip(tiles, dense):
+        assert torch.equal(t, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_at_a_prime_length_and_full_width(dtype, causal, card):
+    """qwen3-1.7b's heads (16/8, d = 128) at a prime prompt length: the
+    op keeps 128-key tiles and the kernels run a short last tile."""
+    L = 1021
+    q, k, v = _attn_inputs(card, dtype, b=1, hq=16, hkv=8, lq=L, lk=L,
+                           d=128)
+    assert registry.select("flash_attention", q, k, v,
+                           causal=causal).name == "cuda"
+    wrapper = fa_k.flash_attention_tiles if causal else fa_k.flash_attention
+    before = wrapper.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert wrapper.launches == before + 1
+    if causal:
+        want = fa_k.flash_attention_tiles_plain(
+            q, k, v, causal_layout(L, L, 128, 128))
+    else:
+        want = fa_k.flash_attention_plain(q, k, v, causal=False)
+    _close(got, want, ATTN_TOL[dtype], "o")
+    with ops.backend("torch"):
+        _close(got, ops.flash_attention(q, k, v, causal=causal),
+               ATTN_TOL[dtype], "o against the torch plane")
+    kv_len = torch.tensor([L - 5], dtype=torch.int32, device=card)
+    got = fa_k.flash_attention_lens(q[:, :, -1:], k, v, kv_len,
+                                    return_state=True)
+    want = fa_k.flash_attention_plain(q[:, :, -1:], k, v, causal=False,
+                                      kv_len=kv_len, return_state=True)
+    for g, w, what in zip(got, want, "oml"):
+        _close(g, w, ATTN_TOL[dtype] * (L if what == "l" else 1), what)
+
+
+@pytest.mark.cuda
+def test_attention_ops_on_the_card_match_the_torch_plane(card):
+    """paged_attention and chunk_attention('merge') through the kernels
+    against the same ops pinned to the torch plane, on the same tensors."""
+    g = torch.Generator(device=card).manual_seed(3)
+    P, hk, ps, d, B, n = 17, 2, 16, 64, 3, 4
+    kp = torch.randn(P, hk, ps, d, device=card, generator=g)
+    vp = torch.randn(P, hk, ps, d, device=card, generator=g)
+    table = torch.tensor([[1, 2, 3, 0], [4, 5, 0, 0], [0, 0, 0, 0]],
+                         dtype=torch.int32, device=card)
+    lens = torch.tensor([40, 17, 0], dtype=torch.int32, device=card)
+    q = torch.randn(B, 4, 1, d, device=card, generator=g)
+    got = ops.paged_attention(q, kp, vp, table, lens)
+    with ops.backend("torch"):
+        want = ops.paged_attention(q, kp, vp, table, lens)
+    _close(got, want, 1e-5, "paged", lens > 0)
+    qc = torch.randn(1, 4, 16, d, device=card, generator=g)
+    kc = torch.randn(1, hk, 16, d, device=card, generator=g)
+    vc = torch.randn(1, hk, 16, d, device=card, generator=g)
+    kpre, vpre = ops.page_gather(kp, table[:1]), ops.page_gather(vp, table[:1])
+    plen = torch.tensor([24], dtype=torch.int32, device=card)
+    got = ops.chunk_attention(qc, kpre, vpre, plen, kc, vc, variant="merge")
+    want = ops.chunk_attention(qc, kpre, vpre, plen, kc, vc, variant="oracle")
+    _close(got, want, 1e-5, "chunk")
+
+
+def test_cuda_plane_on_host_attention_operands_raises():
+    q = torch.zeros(1, 2, 4, 32)
+    k = torch.zeros(1, 1, 4, 32)
+    with ops.backend("cuda"):
+        with pytest.raises(RuntimeError, match="host"):
+            ops.flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="host"):
+        ops.flash_attention_state(q, k, k, variant="cuda")
