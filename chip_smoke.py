@@ -587,6 +587,8 @@ def hold_attention_kernels(torch, kernels) -> None:
                           f"flash_attention_tiles {name} {dtype} g{group}")
                 torch.testing.assert_close(got[1], want[1], rtol=1e-5,
                                            atol=1e-5)
+                torch.testing.assert_close(got[2], want[2], rtol=1e-5,
+                                           atol=1e-5 * L)
                 if dtype == torch.bfloat16 and group == 2 and \
                         name == "causal":
                     errs["flash_attention_tiles"].append(e)
@@ -690,7 +692,7 @@ def device_breakdown(torch, fn) -> dict:
         name, low = e.key, e.key.lower()
         if "flash_attention_lens_kernel" in name:
             g = "flash_attention_lens"
-        elif "flash_attention_tiles_kernel" in name:
+        elif "flash_attention_tiles_" in name:
             g = "flash_attention_tiles"
         elif "flash_attention_kernel" in name:
             g = "flash_attention"
@@ -1051,6 +1053,18 @@ def main() -> int:
                                      tw_re, tw_im, m)
         errs += [max_err(torch, g, w, 1e-5, 1e-5, f"fft_stage m={m}")
                  for g, w in zip(got, want)]
+    # the fused kernel at each pass size on the path's data: one pass of
+    # 10 stages (first and last), of 7 and 6 (13 stages), of 1; the whole
+    # transform (two passes of 10); FMA against two roundings per stage,
+    # as for ops.fft below
+    for s0, count in ((0, 10), (10, 10), (0, 13), (5, 1), (0, 20)):
+        got = fft_k.fft_stages(re0, im0, tw_re, tw_im, s0, count)
+        want = fft_k.fft_stages_plain(re0, im0, tw_re, tw_im, s0, count)
+        atol = 4 * torch.finfo(torch.float32).eps * n_f ** 0.5 * count
+        errs += [max_err(torch, g, w, 1e-5, atol,
+                         f"fft_stages s0={s0} count={count} "
+                         f"(passes {fft_k.pass_sizes(count)})")
+                 for g, w in zip(got, want)]
     kernels["fft_stage"]["max_abs_err"] = max(errs)
     for zz in (Z.data, torch.randn(16, dtype=torch.complex128, device=dev)):
         got = ops.fft(zz)
@@ -1070,7 +1084,7 @@ def main() -> int:
 
     # -- phase 2a: the paper's path, counted --------------------------------
     wrappers = {"matmul": mm_k.matmul, "spmv_ell": spmv_k.spmv_ell,
-                "spmv_dia": spmv_k.spmv_dia, "fft_stage": fft_k.fft_stage}
+                "spmv_dia": spmv_k.spmv_dia, "fft_stage": fft_k.fft_stages}
     for w in wrappers.values():
         w.launches = 0
     t_path = time.perf_counter()
@@ -1226,19 +1240,23 @@ def main() -> int:
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         band * 4 + len(offs) * 4 + 2 * n_cg * 4, 2.0 * band)
 
-    # one transform's log2 n stage launches on tangled data
+    # one transform's log2 n stages on tangled data: one call of the fused
+    # wrapper (its launches per call counted), and the plain stage chain
+    stages = n_f.bit_length() - 1
     rec = kernels["fft_stage"]
-    rec["ms"] = cold_ms(lambda: ops.stage_loop(
-        re0, im0, tw_re, tw_im, fft_k.fft_stage), 20)
-    rec["plain_ms"] = cold_ms(lambda: ops.stage_loop(
-        re0, im0, tw_re, tw_im, fft_k.fft_stage_plain), 20)
+    before = fft_k.fft_stages.launches
+    fft_k.fft_stages(re0, im0, tw_re, tw_im, 0, stages)
+    rec["launches_per_call"] = fft_k.fft_stages.launches - before
+    rec["ms"] = cold_ms(lambda: fft_k.fft_stages(
+        re0, im0, tw_re, tw_im, 0, stages), 50)
+    rec["plain_ms"] = cold_ms(lambda: fft_k.fft_stages_plain(
+        re0, im0, tw_re, tw_im, 0, stages), 20)
     zd = Z.data
     rec["library_ms"] = cold_ms(lambda: torch.fft.fft(zd), 20)
     # The transform's inputs (tangled re/im, both twiddle tables) read once
     # and its output written once.  Each stage's output is the next stage's
     # input and need not leave the chip (it stays in L2 here), so charging
     # every stage's 16 B per point at the HBM rate would overstate the bound.
-    stages = n_f.bit_length() - 1
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         8 * n_f + (tw_re.numel() + tw_im.numel()) * 4 + 8 * n_f,
         stages * 5.0 * n_f)
@@ -1274,12 +1292,15 @@ def main() -> int:
     timed = {"matmul": lambda: mm_k.matmul(a, b),
              "spmv_ell": lambda: spmv_k.spmv_ell(vals, cols, x),
              "spmv_dia": lambda: spmv_k.spmv_dia(diags, offs, xcg),
-             "fft_stage": lambda: ops.stage_loop(re0, im0, tw_re, tw_im,
-                                                 fft_k.fft_stage),
+             "fft_stage": lambda: fft_k.fft_stages(re0, im0, tw_re, tw_im,
+                                                  0, stages),
              **timed_sparse, **timed_attn}
+    # the kernels' symbols, where the record's name is not "<name>_kernel"
+    symbols = {"fft_stage": "fft_stages_kernel",
+               "flash_attention_tiles": "flash_attention_tiles_"}
     for name, fn in timed.items():
-        kernels[name]["kernel_ms"] = kernel_ms(torch, fn, 20,
-                                               f"{name}_kernel", scrub)
+        kernels[name]["kernel_ms"] = kernel_ms(
+            torch, fn, 20, symbols.get(name, f"{name}_kernel"), scrub)
     fixed_prof, cont_prof = serve["profile"]()
     log(f"{ARCH} device time by kernel group on {smi[0]}:")
     log(f"  Engine, {PROFILE_NEW} new tokens: {fmt_breakdown(fixed_prof)}")
@@ -1294,7 +1315,9 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
-                    "kernel_ms": r["kernel_ms"]})
+                    "kernel_ms": r["kernel_ms"],
+                    **({"launches_per_call": r["launches_per_call"]}
+                       if "launches_per_call" in r else {})})
     log(json.dumps({"kernels": out}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"ok": True, "device": {

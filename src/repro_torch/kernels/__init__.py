@@ -4,7 +4,7 @@
     _lib.py       build + ctypes binding
     matmul.py     tiled f32-accumulating matmul    (mod2am)
     spmv.py       ELL + DIA SpMV                   (mod2as, banded)
-    fft.py        split-stream butterfly stage     (mod2f)
+    fft.py        split-stream stages, up to ten per launch (mod2f)
     spmm.py       ELL + BSR SpMM                   (blocked-sparse spmm)
     spgemm.py     BSR x BSR numeric phase          (blocked-sparse spgemm)
     flash_attention.py  dense-grid, key-length and tile-skipping flash

@@ -49,7 +49,8 @@ _SIGNATURES = {
     "matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spmv_ell_launch": (_P, _P, _P, _P, _I, _I, _P),
     "spmv_dia_launch": (_P, _P, _P, _P, _I, _I, _P),
-    "fft_stage_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "fft_stages_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P),
     "spmm_ell_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
     "spmm_bsr_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "spgemm_bsr_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -57,8 +58,8 @@ _SIGNATURES = {
     "flash_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _I, _I, _P),
     "flash_attention_tiles_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _F, _I, _I, _P),
+                                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 

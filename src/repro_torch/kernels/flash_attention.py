@@ -16,8 +16,9 @@ Three wrappers, one per CUDA kernel, each counting its launches:
                            ``:183`` and ``:201``.
     flash_attention_tiles  the tile-skipping walk over a compiled
                            :class:`~repro_torch.sparse.maskcompiler.TileLayout`
-                           (csrc/flash_attention_tiles.cu); replaces ``:275``
-                           and ``:290``.
+                           (csrc/flash_attention_tiles.cu: the f32 FMA fold,
+                           or in bf16 a tensor-core kernel); replaces
+                           ``:275`` and ``:290``.
 
 Layouts: q (B, Hq, Lq, d), k / v (B, Hkv, Lk, d), q-head h reads kv-head
 h // (Hq / Hkv); with ``return_state`` the wrappers also return the row
@@ -39,6 +40,7 @@ from __future__ import annotations
 import collections
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _lib
@@ -310,11 +312,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 flash_attention.launches = 0
 
-#: (id(layout), device) -> (layout, rowp, mid, prowp, cols, biases) on the
-#: card, the most recently used :data:`LAYOUTS_ON_CARD` of them.  Holding
-#: the layout keeps its id from being reused while the entry lives.
+#: (id(layout), device) -> (layout, rowp, mid, prowp, cols, biases, order)
+#: on the card, the most recently used :data:`LAYOUTS_ON_CARD` of them.
+#: Holding the layout keeps its id from being reused while the entry lives.
 _LAYOUT_ON_CARD: collections.OrderedDict = collections.OrderedDict()
 LAYOUTS_ON_CARD = 256
+
+
+def _walk_order(layout) -> np.ndarray:
+    """The Q tiles by descending walk length (stable): the bf16 kernel
+    starts the CTAs of the longest walks first."""
+    return np.argsort(-np.diff(np.asarray(layout.rowp)),
+                      kind="stable").astype(np.int32)
 
 
 def _layout_tensors(layout, device):
@@ -324,7 +333,7 @@ def _layout_tensors(layout, device):
         hit = (layout,) + tuple(
             torch.as_tensor(a, device=device) for a in
             (layout.rowp, layout.mid, layout.prowp, layout.cols,
-             layout.biases))
+             layout.biases, _walk_order(layout)))
         _LAYOUT_ON_CARD[key] = hit
         if len(_LAYOUT_ON_CARD) > LAYOUTS_ON_CARD:
             _LAYOUT_ON_CARD.popitem(last=False)
@@ -358,13 +367,20 @@ def flash_attention_tiles(q, k, v, layout, *, scale: Optional[float] = None,
     if bk > MAX_BLOCK_K:
         raise ValueError(f"flash_attention_tiles: block_k {bk} is above "
                          f"{MAX_BLOCK_K}")
-    rowp, mid, prowp, cols, biases = _layout_tensors(layout, q.device)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention_tiles: bf16 q, k, v must be "
+                         "16-byte aligned (the kernel copies 16-byte "
+                         "chunks)")
+    rowp, mid, prowp, cols, biases, order = _layout_tensors(layout,
+                                                            q.device)
     o, m, l = _outputs(q, return_state)
     causal, window, off = layout.band if layout.band is not None \
         else (False, None, 0)
     code = _lib.lib().flash_attention_tiles_launch(
         rowp.data_ptr(), mid.data_ptr(), prowp.data_ptr(), cols.data_ptr(),
-        biases.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        biases.data_ptr(), order.data_ptr(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(),
         o.data_ptr(), m.data_ptr() if return_state else None,
         l.data_ptr() if return_state else None,
         b, hq, k.shape[1], lq, k.shape[2], d, bq, bk,

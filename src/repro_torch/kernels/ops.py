@@ -32,7 +32,7 @@ from repro_torch.sparse.maskcompiler import compile_layout, dense_mask
 from repro_torch.sparse.selector import BLOCKSPARSE_MAX_DENSITY
 
 __all__ = ["backend", "current_backend", "matmul", "spmv_ell", "spmv_dia",
-           "fft", "fft_plan", "stage_loop", "flash_attention",
+           "fft", "fft_plan", "flash_attention",
            "flash_attention_state", "page_gather", "paged_attention",
            "chunk_attention"]
 
@@ -109,32 +109,17 @@ def fft_plan(n: int, rdtype: torch.dtype, device: torch.device):
             torch.as_tensor(tw.imag, dtype=rdtype, device=device))
 
 
-def stage_loop(re: torch.Tensor, im: torch.Tensor, tw_re: torch.Tensor,
-               tw_im: torch.Tensor, stage: Callable
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The log2 n split-stream stages over tangled re/im data of length n.
-    ``stage`` is the kernel wrapper or its plain version; stage s reads the
-    first ``m = n / 2^(s+1)`` entries of the untiled twiddle table."""
-    n = re.shape[0]
-    m, i = n // 2, 1
-    while i < n:
-        ore, oim = stage(re.view(n // 2, 2), im.view(n // 2, 2),
-                         tw_re, tw_im, m)
-        re, im = ore.view(n), oim.view(n)
-        m >>= 1
-        i <<= 1
-    return re, im
-
-
-def _fft_stages(x: torch.Tensor, stage: Callable) -> torch.Tensor:
-    """The split-stream transform: tangle, then :func:`stage_loop`."""
+def _fft_stages(x: torch.Tensor, stages: Callable) -> torch.Tensor:
+    """The split-stream transform: tangle, then all log2 n stages through
+    ``stages`` (:func:`~repro_torch.kernels.fft.fft_stages` or its plain
+    version), reading the untiled bit-reversed twiddle table."""
     n = x.shape[0]
     rdtype = torch.float64 if x.dtype == torch.complex128 else torch.float32
     perm, tw_re, tw_im = fft_plan(n, rdtype, x.device)
     data = x[perm]
-    re, im = stage_loop(data.real.to(rdtype).contiguous(),
-                        data.imag.to(rdtype).contiguous(), tw_re, tw_im,
-                        stage)
+    re, im = stages(data.real.to(rdtype).contiguous(),
+                    data.imag.to(rdtype).contiguous(), tw_re, tw_im, 0,
+                    n.bit_length() - 1)
     return torch.complex(re, im).to(x.dtype)
 
 
@@ -148,16 +133,17 @@ def _fft_accepts(x):
 
 @registry.register("fft", "cuda", plane="cuda", cost=Cost.CUDA,
                    accepts=_fft_accepts,
-                   doc="split-stream stage kernel (csrc/fft.cu)")
+                   doc="multi-stage shared-memory kernel (csrc/fft.cu), "
+                       "one host call per transform")
 def _fft_cuda(x):
-    return _fft_stages(x, fft_k.fft_stage)
+    return _fft_stages(x, fft_k.fft_stages)
 
 
 @registry.register("fft", "torch", plane="torch", cost=Cost.TORCH,
                    accepts=_fft_accepts,
-                   doc="the same stage loop with the plain stage")
+                   doc="the same stages, one plain stage at a time")
 def _fft_torch(x):
-    return _fft_stages(x, fft_k.fft_stage_plain)
+    return _fft_stages(x, fft_k.fft_stages_plain)
 
 
 def fft(x):

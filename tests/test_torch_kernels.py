@@ -19,6 +19,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import spgemm as spgemm_k
 from repro_torch.kernels import spmm as spmm_k
 from repro_torch.kernels import spmv as spmv_k
+from repro_torch.numerics.fft import split_stream_twiddles
 
 @pytest.fixture
 def jax_ops():
@@ -135,6 +136,141 @@ def test_fft_stage_plain_matches_jax_ref(jax_ops):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
                                    atol=1e-6)
+
+
+def _stage_chain(re, im, twr, twi, s0, count):
+    """Stages s0 .. s0 + count - 1, one fft_stage_plain call each."""
+    n = re.shape[0]
+    for s in range(s0, s0 + count):
+        ore, oim = fft_k.fft_stage_plain(re.view(n // 2, 2),
+                                         im.view(n // 2, 2), twr, twi,
+                                         (n // 2) >> s)
+        re, im = ore.reshape(n), oim.reshape(n)
+    return re, im
+
+
+def _fft_operands(logn, dtype=np.float32):
+    rng = np.random.default_rng(logn)
+    n = 1 << logn
+    tw = split_stream_twiddles(n)
+    return (torch.as_tensor(rng.standard_normal(n).astype(dtype)),
+            torch.as_tensor(rng.standard_normal(n).astype(dtype)),
+            torch.as_tensor(tw.real.astype(dtype)),
+            torch.as_tensor(tw.imag.astype(dtype)))
+
+
+#: (log2 n, first stage, stages): whole transforms, partial runs, a count
+#: that does not divide log2 n, more stages than one pass takes, and n = 2.
+STAGE_RUNS = [(1, 0, 1), (4, 0, 4), (6, 1, 5), (11, 0, 11), (13, 0, 13),
+              (13, 3, 7), (12, 2, 10)]
+
+
+@pytest.mark.parametrize("logn,s0,count", STAGE_RUNS)
+def test_fft_stages_plain_equals_the_stage_chain(logn, s0, count):
+    re, im, twr, twi = _fft_operands(logn)
+    want = _stage_chain(re, im, twr, twi, s0, count)
+    for got in (fft_k.fft_stages_plain(re, im, twr, twi, s0, count),
+                fft_k.fft_stages(re, im, twr, twi, s0, count)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _fused_passes_model(re, im, twr, twi, s0, count):
+    """csrc/fft.cu's passes in numpy, CTA by CTA: pass sizes from
+    pass_sizes; a CTA holds G = min(POINTS_PER_CTA, n) >> k groups and
+    reads them as one contiguous block; the pair at local index c of local
+    stage t takes the twiddle tw[(pos >> 1) % m] at global position pos;
+    stages go two per round (the radix-4 unit at 4q .. 4q + 3 writes q,
+    q + h/2, q + h, q + 3h/2), an odd last one alone; local point r of
+    group g goes to g + r * n / 2^k, a run of G values per r."""
+    n = re.size
+    logn = n.bit_length() - 1
+    m0 = (n // 2) >> s0
+
+    def bfly(er, ei, orr, oi, w):
+        xr, xi = er - orr, ei - oi
+        return (er + orr, ei + oi, xr * twr[w] - xi * twi[w],
+                xr * twi[w] + xi * twr[w])
+
+    for k in fft_k.pass_sizes(count):
+        ngroups = n >> k
+        G = min(fft_k.POINTS_PER_CTA, n) >> k
+        h = 1 << (k - 1)
+        out_re, out_im = np.empty_like(re), np.empty_like(im)
+        for g0 in range(0, ngroups, G):
+            block = slice(g0 << k, (g0 + G) << k)
+            lre = re[block].reshape(G, 1 << k)
+            lim = im[block].reshape(G, 1 << k)
+            g = g0 + np.arange(G)[:, None]
+
+            def tw(t, c):
+                sh = k - t
+                pos = (((c >> sh) << (logn - t)) | (g << sh)
+                       | (c & ((1 << sh) - 1)))
+                w = (pos >> 1) % (m0 >> t)
+                # the kernel drops the bits the modulus drops
+                u = (g << (sh - 1)) + ((c & ((1 << sh) - 1)) >> 1)
+                np.testing.assert_array_equal(u % (m0 >> t), w)
+                return w
+
+            t = 0
+            while t + 1 < k:
+                q = np.arange(h // 2)[None, :]
+                x = [(lre[:, 4 * q[0] + e], lim[:, 4 * q[0] + e])
+                     for e in range(4)]
+                u0r, u0i, d0r, d0i = bfly(*x[0], *x[1], tw(t, 4 * q))
+                u1r, u1i, d1r, d1i = bfly(*x[2], *x[3], tw(t, 4 * q + 2))
+                a_r, a_i, c_r, c_i = bfly(u0r, u0i, u1r, u1i,
+                                          tw(t + 1, 2 * q))
+                b_r, b_i, e_r, e_i = bfly(d0r, d0i, d1r, d1i,
+                                          tw(t + 1, 2 * q + h))
+                lre, lim = np.empty_like(lre), np.empty_like(lim)
+                for off, vr, vi in ((0, a_r, a_i), (h // 2, b_r, b_i),
+                                    (h, c_r, c_i), (h + h // 2, e_r, e_i)):
+                    lre[:, q[0] + off], lim[:, q[0] + off] = vr, vi
+                t += 2
+            if t < k:
+                c = 2 * np.arange(h)[None, :]
+                ur, ui, dr, di = bfly(lre[:, 0::2], lim[:, 0::2],
+                                      lre[:, 1::2], lim[:, 1::2], tw(t, c))
+                lre = np.concatenate([ur, dr], axis=1)
+                lim = np.concatenate([ui, di], axis=1)
+            dst = g + np.arange(1 << k)[None, :] * ngroups
+            out_re[dst], out_im[dst] = lre, lim
+        re, im = out_re, out_im
+        m0 >>= k
+    return re, im
+
+
+@pytest.mark.parametrize("logn,s0,count", STAGE_RUNS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_pass_index_model_equals_the_stage_chain(logn, s0, count,
+                                                       dtype):
+    """The kernel's group read, position/twiddle formula and strided write
+    (modelled in numpy with its pass sizes and CTA shape) give the stage
+    chain bitwise."""
+    ops_ = _fft_operands(logn, dtype)
+    want = _stage_chain(*ops_, s0, count)
+    got = _fused_passes_model(*(t.numpy() for t in ops_), s0, count)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+def test_fft_pass_sizes():
+    assert fft_k.pass_sizes(1) == [1]
+    assert fft_k.pass_sizes(10) == [10]
+    assert fft_k.pass_sizes(13) == [7, 6]
+    assert fft_k.pass_sizes(20) == [10, 10]
+    assert fft_k.pass_sizes(21) == [7, 7, 7]
+    assert fft_k.pass_sizes(23) == [8, 8, 7]
+
+
+def test_fft_stages_rejects_bad_ranges():
+    re, im, twr, twi = _fft_operands(4)
+    for s0, count in ((0, 0), (0, 5), (3, 2), (-1, 1)):
+        with pytest.raises(ValueError, match="fft_stages"):
+            fft_k.fft_stages(re, im, twr, twi, s0, count)
+    with pytest.raises(ValueError, match="power of two"):
+        fft_k.fft_stages(re[:12], im[:12], twr, twi, 0, 2)
 
 
 def _bsr_operand(rng, nbrows, nbcols, bs, fill, empty_rows=()):
@@ -331,13 +467,16 @@ def test_spmv_dia_kernel_matches_plain(n, bw, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("logn", [20, 10, 1])
+@pytest.mark.parametrize("logn", [20, 13, 10, 1])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_fft_kernel_matches_plain(logn, dtype, card):
     n = 1 << logn
     g = torch.Generator(device=card).manual_seed(logn)
     z = torch.randn(n, dtype=dtype, device=card, generator=g)
+    before = fft_k.fft_stages.launches
     got = ops.fft(z)
+    # one wrapper call, one launch per pass (2^20: two passes of 10)
+    assert fft_k.fft_stages.launches == before + len(fft_k.pass_sizes(logn))
     with ops.backend("torch"):
         plain = ops.fft(z)
     torch.cuda.synchronize()
@@ -623,6 +762,45 @@ def test_tiles_kernel_bitwise_equals_dense_causal_f32(lq, bq, bk, d, card):
                                  return_state=True)
     for t, g in zip(tiles, dense):
         assert torch.equal(t, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L", [(4, 512), (1, 1021), (1, 128), (1, 9)])
+def test_tiles_kernel_bf16_at_the_serve_shapes(b, L, card):
+    """The tensor-core kernel at qwen3-1.7b's heads (16/8, d = 128) on the
+    serve path's causal walks, with state: the Engine's prefill (B = 4,
+    L = 512, 128 x 128 tiles), a prime prompt (short last Q and K tiles),
+    a ContinuousEngine chunk's own keys (128 x 128) and a short last chunk
+    (one 9 x 9 tile, padded to 16 keys)."""
+    q, k, v = _attn_inputs(card, torch.bfloat16, b=b, hq=16, hkv=8, lq=L,
+                           lk=L, d=128)
+    bq = min(128, L)
+    layout = causal_layout(L, L, bq, bq)
+    before = fa_k.flash_attention_tiles.launches
+    got = fa_k.flash_attention_tiles(q, k, v, layout, return_state=True)
+    assert fa_k.flash_attention_tiles.launches == before + 1
+    want = fa_k.flash_attention_tiles_plain(q, k, v, layout,
+                                            return_state=True)
+    for g, w, what in zip(got, want, "oml"):
+        _close(g, w, ATTN_TOL[torch.bfloat16] * (L if what == "l" else 1),
+               what)
+    assert torch.equal(fa_k.flash_attention_tiles(q, k, v, layout), got[0])
+
+
+@pytest.mark.cuda
+def test_tiles_kernel_bf16_dead_rows(card):
+    """Q tiles with no live K tile: o = 0, m = NEG_INF, l = 0 in bf16."""
+    q, k, v = _attn_inputs(card, torch.bfloat16, lq=64, lk=64, d=32)
+    pat = np.zeros((4, 4), bool)
+    pat[0] = True                       # Q tiles 1-3 attend to nothing
+    lay = compile_layout(MaskSpec.from_block_mask(pat, 16), 64, 64, 16, 16)
+    o, m, l = fa_k.flash_attention_tiles(q, k, v, lay, return_state=True)
+    assert torch.all(o[:, :, 16:] == 0) and torch.all(l[:, :, 16:] == 0)
+    assert torch.all(m[:, :, 16:] == fa_k.NEG_INF)
+    want = fa_k.flash_attention_tiles_plain(q, k, v, lay, return_state=True)
+    for g, w, what in zip((o, m, l), want, "oml"):
+        _close(g, w, ATTN_TOL[torch.bfloat16] * (64 if what == "l" else 1),
+               what)
 
 
 @pytest.mark.cuda
