@@ -531,8 +531,8 @@ def hold_attention_kernels(torch, kernels) -> None:
     on the others), the tiles kernel over causal_layout, a window spec (the
     band path) and a global-token spec (the bias path), GQA groups 1 and 2;
     the serve path's own decode and chunk shapes and a prime length at full
-    width; then the f32 bitwise equality of tiles and dense causal, at the
-    prefill shape and at the prime length."""
+    width; then the bitwise equality of tiles and dense causal in f32 and
+    in bf16, at the prefill shape and at the prime length."""
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.sparse.maskcompiler import (MaskSpec, causal_layout,
                                                  compile_layout)
@@ -647,17 +647,20 @@ def hold_attention_kernels(torch, kernels) -> None:
     for name, e in errs.items():
         kernels[name]["max_abs_err"] = max(e)
     # the f32 bitwise property (the JAX package's
-    # test_causal_row_extents_bitwise_parity)
-    for bsz, n in ((b, L), (1, PRIME_LEN)):
-        q, k, v = attn_inputs(torch, torch.float32, bsz, hq, hkv, n, n, d, 7)
-        tiles = fa_k.flash_attention_tiles(
-            q, k, v, causal_layout(n, n, 128, 128), return_state=True)
-        dense = fa_k.flash_attention(q, k, v, causal=True, row_extents=False,
-                                     return_state=True)
-        if not all(torch.equal(t, g) for t, g in zip(tiles, dense)):
-            raise AssertionError(f"tiles over causal_layout are not bitwise "
-                                 f"equal to the dense causal grid in f32 at "
-                                 f"L={n}")
+    # test_causal_row_extents_bitwise_parity), and its bf16 counterpart:
+    # both bf16 kernels fold through tc::fold_rows
+    for dtype in (torch.float32, torch.bfloat16):
+        for bsz, n in ((b, L), (1, PRIME_LEN)):
+            q, k, v = attn_inputs(torch, dtype, bsz, hq, hkv, n, n, d, 7)
+            tiles = fa_k.flash_attention_tiles(
+                q, k, v, causal_layout(n, n, 128, 128), return_state=True)
+            dense = fa_k.flash_attention(q, k, v, causal=True,
+                                         row_extents=False,
+                                         return_state=True)
+            if not all(torch.equal(t, g) for t, g in zip(tiles, dense)):
+                raise AssertionError(f"tiles over causal_layout are not "
+                                     f"bitwise equal to the dense causal "
+                                     f"grid in {dtype} at L={n}")
     torch.cuda.synchronize()
 
 
@@ -1040,6 +1043,21 @@ def main() -> int:
     max_err(torch, spmv_k.spmv_dia(d33.diags, d33.offsets, x33),
             spmv_k.spmv_dia_plain(d33.diags, d33.offsets, x33), 1e-4, 1e-4,
             "spmv_dia 33")
+    # a tridiagonal system at 2^20 (many row tiles, one chunk), and conf 18
+    # run to run: its chunks' partial sums add in a fixed order
+    n_tri = 1 << 20
+    tri = torch.randn(3, n_tri, device=dev)
+    tri[0, 0] = tri[2, -1] = 0.0
+    xtri = torch.randn(n_tri, device=dev)
+    max_err(torch, spmv_k.spmv_dia(tri, (-1, 0, 1), xtri),
+            spmv_k.spmv_dia_plain(tri, (-1, 0, 1), xtri), 1e-4, 1e-4,
+            "spmv_dia tridiagonal 2^20")
+    y_cg = spmv_k.spmv_dia(cg_dia.diags, cg_dia.offsets, xcg)
+    for _ in range(10):
+        if not torch.equal(spmv_k.spmv_dia(cg_dia.diags, cg_dia.offsets, xcg),
+                           y_cg):
+            raise AssertionError("spmv_dia: two calls on the same inputs "
+                                 "differ (conf 18)")
 
     perm, tw_re, tw_im = ops.fft_plan(n_f, torch.float32, dev)
     tangled = Z.data[perm]
@@ -1297,6 +1315,7 @@ def main() -> int:
              **timed_sparse, **timed_attn}
     # the kernels' symbols, where the record's name is not "<name>_kernel"
     symbols = {"fft_stage": "fft_stages_kernel",
+               "flash_attention": "flash_attention_bf16_kernel",
                "flash_attention_tiles": "flash_attention_tiles_"}
     for name, fn in timed.items():
         kernels[name]["kernel_ms"] = kernel_ms(

@@ -48,7 +48,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spmv_ell_launch": (_P, _P, _P, _P, _I, _I, _P),
-    "spmv_dia_launch": (_P, _P, _P, _P, _I, _I, _P),
+    "spmv_dia_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P),
     "fft_stages_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
     "spmm_ell_launch": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -1,40 +1,51 @@
 // Dense-grid flash attention with GQA, in CUDA for sm_90a: f32 or bf16 q, k,
-// v; f32 softmax state.  Two kernels from one body:
+// v; f32 softmax state.  Three kernels:
 //
-//   flash_attention_kernel       replaces the Pallas TPU kernels
+//   flash_attention_kernel       (f32) and
+//   flash_attention_bf16_kernel  (bf16) replace the Pallas TPU kernels
 //                                src/repro/kernels/flash_attention.py:154
 //                                (flash_attention_kernel) and :167
 //                                (flash_attention_state_kernel)
-//   flash_attention_lens_kernel  replaces :183 (flash_attention_lens_kernel)
-//                                and :201 (..._lens_state_kernel): the same
+//   flash_attention_lens_kernel  (f32 and bf16) replaces :183
+//                                (flash_attention_lens_kernel) and :201
+//                                (..._lens_state_kernel): the same
 //                                recurrence plus the per-batch key-prefix
 //                                mask kpos < kv_len[b] (paged decode and the
 //                                prefix half of chunked prefill)
 //
 // Template flags: CAUSAL (iota compare qpos >= kpos, no tail offset, as the
-// Pallas kernel), STATE (also write the final m, l).
+// Pallas kernel), STATE (also write the final m, l).  The Pallas grid is
+// (b, h, Lq/bq, Lk/bk) with the K axis sequential and (m, l, acc) in VMEM
+// scratch.  Here one CTA owns consecutive Q rows of one (b, h) and loops
+// over the K tiles of block_k keys itself; q-head h reads kv-head
+// h / (Hq / Hkv).  Only block_k fixes the order of summation (each row's
+// online softmax folds one K tile at a time), so the CTA's Q rows need not
+// match the Pallas block_q.  When block_k does not divide Lk the last K
+// tile is short and folds exactly as a full one whose extra keys are
+// masked.  A K tile wholly above the diagonal for every row of the CTA is
+// skipped: for a row with a live key such a tile changes nothing (alpha = 1
+// and p = 0 exactly).
 //
-// The Pallas grid is (b, h, Lq/bq, Lk/bk) with the K axis sequential and
-// (m, l, acc) in VMEM scratch.  Here one CTA owns fa::ROWS consecutive Q
-// rows of one (b, h) and loops over the K tiles of block_k keys itself;
-// q-head h reads kv-head h / (Hq / Hkv).  Only block_k fixes the order of
-// summation (each row's online softmax folds one K tile at a time), so the
-// CTA's Q rows need not match the Pallas block_q.  A K tile is skipped when
-// it is wholly past kv_len[b] or wholly above the diagonal for every row of
-// the CTA: for a row with a live key such a tile changes nothing (alpha = 1
-// and p = 0 exactly), and a row with no live key keeps m = NEG_INF, which is
-// all a state merge reads of it.  When block_k does not divide Lk the last
-// K tile is short: fold_tile takes any tile of at most BK_MAX keys, and a
-// short tile folds exactly as a full one whose extra keys are masked.
+// bf16 without kv_len runs flash_attention_bf16_kernel: up to 128 Q rows a
+// CTA (a warpgroup per 64), K tiles 0 .. ceil(kend / block_k) folded on the
+// tensor cores by tc::fold_rows (flash_attention_wgmma.cuh), the fold the
+// bf16 tiles kernel runs, with the causal compare applied to every tile; so
+// the dense causal grid is bitwise equal to the tiles walk over
+// causal_layout in bf16.  Bound and design: flash_attention_wgmma.cuh.  The
+// CTAs of the longest causal walks (the last Q rows) start first.
 //
-// Bound on this card: 4 * B * Hq * Lq * Lk_live * d flops against the bytes
-// of q, k, v and o.  At the prefill shape (B = 4, Hq = 16, L = 512, d = 128,
-// bf16) the flops dominate, a few microseconds at the tensor-core rate; this
-// kernel runs the products on the f32 FMA units with both operands staged
-// in shared memory, so it is bound by shared-memory traffic, far from that.
-// At paged decode (Lq = 1) it is bytes-bound: each CTA streams its slot's
-// live keys once.
-#include "flash_attention.cuh"
+// f32, and the lens kernel in both dtypes, run grid_body: fa::ROWS Q rows a
+// CTA folded by fa::fold_tile on the f32 FMA units (flash_attention.cuh),
+// bitwise equal to the f32 tiles kernel over causal_layout.  The lens
+// kernel also skips a K tile wholly past kv_len[b]; a row with no live key
+// keeps m = NEG_INF, which is all a state merge reads of it.  At paged
+// decode (Lq = 1) it is bytes-bound: each CTA streams its slot's live keys
+// once.
+#include <limits.h>
+
+#include <type_traits>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -121,17 +132,71 @@ __global__ void __launch_bounds__(fa::THREADS)
   grid_body<T, D, CAUSAL, STATE, true>(a);
 }
 
+// The dense walk: K tiles 0 .. n - 1 in order, each under the causal
+// compare when CAUSAL.
+template <bool CAUSAL>
+struct DenseWalk {
+  int n, block_k;
+  __device__ __forceinline__ int ntile() const { return n; }
+  __device__ __forceinline__ int col(int t) const { return t; }
+  __device__ __forceinline__ bool masked(int) const { return CAUSAL; }
+  __device__ __forceinline__ float mask(int, int c, int row, int key,
+                                        float x) const {
+    return row >= c * block_k + key ? x : fa::NEG_INF;
+  }
+};
+
+// One CTA per (Q block of blockDim.x / 2 rows, b, h); blockIdx.x runs h
+// fastest, then b, then the Q block (the last first when CAUSAL).
+template <int D, bool CAUSAL, bool STATE>
+__global__ void __launch_bounds__(tc::THREADS_MAX, 1)
+    flash_attention_bf16_kernel(GridArgs<__nv_bfloat16> a, int batch) {
+  const int rows_cta = blockDim.x / 2;  // 64 rows per 128 threads
+  const int nq = (a.lq + rows_cta - 1) / rows_cta;
+  int id = blockIdx.x;
+  const int h = id % a.hq;
+  id /= a.hq;
+  const int b = id % batch;
+  id /= batch;
+  const int q0 = (CAUSAL ? nq - 1 - id : id) * rows_cta;
+  const int qend = min(q0 + rows_cta, a.lq);
+  const int kend = CAUSAL ? min(a.lk, qend) : a.lk;
+  const int hk = h / (a.hq / a.hkv);
+  const size_t bh = (size_t)b * a.hq + h;
+  const size_t bhk = (size_t)b * a.hkv + hk;
+  const DenseWalk<CAUSAL> walk{(kend + a.block_k - 1) / a.block_k,
+                               a.block_k};
+  tc::fold_rows<D, STATE>(a.q + bh * a.lq * D, a.k + bhk * a.lk * D,
+                          a.v + bhk * a.lk * D, a.o + bh * a.lq * D,
+                          STATE ? a.m + bh * a.lq : nullptr,
+                          STATE ? a.l + bh * a.lq : nullptr, q0, qend, a.lk,
+                          a.block_k, a.scale, walk);
+}
+
 template <typename T, int D, bool CAUSAL, bool STATE>
 int launch(const GridArgs<T>& a, int batch, cudaStream_t stream) {
-  const dim3 grid((a.lq + ROWS - 1) / ROWS, a.hq, batch);
-  const size_t bytes = fa::smem_bytes<T, D>();
   cudaError_t err;
   if (a.lens != nullptr) {
+    const dim3 grid((a.lq + ROWS - 1) / ROWS, a.hq, batch);
+    const size_t bytes = fa::smem_bytes<T, D>();
     auto kernel = flash_attention_lens_kernel<T, D, CAUSAL, STATE>;
     err = fa::allow_smem(kernel, bytes);
     if (err == cudaSuccess)
       kernel<<<grid, fa::THREADS, bytes, stream>>>(a);
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const int wgs = a.lq > 64 ? tc::WG_MAX : 1;
+    const long long blocks =
+        (long long)((a.lq + wgs * 64 - 1) / (wgs * 64)) * a.hq * batch;
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t bytes = tc::smem_bytes<D>(wgs * 64, a.block_k);
+    auto kernel = flash_attention_bf16_kernel<D, CAUSAL, STATE>;
+    err = fa::allow_smem(kernel, bytes);
+    if (err == cudaSuccess)
+      kernel<<<static_cast<unsigned>(blocks), wgs * 128, bytes, stream>>>(
+          a, batch);
   } else {
+    const dim3 grid((a.lq + ROWS - 1) / ROWS, a.hq, batch);
+    const size_t bytes = fa::smem_bytes<T, D>();
     auto kernel = flash_attention_kernel<T, D, CAUSAL, STATE>;
     err = fa::allow_smem(kernel, bytes);
     if (err == cudaSuccess)
@@ -175,9 +240,10 @@ int launch_dtype(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B, Hq, Lq, d), k / v (B, Hkv, Lk, d), o like q; m, l (B, Hq, Lq) f32
-// when state; lens (B,) int32 or null.  dtype 0 = f32, 1 = bf16.  The
-// caller checks shapes: Hq % Hkv == 0, block_k <= 128, d in {32, 64, 128};
-// any Lq and Lk (the last K tile may be short).
+// when state; lens (B,) int32 or null.  dtype 0 = f32, 1 = bf16 (without
+// lens: the tensor-core kernel, q, k, v 16-byte aligned).  The caller
+// checks shapes: Hq % Hkv == 0, block_k <= 128, d in {32, 64, 128}; any Lq
+// and Lk (the last K tile may be short).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* lens,
                                       void* o, void* m, void* l, int batch,

@@ -1,24 +1,33 @@
 """Flash attention with GQA: the kernel wrappers, their plain versions and
 the state algebra (counterpart of ``repro.kernels.flash_attention``).
 
-Three wrappers, one per CUDA kernel, each counting its launches:
+Three wrappers, each counting its launches:
 
-    flash_attention        dense grid (csrc/flash_attention.cu,
-                           ``flash_attention_kernel``); replaces the Pallas
-                           kernels ``repro/kernels/flash_attention.py:154``
-                           and ``:167``.  Causal calls route to the tiles
-                           walk over ``causal_layout`` (as the JAX wrapper
-                           does) unless ``row_extents=False``; calls with
+    flash_attention        dense grid (csrc/flash_attention.cu); replaces
+                           the Pallas kernels
+                           ``repro/kernels/flash_attention.py:154`` and
+                           ``:167``.  f32 runs ``flash_attention_kernel``
+                           (the FMA fold), bf16
+                           ``flash_attention_bf16_kernel`` (the tensor-core
+                           fold it shares with the bf16 tiles kernel).
+                           Causal calls route to the tiles walk over
+                           ``causal_layout`` (as the JAX wrapper does)
+                           unless ``row_extents=False``; calls with
                            ``kv_len`` route to :func:`flash_attention_lens`.
     flash_attention_lens   the same grid with the key-prefix mask
                            ``kpos < kv_len[b]``
-                           (``flash_attention_lens_kernel``); replaces
-                           ``:183`` and ``:201``.
+                           (``flash_attention_lens_kernel``, the FMA fold
+                           in both dtypes); replaces ``:183`` and ``:201``.
     flash_attention_tiles  the tile-skipping walk over a compiled
                            :class:`~repro_torch.sparse.maskcompiler.TileLayout`
-                           (csrc/flash_attention_tiles.cu: the f32 FMA fold,
-                           or in bf16 a tensor-core kernel); replaces
+                           (csrc/flash_attention_tiles.cu: f32 the FMA
+                           fold, bf16 the tensor-core fold); replaces
                            ``:275`` and ``:290``.
+
+The two folds are each shared by two kernels, so over ``causal_layout``
+the tiles walk is bitwise equal to the dense causal grid in either dtype.
+The tensor-core kernels need q, k and v 16-byte aligned; the wrappers raise
+otherwise.
 
 Layouts: q (B, Hq, Lq, d), k / v (B, Hkv, Lk, d), q-head h reads kv-head
 h // (Hq / Hkv); with ``return_state`` the wrappers also return the row
@@ -202,8 +211,10 @@ def flash_attention_tiles_plain(q, k, v, layout, *,
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(what, q, k, v, *ints):
-    """Device, contiguity, dtype and shape checks shared by the wrappers."""
+def _check(what, q, k, v, *ints, tensor_cores: bool = False):
+    """Device, contiguity, dtype and shape checks shared by the wrappers;
+    with ``tensor_cores``, bf16 q, k, v must also be 16-byte aligned (the
+    wgmma kernels copy 16-byte chunks)."""
     _lib.require_cuda(what, q, k, v, *ints)
     _lib.require_dtypes(what, (q, k, v), ints,
                         allowed=tuple(_DTYPE_CODE))
@@ -214,6 +225,10 @@ def _check(what, q, k, v, *ints):
                          f"v {tuple(v.shape)}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {q.shape[3]} not in {HEAD_DIMS}")
+    if tensor_cores and q.dtype == torch.bfloat16 \
+            and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what}: bf16 q, k, v must be 16-byte aligned "
+                         f"(the kernel copies 16-byte chunks)")
 
 
 def _outputs(q, return_state):
@@ -231,7 +246,7 @@ def _launch_grid(what, q, k, v, kv_len, *, causal, scale, block_k,
     outputs and whether a kernel was launched (not for empty outputs)."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     ints = () if kv_len is None else (kv_len.contiguous(),)
-    _check(what, q, k, v, *ints)
+    _check(what, q, k, v, *ints, tensor_cores=kv_len is None)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     bk = min(block_k, lk)
@@ -362,16 +377,11 @@ def flash_attention_tiles(q, k, v, layout, *, scale: Optional[float] = None,
         return flash_attention_tiles_plain(q, k, v, layout, scale=scale,
                                            return_state=return_state)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check("flash_attention_tiles", q, k, v)
+    _check("flash_attention_tiles", q, k, v, tensor_cores=True)
     bq, bk = layout.block_q, layout.block_k
     if bk > MAX_BLOCK_K:
         raise ValueError(f"flash_attention_tiles: block_k {bk} is above "
                          f"{MAX_BLOCK_K}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (q, k, v)):
-        raise ValueError("flash_attention_tiles: bf16 q, k, v must be "
-                         "16-byte aligned (the kernel copies 16-byte "
-                         "chunks)")
     rowp, mid, prowp, cols, biases, order = _layout_tensors(layout,
                                                             q.device)
     o, m, l = _outputs(q, return_state)

@@ -8,6 +8,8 @@ inside fixtures, so the card tests collect where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -102,6 +104,121 @@ def test_spmv_dia_matches_jax(n, offsets, jax_ops):
     got = ops.spmv_dia(torch.as_tensor(diags), offsets, torch.as_tensor(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-4)
+
+
+def _band_offsets(n, ndiags):
+    """``ndiags`` consecutive offsets about the main diagonal, ``|o| < n``."""
+    lo = -(ndiags // 2)
+    return tuple(range(lo, lo + ndiags))
+
+
+#: Diagonal counts from 1 to 1023, around each change of the partition
+#: (lanes per row group 1/2/4/8, chunk sizes).
+DIA_COUNTS = (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65,
+              127, 128, 129, 255, 256, 257, 511, 512, 1000, 1022, 1023)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("n", [1, 33, 1024, 1000003])
+def test_dia_partition_covers_each_stored_entry_once(n, sms):
+    """Tiles partition the rows and chunks the diagonals; each diagonal's
+    live rows, cut by the tiles, add up to its stored nonzeros once."""
+    for ndiags in (k for k in DIA_COUNTS if k <= 2 * n - 1):
+        part = spmv_k.dia_partition(n, ndiags, sms)
+        assert part.dw in (1, 2, 4, 8) and part.dw * part.rows == 1024
+        assert 1 <= part.nchunks <= 65535
+        tiles = np.array(part.tiles(n))
+        chunks = np.array(part.chunks(ndiags))
+        assert len(tiles) == part.ntiles and len(chunks) == part.nchunks
+        for cuts, total in ((tiles, n), (chunks, ndiags)):
+            assert cuts[0, 0] == 0 and cuts[-1, 1] == total
+            np.testing.assert_array_equal(cuts[1:, 0], cuts[:-1, 1])
+            assert np.all(cuts[:, 1] > cuts[:, 0])        # none empty
+        offsets = np.array(_band_offsets(n, ndiags))
+        for b0 in range(0, ndiags, 64):
+            o = offsets[b0:b0 + 64, None]
+            lo, hi = spmv_k.dia_live_rows(n, o, tiles[None, :, 0],
+                                          tiles[None, :, 1])
+            lo, hi = np.broadcast_arrays(lo, hi)
+            live = np.maximum(hi - lo, 0)
+            assert np.all((lo >= tiles[None, :, 0]) | (live == 0))
+            assert np.all((hi <= tiles[None, :, 1]) | (live == 0))
+            np.testing.assert_array_equal(live.sum(axis=1),
+                                          n - np.abs(o[:, 0]))
+
+
+def test_dia_partition_sizes_the_grid_by_shape():
+    """A tridiagonal system at large n runs many row tiles and one chunk;
+    the CG conf-18 band few row tiles and many chunks (hundreds of warps)."""
+    tri = spmv_k.dia_partition(1 << 20, 3, 132)
+    assert (tri.dw, tri.nchunks) == (1, 1) and tri.ntiles == 1024
+    band = spmv_k.dia_partition(1024, 1023, 132)
+    assert band.dw == 8 and band.ntiles == 8 and band.nchunks >= 16
+    assert band.ntiles * band.nchunks * 8 >= 500          # warps
+    assert spmv_k.dia_window(band, _band_offsets(1024, 1023)) \
+        == band.rows + band.per_chunk - 1
+    wide = spmv_k.dia_partition(40000, 3, 132)
+    assert spmv_k.dia_window(wide, (-30000, 0, 30000)) == 0
+
+
+def _dia_kernel_model(diags, offsets, x, part):
+    """csrc/spmv.cu's sums in numpy (f32): per (tile, chunk), lane q of a
+    row group adds the chunk's diagonals q, q + dw, ... into 4 accumulators
+    in turn, summed (a0 + a1) + (a2 + a3); the lanes' sums add in order q =
+    0, 1, ...; with several chunks, lane q adds chunks q, q + dw, ... and
+    the lanes' sums add in order again.  Reads outside a diagonal's live
+    rows, and of x outside [0, n), are skipped (they hold or give 0)."""
+    n = x.size
+    y = np.zeros(n, np.float32)
+
+    def in_lanes(terms):
+        lanes = [terms[q::part.dw] for q in range(part.dw)]
+        return lanes
+
+    for r0, r1 in part.tiles(n):
+        partials = []
+        for d0, d1 in part.chunks(len(offsets)):
+            sums = []
+            for lane in in_lanes(list(range(d0, d1))):
+                acc = np.zeros((4, r1 - r0), np.float32)
+                for u, d in enumerate(lane):
+                    lo, hi = spmv_k.dia_live_rows(n, offsets[d], r0, r1)
+                    if hi > lo:
+                        acc[u % 4, lo - r0:hi - r0] += (
+                            diags[d, lo:hi] * x[lo + offsets[d]:
+                                                hi + offsets[d]])
+                sums.append((acc[0] + acc[1]) + (acc[2] + acc[3]))
+            partials.append(functools.reduce(np.add, sums))
+        if len(partials) == 1:
+            y[r0:r1] = partials[0]
+            continue
+        sums = [functools.reduce(np.add, lane,
+                                 np.zeros(r1 - r0, np.float32))
+                for lane in in_lanes(partials)]
+        y[r0:r1] = functools.reduce(np.add, sums)
+    return y
+
+
+@pytest.mark.parametrize("n,offsets,sms", [
+    (1024, _band_offsets(1024, 1023), 132),    # CG conf 18
+    (33, _band_offsets(33, 65), 132), (1030, _band_offsets(1030, 64), 132),
+    (1000, (-100, -1, 0, 1, 100), 132), (100, (-1, 0, 1), 1),
+    (4096, (7,), 132), (2048, _band_offsets(2048, 129), 1)])
+def test_dia_kernel_model_matches_plain(n, offsets, sms):
+    rng = np.random.default_rng(n + len(offsets))
+    diags = _randn(rng, (len(offsets), n))
+    for d, o in enumerate(offsets):     # zeros outside the live rows
+        lo, hi = spmv_k.dia_live_rows(n, o, 0, n)
+        diags[d, :lo], diags[d, hi:] = 0.0, 0.0
+    x = _randn(rng, n)
+    part = spmv_k.dia_partition(n, len(offsets), sms)
+    got = _dia_kernel_model(diags, offsets, x, part)
+    # the plain version in f64 on the same values: the bar measures the
+    # model's own f32 rounding, not the plain version's serial sum's
+    want = spmv_k.spmv_dia_plain(torch.as_tensor(diags, dtype=torch.float64),
+                                 offsets,
+                                 torch.as_tensor(x, dtype=torch.float64))
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("logn", [3, 6, 10])
@@ -466,6 +583,53 @@ def test_spmv_dia_kernel_matches_plain(n, bw, card):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+#: (n, offsets): a tridiagonal system at 2^20 (many row tiles, one
+#: chunk); n below and past a row tile and not a multiple of 4 (4-byte
+#: loads); one diagonal; a band of 64 at n % 4 == 2; offsets too far apart
+#: for the staged window (x read from global memory).
+DIA_CARD_CASES = {
+    "tridiagonal_2^20": (1 << 20, (-1, 0, 1)),
+    "n_1000": (1000, (-2, -1, 0, 1, 2)),
+    "n_1030_band64": (1030, tuple(range(-32, 32))),
+    "n_3001": (3001, (-3, 0, 5)),
+    "one_diagonal": (4096, (7,)),
+    "wide_offsets": (40000, (-30000, 0, 30000)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DIA_CARD_CASES))
+def test_spmv_dia_kernel_partitions(case, card):
+    n, offsets = DIA_CARD_CASES[case]
+    rng = np.random.default_rng(n)
+    diags = _randn(rng, (len(offsets), n))
+    for d, o in enumerate(offsets):     # zeros outside the live rows
+        lo, hi = spmv_k.dia_live_rows(n, o, 0, n)
+        diags[d, :lo], diags[d, hi:] = 0.0, 0.0
+    diags = torch.as_tensor(diags, device=card)
+    x = torch.as_tensor(_randn(rng, n), device=card)
+    before = spmv_k.spmv_dia.launches
+    got = spmv_k.spmv_dia(diags, offsets, x)
+    assert spmv_k.spmv_dia.launches == before + 1
+    want = spmv_k.spmv_dia_plain(diags, offsets, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_spmv_dia_kernel_is_bitwise_run_to_run(card):
+    """CG conf 18 (many chunks, partial sums added in a fixed order): the
+    same inputs give the same y bit for bit."""
+    from repro_torch.numerics import sparse
+
+    dia = sparse.dia_from_dense(sparse.banded_spd(1024, 511, seed=18),
+                                device=card)
+    x = torch.randn(1024, device=card)
+    first = spmv_k.spmv_dia(dia.diags, dia.offsets, x)
+    for _ in range(20):
+        assert torch.equal(spmv_k.spmv_dia(dia.diags, dia.offsets, x), first)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("logn", [20, 13, 10, 1])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
@@ -670,6 +834,71 @@ def test_flash_attention_kernel_matches_plain(dtype, causal, hq, hkv, d, lq,
     o = fa_k.flash_attention(q, k, v, causal=causal, block_k=bk,
                              row_extents=False)
     assert torch.equal(o, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv,d,lq,lk,bk",
+                         [(4, 2, 64, 1, 100, 32), (4, 2, 128, 63, 200, 128),
+                          (8, 2, 64, 130, 77, 16), (4, 1, 32, 63, 129, 100),
+                          (16, 4, 128, 200, 1021, 128)])
+def test_flash_attention_bf16_kernel_edges(causal, hq, hkv, d, lq, lk, bk,
+                                           card):
+    """The tensor-core dense grid at Lq 1 and 63 (one partial warpgroup),
+    GQA group 4, block_k 16 and 100, Lq != Lk, with and without state."""
+    q, k, v = _attn_inputs(card, torch.bfloat16, hq=hq, hkv=hkv, lq=lq,
+                           lk=lk, d=d, seed=lq + lk)
+    before = fa_k.flash_attention.launches
+    got = fa_k.flash_attention(q, k, v, causal=causal, block_k=bk,
+                               row_extents=False, return_state=True)
+    assert fa_k.flash_attention.launches == before + 1
+    want = fa_k.flash_attention_plain(q, k, v, causal=causal, block_k=bk,
+                                      return_state=True)
+    for g, w, what in zip(got, want, "oml"):
+        _close(g, w, ATTN_TOL[torch.bfloat16] * (lk if what == "l" else 1),
+               what)
+    assert torch.equal(fa_k.flash_attention(q, k, v, causal=causal,
+                                            block_k=bk, row_extents=False),
+                       got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L", [(4, 512), (1, 1021)])
+def test_tiles_kernel_bitwise_equals_dense_causal_bf16(b, L, card):
+    """The bf16 counterpart of the f32 property: both walks fold the same
+    rows over the same K tiles in the same order through one fold."""
+    q, k, v = _attn_inputs(card, torch.bfloat16, b=b, hq=16, hkv=8, lq=L,
+                           lk=L, d=128, seed=L)
+    tiles = fa_k.flash_attention_tiles(q, k, v,
+                                       causal_layout(L, L, 128, 128),
+                                       return_state=True)
+    dense = fa_k.flash_attention(q, k, v, causal=True, row_extents=False,
+                                 return_state=True)
+    for t, g in zip(tiles, dense):
+        assert torch.equal(t, g)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_misaligned_view_raises(card):
+    """The tensor-core kernels copy 16-byte chunks: a bf16 view that starts
+    one element into its storage is refused, never run on another kernel."""
+    q, k, v = _attn_inputs(card, torch.bfloat16, lq=64, lk=64, d=64)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=card)
+    qm = flat[1:].view(q.shape)
+    qm.copy_(q)
+    assert qm.is_contiguous() and qm.data_ptr() % 16
+    before = fa_k.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_k.flash_attention(qm, k, v, causal=False)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_k.flash_attention(qm, k, v, causal=True, row_extents=False)
+    assert fa_k.flash_attention.launches == before
+    # the key-length kernel (the FMA fold) takes it
+    kv_len = torch.tensor([64, 10], dtype=torch.int32, device=card)
+    got = fa_k.flash_attention(qm, k, v, causal=False, kv_len=kv_len)
+    _close(got, fa_k.flash_attention_plain(q, k, v, causal=False,
+                                           kv_len=kv_len),
+           ATTN_TOL[torch.bfloat16], "o")
 
 
 @pytest.mark.cuda
