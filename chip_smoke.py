@@ -30,7 +30,8 @@
       weights): Engine.generate on 4 prompts of 512 tokens, 32 new tokens,
       greedy (the prefill runs the tiles kernel), and ContinuousEngine.serve
       on 8 requests of 64-1024 prompt tokens and 16-64 new tokens, 4 slots,
-      chunks of 128 (the lens-state and tiles-state kernels).  Checks: the
+      chunks of 128 (the tiles-state kernel and both lens kernels: decode
+      for the decode steps, prefix for a chunk's prefix).  Checks: the
       Engine's prefill logits on the cuda plane against the torch plane on
       the same tensors; and, at full width in f32 with 2 layers, the
       ContinuousEngine's greedy tokens equal the fixed Engine's per request
@@ -38,9 +39,10 @@
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
-   trace (``kernel_ms``); profile a short window of each engine's work
-   (device time by kernel group, the device's idle share); print one JSON
-   line of kernel records.
+   trace (``kernel_ms``); lens at paged decode and at a chunk's prefix;
+   print what ptxas said of the kernels' registers and spills; profile a
+   short window of each engine's work (device time by kernel group, the
+   device's idle share); print one JSON line of kernel records.
 5. Print the contract line {"ok": true, "device": {...}} last.
 
 Any failure raises and exits nonzero before the last line.  Without a CUDA
@@ -66,6 +68,16 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 L2_SCRUB_BYTES = 256 << 20
+#: Kernels whose ptxas report (registers, spills) the build prints; a
+#: name with "ILi256" is the head_dim 256 instantiations alone (the first
+#: name a symbol holds wins).
+PTXAS_NAMES = ("flash_attention_lens_decode_kernel",
+               "flash_attention_lens_prefix_kernelILi256",
+               "flash_attention_lens_prefix_kernel",
+               "flash_attention_bf16_kernelILi256",
+               "flash_attention_bf16_kernel",
+               "flash_attention_tiles_bf16_kernelILi256",
+               "flash_attention_tiles_bf16_kernel", "matmul_kernel")
 
 
 def log(*parts) -> None:
@@ -505,6 +517,12 @@ ATTN_SHAPE = (4, 16, 8, 512, 128)
 DECODE_B, DECODE_LK = 8, 2048
 #: A prime length: every block leaves a short last tile.
 PRIME_LEN = 1021
+#: A chunk's prefix: one slot's 128 chunk rows against its gathered pages
+#: (capacity SERVE_MAX_LEN), PREFIX_LEN of them live.
+PREFIX_LEN = 1024
+#: The head shapes of the repo's other dense configs, which need head_dim
+#: 96 and 256: phi3-mini-3.8b (Hq/Hkv 32/32, d 96) and gemma-2b (8/1, 256).
+HEAD_DIM_SHAPES = ((32, 32, 96), (8, 1, 256))
 
 
 def attn_inputs(torch, dtype, b, hq, hkv, lq, lk, d, seed):
@@ -524,20 +542,25 @@ def attn_tol(torch, dtype) -> tuple[float, float]:
     return 2.0 ** -7, 2e-3
 
 
-def hold_attention_kernels(torch, kernels) -> None:
-    """Phase 1 for the three attention kernels, in f32 and bf16: the dense
-    grid (causal and not, with and without state), the lens kernel (kv_len
-    0 to full; o and l compared on rows with a live key, m must be NEG_INF
-    on the others), the tiles kernel over causal_layout, a window spec (the
-    band path) and a global-token spec (the bias path), GQA groups 1 and 2;
-    the serve path's own decode and chunk shapes and a prime length at full
-    width; then the bitwise equality of tiles and dense causal in f32 and
-    in bf16, at the prefill shape and at the prime length."""
+def hold_attention_kernels(torch, heads) -> dict:
+    """Phase 1 for the three attention kernels at the head shape ``heads``
+    (Hq, Hkv, d), in f32 and bf16: the dense grid (causal and not, with and
+    without state), the lens kernel (kv_len 0 to full; o, m and l compared
+    on rows with a live key, m must be NEG_INF on the others), the tiles
+    kernel over causal_layout, a window spec (the band path) and a
+    global-token spec (the bias path), GQA groups 1 and Hq / Hkv; the serve
+    path's own decode and chunk shapes and a prime length; then the bitwise
+    equality of tiles and dense causal in f32 and in bf16, at the prefill
+    shape and at the prime length.  Returns each kernel's largest error in
+    bf16 at the widest GQA group (the dense grid non-causal, tiles over
+    causal_layout, lens at the timed decode)."""
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.sparse.maskcompiler import (MaskSpec, causal_layout,
                                                  compile_layout)
 
-    b, hq, hkv, L, d = ATTN_SHAPE
+    b, L = ATTN_SHAPE[0], ATTN_SHAPE[3]
+    hq, hkv, d = heads
+    groups = sorted({1, hq // hkv})
     errs = {"flash_attention": [], "flash_attention_lens": [],
             "flash_attention_tiles": []}
 
@@ -549,7 +572,7 @@ def hold_attention_kernels(torch, kernels) -> None:
         return max_err(torch, got, want, rtol, atol, what)
 
     for dtype in (torch.float32, torch.bfloat16):
-        for group in (1, 2):
+        for group in groups:
             q, k, v = attn_inputs(torch, dtype, b, hq, hq // group, L, L, d,
                                   group)
             for causal in (False, True):
@@ -559,7 +582,8 @@ def hold_attention_kernels(torch, kernels) -> None:
                 want = fa_k.flash_attention_plain(q, k, v, causal=causal,
                                                   return_state=True)
                 e = close(got[0], want[0], dtype,
-                          f"flash_attention {dtype} g{group} causal={causal}")
+                          f"flash_attention {dtype} d={d} g{group} "
+                          f"causal={causal}")
                 torch.testing.assert_close(got[1], want[1], rtol=1e-5,
                                            atol=1e-5)
                 torch.testing.assert_close(got[2], want[2], rtol=1e-5,
@@ -569,7 +593,8 @@ def hold_attention_kernels(torch, kernels) -> None:
                 if not torch.equal(o, got[0]):
                     raise AssertionError("flash_attention: o differs with "
                                          "and without state")
-                if dtype == torch.bfloat16 and group == 2 and not causal:
+                if dtype == torch.bfloat16 and group == groups[-1] and \
+                        not causal:
                     errs["flash_attention"].append(e)
             for name, spec in (("causal", MaskSpec(causal=True)),
                                ("window", MaskSpec(causal=True,
@@ -584,12 +609,13 @@ def hold_attention_kernels(torch, kernels) -> None:
                 want = fa_k.flash_attention_tiles_plain(q, k, v, lay,
                                                         return_state=True)
                 e = close(got[0], want[0], dtype,
-                          f"flash_attention_tiles {name} {dtype} g{group}")
+                          f"flash_attention_tiles {name} {dtype} d={d} "
+                          f"g{group}")
                 torch.testing.assert_close(got[1], want[1], rtol=1e-5,
                                            atol=1e-5)
                 torch.testing.assert_close(got[2], want[2], rtol=1e-5,
                                            atol=1e-5 * L)
-                if dtype == torch.bfloat16 and group == 2 and \
+                if dtype == torch.bfloat16 and group == groups[-1] and \
                         name == "causal":
                     errs["flash_attention_tiles"].append(e)
         # lens: the timed decode (8 slots, Lq = 1, capacity 2048), the serve
@@ -614,8 +640,10 @@ def hold_attention_kernels(torch, kernels) -> None:
                 raise AssertionError("flash_attention_lens: a row with no "
                                      "live key has m != NEG_INF")
             e = close(got[0], want[0], dtype,
-                      f"flash_attention_lens {dtype} B={bsz} Lq={lq} "
+                      f"flash_attention_lens {dtype} d={d} B={bsz} Lq={lq} "
                       f"Lk={lk}", live)
+            torch.testing.assert_close(got[1][live], want[1][live],
+                                       rtol=1e-5, atol=1e-5)
             torch.testing.assert_close(got[2][live], want[2][live],
                                        rtol=1e-5, atol=1e-5 * lk)
             if dtype == torch.bfloat16 and (bsz, lk) == (DECODE_B,
@@ -641,11 +669,10 @@ def hold_attention_kernels(torch, kernels) -> None:
                     fa_k.flash_attention_plain(q, k, v, causal=False,
                                                return_state=True))
                 close(got[0], want[0], dtype,
-                      f"flash_attention L={n} causal={causal} {dtype}")
+                      f"flash_attention L={n} causal={causal} {dtype} "
+                      f"d={d}")
                 torch.testing.assert_close(got[1], want[1], rtol=1e-5,
                                            atol=1e-5)
-    for name, e in errs.items():
-        kernels[name]["max_abs_err"] = max(e)
     # the f32 bitwise property (the JAX package's
     # test_causal_row_extents_bitwise_parity), and its bf16 counterpart:
     # both bf16 kernels fold through tc::fold_rows
@@ -660,8 +687,9 @@ def hold_attention_kernels(torch, kernels) -> None:
             if not all(torch.equal(t, g) for t, g in zip(tiles, dense)):
                 raise AssertionError(f"tiles over causal_layout are not "
                                      f"bitwise equal to the dense causal "
-                                     f"grid in {dtype} at L={n}")
+                                     f"grid in {dtype} at L={n}, d={d}")
     torch.cuda.synchronize()
+    return {name: max(e) for name, e in errs.items()}
 
 
 def serve_requests(vocab: int):
@@ -693,8 +721,10 @@ def device_breakdown(torch, fn) -> dict:
         if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
             continue
         name, low = e.key, e.key.lower()
-        if "flash_attention_lens_kernel" in name:
-            g = "flash_attention_lens"
+        if "flash_attention_lens_decode" in name:
+            g = "flash_attention_lens (decode)"
+        elif "flash_attention_lens_prefix" in name:
+            g = "flash_attention_lens (prefix)"
         elif "flash_attention_tiles_" in name:
             g = "flash_attention_tiles"
         elif "flash_attention_kernel" in name:
@@ -741,9 +771,13 @@ def run_serve_path(torch, wrappers) -> dict:
     cfg = get_config(ARCH)
     lm = LM(cfg)
 
+    lens_kernels = wrappers["flash_attention_lens"].kernels
+
     def reset():
         for w in wrappers.values():
             w.launches = 0
+        for kind in lens_kernels:
+            lens_kernels[kind] = 0
 
     def read():
         return {k: w.launches for k, w in wrappers.items()}
@@ -797,6 +831,7 @@ def run_serve_path(torch, wrappers) -> dict:
     torch.cuda.synchronize()
     out["cont_s"] = time.perf_counter() - t
     out["cont_launches"] = read()
+    out["cont_lens_kernels"] = dict(lens_kernels)
     ntok = sum(len(x) for x in got)
     if [len(x) for x in got] != [m for _, m in reqs] or len(
             ce.decode_inputs) != 1:
@@ -874,55 +909,66 @@ def run_serve_path(torch, wrappers) -> dict:
     return out
 
 
-def time_attention_kernels(torch, kernels, cold_ms) -> dict:
+def time_attention_kernels(torch, kernels, cold_ms):
     """Phase 3 for the attention kernels, bf16: row 8 at the prefill shape
     non-causal, row 10 at the same shape causal (the prefill), row 9 at
     paged decode (8 slots, Lq = 1, capacity 2048, kv_len spread over
-    1..2048).  Bound: the larger of q, k, v, o (and m, l) bytes at HBM rate
-    and 4 * B * Hq * (live query-key pairs) * d flops at the bf16
-    tensor-core rate.  Library: scaled_dot_product_attention on the same
-    inputs (timed only)."""
+    1..2048; the decode kernel) and at a chunk's prefix (B 1, Lq 128
+    against capacity 1152, PREFIX_LEN live keys; the prefix kernel, its
+    numbers under ``prefix_*``).  Bound: the larger of q, k, v, o (and m,
+    l) bytes at HBM rate and 4 * B * Hq * (live query-key pairs) * d flops
+    at the bf16 tensor-core rate.  Library: scaled_dot_product_attention on
+    the same inputs (timed only).  Returns the call that launches each
+    kernel and the lens prefix call, for the profiler pass."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.sparse.maskcompiler import causal_layout
 
     b, hq, hkv, L, d = ATTN_SHAPE
-    q, k, v = attn_inputs(torch, torch.bfloat16, b, hq, hkv, L, L, d, 21)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    lay = causal_layout(L, L, 128, 128)
-    calls = {
-        "flash_attention": (
-            lambda: fa_k.flash_attention(q, k, v, causal=False),
-            lambda: fa_k.flash_attention_plain(q, k, v, causal=False),
-            lambda: F.scaled_dot_product_attention(q, k, v,
-                                                   enable_gqa=True),
-            nbytes, 4.0 * b * hq * L * L * d),
-        "flash_attention_tiles": (
-            lambda: fa_k.flash_attention_tiles(q, k, v, lay),
-            lambda: fa_k.flash_attention_tiles_plain(q, k, v, lay),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True),
-            nbytes, 4.0 * b * hq * (L * (L + 1) // 2) * d),
-    }
-    qd, kd, vd = attn_inputs(torch, torch.bfloat16, DECODE_B, hq, hkv, 1,
-                             DECODE_LK, d, 22)
+
+    def calls_at(hd):
+        """Each kernel's call, plain version, library call, bytes and flops
+        at the timed shapes with head_dim hd."""
+        q, k, v = attn_inputs(torch, torch.bfloat16, b, hq, hkv, L, L, hd,
+                              21)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        lay = causal_layout(L, L, 128, 128)
+        qd, kd, vd = attn_inputs(torch, torch.bfloat16, DECODE_B, hq, hkv, 1,
+                                 DECODE_LK, hd, 22)
+        return {
+            "flash_attention": (
+                lambda: fa_k.flash_attention(q, k, v, causal=False),
+                lambda: fa_k.flash_attention_plain(q, k, v, causal=False),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       enable_gqa=True),
+                nbytes, 4.0 * b * hq * L * L * hd),
+            "flash_attention_tiles": (
+                lambda: fa_k.flash_attention_tiles(q, k, v, lay),
+                lambda: fa_k.flash_attention_tiles_plain(q, k, v, lay),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                nbytes, 4.0 * b * hq * (L * (L + 1) // 2) * hd),
+            "flash_attention_lens": (
+                lambda: fa_k.flash_attention_lens(qd, kd, vd, kv_len,
+                                                  return_state=True),
+                lambda: fa_k.flash_attention_plain(
+                    qd, kd, vd, causal=False, kv_len=kv_len,
+                    return_state=True),
+                lambda: F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=mask, enable_gqa=True),
+                # q, o; the live keys and values; m, l
+                2 * 2 * qd.numel() + 2 * 2 * live * hkv * hd
+                + 8 * DECODE_B * hq,
+                4.0 * hq * live * hd),
+        }
+
     kv_len = torch.linspace(1, DECODE_LK, DECODE_B, device="cuda").round().to(
         torch.int32)
     live = int(kv_len.sum())
     mask = (torch.arange(DECODE_LK, device="cuda")[None, :]
             < kv_len[:, None])[:, None, None, :]
-    calls["flash_attention_lens"] = (
-        lambda: fa_k.flash_attention_lens(qd, kd, vd, kv_len,
-                                          return_state=True),
-        lambda: fa_k.flash_attention_plain(qd, kd, vd, causal=False,
-                                           kv_len=kv_len, return_state=True),
-        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
-                                               enable_gqa=True),
-        # q, o; the live keys and values; m, l
-        2 * 2 * qd.numel() + 2 * 2 * live * hkv * d + 8 * DECODE_B * hq,
-        4.0 * hq * live * d)
     timed = {}
-    for name, (kern, plain, lib, nb, flops) in calls.items():
+    for name, (kern, plain, lib, nb, flops) in calls_at(d).items():
         rec = kernels[name]
         rec["ms"] = cold_ms(kern, 50)
         rec["plain_ms"] = cold_ms(plain, 5)
@@ -930,9 +976,39 @@ def time_attention_kernels(torch, kernels, cold_ms) -> dict:
         rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flops,
                                                     PEAK_BF16_FLOP_PER_S)
         timed[name] = kern
+    # the same shapes at the other configs' head sizes (kernel and library
+    # call; their bound), under d96_* and d256_*
+    for hd in (96, 256):
+        for name, (kern, _, lib, nb, flops) in calls_at(hd).items():
+            rec = kernels[name]
+            rec[f"d{hd}_ms"] = cold_ms(kern, 50)
+            rec[f"d{hd}_library_ms"] = cold_ms(lib, 50)
+            rec[f"d{hd}_bound_ms"], _ = bound_ms(nb, flops,
+                                                 PEAK_BF16_FLOP_PER_S)
+    qp, kp, vp = attn_inputs(torch, torch.bfloat16, 1, hq, hkv, SERVE_CHUNK,
+                             SERVE_MAX_LEN, d, 23)
+    plen = torch.tensor([PREFIX_LEN], dtype=torch.int32, device="cuda")
+    pmask = (torch.arange(SERVE_MAX_LEN, device="cuda")
+             < PREFIX_LEN)[None, None, None, :]
+
+    def prefix():
+        return fa_k.flash_attention_lens(qp, kp, vp, plen, return_state=True)
+
+    rec = kernels["flash_attention_lens"]
+    rec["prefix_ms"] = cold_ms(prefix, 50)
+    rec["prefix_plain_ms"] = cold_ms(lambda: fa_k.flash_attention_plain(
+        qp, kp, vp, causal=False, kv_len=plen, return_state=True), 5)
+    rec["prefix_library_ms"] = cold_ms(
+        lambda: F.scaled_dot_product_attention(qp, kp, vp, attn_mask=pmask,
+                                               enable_gqa=True), 50)
+    rec["prefix_bound_ms"], rec["prefix_bound_by"] = bound_ms(
+        2 * 2 * qp.numel() + 2 * 2 * PREFIX_LEN * hkv * d
+        + 8 * hq * SERVE_CHUNK, 4.0 * hq * SERVE_CHUNK * PREFIX_LEN * d,
+        PEAK_BF16_FLOP_PER_S)
     log(f"attention timed: bf16, prefill B={b} Hq/Hkv={hq}/{hkv} L={L} d={d};"
-        f" decode B={DECODE_B} Lk={DECODE_LK} kv_len {kv_len.tolist()}")
-    return timed
+        f" decode B={DECODE_B} Lk={DECODE_LK} kv_len {kv_len.tolist()}; "
+        f"prefix Lq={SERVE_CHUNK} Lk={SERVE_MAX_LEN} kv_len {PREFIX_LEN}")
+    return timed, prefix
 
 
 def main() -> int:
@@ -970,6 +1046,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _lib.lib()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    for name, r in _lib.ptxas_report(PTXAS_NAMES).items():
+        log(f"ptxas {name}: {r['instantiations']} instantiations, at most "
+            f"{r['registers']} registers, {r['spill_stores']} / "
+            f"{r['spill_loads']} bytes of spill stores / loads")
     dev = torch.device("cuda")
     kernels = {k: {"name": k} for k in
                ("matmul", "spmv_ell", "spmv_dia", "fft_stage", "spmm_ell",
@@ -1011,7 +1091,9 @@ def main() -> int:
     kernels["matmul"]["max_abs_err"] = max_err(
         torch, mm_k.matmul(A.data, B.data), mm_k.matmul_plain(A.data, B.data),
         2e-5, 1e-3, "matmul f32 1024")
-    for m, k, n in ((130, 257, 129), (1, 7, 3), (96, 80, 112)):
+    # (129, 100, 132): the f32 cp.async ring at ragged M, N and K
+    for m, k, n in ((130, 257, 129), (1, 7, 3), (96, 80, 112),
+                    (129, 100, 132)):
         for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             a = torch.randn(m, k, device=dev).to(dt)
             b = torch.randn(k, n, device=dev).to(dt)
@@ -1096,7 +1178,11 @@ def main() -> int:
         max_err(torch, got, plain, 1e-5, atol, f"fft {nz}")
 
     hold_sparse_kernels(torch, sparse_in, ell, kernels)
-    hold_attention_kernels(torch, kernels)
+    for name, e in hold_attention_kernels(torch, ATTN_SHAPE[1:3]
+                                          + ATTN_SHAPE[4:]).items():
+        kernels[name]["max_abs_err"] = e
+    for heads in HEAD_DIM_SHAPES:
+        hold_attention_kernels(torch, heads)
     torch.cuda.synchronize()
     log(f"phase 1: {len(kernels)} kernels agree with their plain versions")
 
@@ -1108,8 +1194,14 @@ def main() -> int:
     t_path = time.perf_counter()
 
     want = a_np.astype(np.float64) @ b_np.astype(np.float64)
-    np.testing.assert_allclose(C.wrap(ops.matmul(A.data, B.data)).read(),
-                               want, rtol=2e-3, atol=2e-3)
+    got = ops.matmul(A.data, B.data)
+    np.testing.assert_allclose(C.wrap(got).read(), want, rtol=2e-3,
+                               atol=2e-3)
+    # the reference's block keywords pin a Pallas tile; here they change
+    # nothing
+    if not torch.equal(ops.matmul(A.data, B.data, block_m=256, block_n=256,
+                                  block_k=512), got):
+        raise AssertionError("ops.matmul: block keywords changed the result")
     for f in (mm.arbb_mxm1, mm.arbb_mxm2a, mm.arbb_mxm2b):
         np.testing.assert_allclose(f(A, B).read(), want, rtol=2e-3,
                                    atol=2e-3, err_msg=f.__name__)
@@ -1191,12 +1283,15 @@ def main() -> int:
     log(f"phase 2c: {ARCH} serve path and its checks in "
         f"{time.perf_counter() - t_path:.2f} s, kernel launches: Engine "
         f"{serve['fixed_launches']}, ContinuousEngine "
-        f"{serve['cont_launches']}")
+        f"{serve['cont_launches']} (lens by kernel "
+        f"{serve['cont_lens_kernels']})")
     missing = [f"Engine {k}" for k in ("flash_attention_tiles",)
                if serve["fixed_launches"][k] == 0] + [
         f"ContinuousEngine {k}" for k in ("flash_attention_lens",
                                           "flash_attention_tiles")
-        if serve["cont_launches"][k] == 0]
+        if serve["cont_launches"][k] == 0] + [
+        f"ContinuousEngine flash_attention_lens ({kind})"
+        for kind, n in serve["cont_lens_kernels"].items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the serve path: "
                              f"{missing}")
@@ -1231,6 +1326,14 @@ def main() -> int:
     rec["library_ms"] = cold_ms(lambda: torch.matmul(a, b), 50)
     rec["bound_ms"], rec["bound_by"] = bound_ms(3 * n_mm * n_mm * 4,
                                                 2.0 * n_mm ** 3)
+    # the register-staged path: bf16 in and out at n = 1024, and f32 at
+    # n = 1023 (K and N not multiples of 4), each beside torch.matmul
+    ab16 = a.bfloat16(), b.bfloat16()
+    rec["bf16_ms"] = cold_ms(lambda: mm_k.matmul(*ab16), 50)
+    rec["bf16_library_ms"] = cold_ms(lambda: torch.matmul(*ab16), 50)
+    ar, br = a[:-1, :-1].contiguous(), b[:-1, :-1].contiguous()
+    rec["ragged_ms"] = cold_ms(lambda: mm_k.matmul(ar, br), 50)
+    rec["ragged_library_ms"] = cold_ms(lambda: torch.matmul(ar, br), 50)
 
     def csr_tensor(m: sparse.CSR):
         return torch.sparse_csr_tensor(m.rowp.long(), m.indx.long(),
@@ -1281,7 +1384,8 @@ def main() -> int:
 
     timed_sparse = time_sparse_kernels(torch, sparse_in, csr, ell, kernels,
                                        cold_ms, csr_tensor)
-    timed_attn = time_attention_kernels(torch, kernels, cold_ms)
+    timed_attn, lens_prefix = time_attention_kernels(torch, kernels,
+                                                     cold_ms)
 
     routes = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
@@ -1301,7 +1405,7 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:154"),
         "flash_attention_lens": (
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/csrc/flash_attention_lens.cu",
             "src/repro/kernels/flash_attention.py:183"),
         "flash_attention_tiles": (
             "src/repro_torch/kernels/csrc/flash_attention_tiles.cu",
@@ -1316,15 +1420,20 @@ def main() -> int:
     # the kernels' symbols, where the record's name is not "<name>_kernel"
     symbols = {"fft_stage": "fft_stages_kernel",
                "flash_attention": "flash_attention_bf16_kernel",
+               "flash_attention_lens": "flash_attention_lens_decode_kernel",
                "flash_attention_tiles": "flash_attention_tiles_"}
     for name, fn in timed.items():
         kernels[name]["kernel_ms"] = kernel_ms(
             torch, fn, 20, symbols.get(name, f"{name}_kernel"), scrub)
+    kernels["flash_attention_lens"]["prefix_kernel_ms"] = kernel_ms(
+        torch, lens_prefix, 20, "flash_attention_lens_prefix_kernel", scrub)
     fixed_prof, cont_prof = serve["profile"]()
     log(f"{ARCH} device time by kernel group on {smi[0]}:")
     log(f"  Engine, {PROFILE_NEW} new tokens: {fmt_breakdown(fixed_prof)}")
     log(f"  ContinuousEngine, first {SERVE_SLOTS} requests with "
         f"{PROFILE_NEW} new tokens: {fmt_breakdown(cont_prof)}")
+    KEYS = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "kernel_ms")
     out = []
     for name, r in kernels.items():
         src, replaces = routes[name]
@@ -1335,8 +1444,7 @@ def main() -> int:
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
                     "kernel_ms": r["kernel_ms"],
-                    **({"launches_per_call": r["launches_per_call"]}
-                       if "launches_per_call" in r else {})})
+                    **{k: v for k, v in r.items() if k not in KEYS}})
     log(json.dumps({"kernels": out}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"ok": True, "device": {

@@ -11,9 +11,11 @@ shared library:
 
 The library lands in ``kernels/_build/`` (ignored by git), named by a hash
 of the sources and flags, so it is built at first use and again whenever a
-source changes.  Every C entry point launches on the stream it is given,
-allocates nothing and returns ``cudaGetLastError()``; :func:`check` turns a
-non-zero code into an exception.
+source changes.  Each compile runs with ``-Xptxas -v``; what ptxas says of
+every kernel (registers, spill bytes) is kept beside the library and read
+by :func:`ptxas_report`.  Every C entry point launches on the stream it is
+given, allocates nothing and returns ``cudaGetLastError()``; :func:`check`
+turns a non-zero code into an exception.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,15 +34,17 @@ import torch
 from repro_torch.core.registry import device_type_of
 
 __all__ = ["lib", "check", "stream_of", "on_host", "require_cuda",
-           "require_dtypes", "SOURCES", "BUILD_DIR"]
+           "require_dtypes", "ptxas_report", "split_scratch", "SOURCES",
+           "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("common.cu", "matmul.cu", "spmv.cu", "fft.cu", "spmm.cu",
-           "spgemm.cu", "flash_attention.cu", "flash_attention_tiles.cu")
+           "spgemm.cu", "flash_attention.cu", "flash_attention_tiles.cu",
+           "flash_attention_lens.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,8 +61,11 @@ _SIGNATURES = {
     "spmm_bsr_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "spgemm_bsr_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _P),
-    "flash_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _I, _I, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _I, _I, _P),
+    "flash_attention_lens_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                    _I, _I, _I, _I, _P),
     "flash_attention_tiles_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _F, _I, _I, _P),
@@ -93,13 +101,15 @@ def _build(target: Path) -> None:
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(SOURCES, objs)]
-        failures = []
+        failures, logs = [], []
         for s, p in zip(SOURCES, procs):
             out, _ = p.communicate()
+            logs.append(out)
             if p.returncode != 0:
                 failures.append(f"{s}:\n{out}")
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        _ptxas_log(target).write_text("".join(logs))
         so = Path(tmp) / target.name
         res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(so),
                               *map(str, objs)],
@@ -109,12 +119,64 @@ def _build(target: Path) -> None:
         os.replace(so, target)      # atomic: concurrent builds agree
 
 
+def _ptxas_log(target: Path) -> Path:
+    return target.with_suffix(".ptxas.txt")
+
+
+def _target() -> Path:
+    return BUILD_DIR / f"libreprotorch_{_digest()}.so"
+
+
+def ptxas_report(names) -> dict:
+    """What ptxas said of the built kernels whose (mangled) symbol holds
+    one of ``names``: per name, how many instantiations there are and the
+    largest register count and spill stores and loads (bytes) among them.
+    Empty if the build kept no log."""
+    log = _ptxas_log(_target())
+    if not log.exists():
+        return {}
+    found, current = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)", line)
+        if m:
+            current = next((n for n in names if n in m.group(2)), None)
+            if current is not None and m.group(1).startswith("Compiling"):
+                rec = found.setdefault(current, dict.fromkeys(
+                    ("instantiations", "registers", "spill_stores",
+                     "spill_loads"), 0))
+                rec["instantiations"] += 1
+            continue
+        if current is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                found[current][key] = max(found[current][key],
+                                          int(m.group(1)))
+    return found
+
+
+#: The error of a build that failed in this process, if one did.
+_FAILED: list = []
+
+
 @functools.cache
 def lib() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
-    target = BUILD_DIR / f"libreprotorch_{_digest()}.so"
+    """The kernel library, built on first use and loaded once.  A build
+    that failed is not tried again in the same process: later calls raise
+    its error at once."""
+    target = _target()
     if not target.exists():
-        _build(target)
+        if _FAILED:
+            raise RuntimeError(_FAILED[0])
+        try:
+            _build(target)
+        except RuntimeError as exc:
+            _FAILED.append(str(exc))
+            raise
     handle = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(handle, name)
@@ -130,6 +192,28 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = lib().kernels_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+#: (device, stream) -> (partials, tickets): the scratch of the kernels that
+#: split a sum over CTAs and let the last CTA of a group add the partials
+#: (spmv_dia, flash_attention_lens), grown as needed.  Launches on one
+#: stream run in order, so they may share it; the kernels leave the
+#: tickets at 0.
+_SPLIT_SCRATCH: dict = {}
+
+
+def split_scratch(device, stream: int, nfloats: int, ntickets: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """At least ``nfloats`` f32 partials and ``ntickets`` int32 tickets
+    (zero between launches) on ``device`` for launches on ``stream``."""
+    key = (device, stream)
+    part, tickets = _SPLIT_SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < nfloats:
+        part = torch.empty(nfloats, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < ntickets:
+        tickets = torch.zeros(ntickets, dtype=torch.int32, device=device)
+    _SPLIT_SCRATCH[key] = (part, tickets)
+    return part, tickets
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -1,17 +1,14 @@
 // Dense-grid flash attention with GQA, in CUDA for sm_90a: f32 or bf16 q, k,
-// v; f32 softmax state.  Three kernels:
+// v; f32 softmax state.  Two kernels replace the Pallas TPU kernels
+// src/repro/kernels/flash_attention.py:154 (flash_attention_kernel) and
+// :167 (flash_attention_state_kernel):
 //
-//   flash_attention_kernel       (f32) and
-//   flash_attention_bf16_kernel  (bf16) replace the Pallas TPU kernels
-//                                src/repro/kernels/flash_attention.py:154
-//                                (flash_attention_kernel) and :167
-//                                (flash_attention_state_kernel)
-//   flash_attention_lens_kernel  (f32 and bf16) replaces :183
-//                                (flash_attention_lens_kernel) and :201
-//                                (..._lens_state_kernel): the same
-//                                recurrence plus the per-batch key-prefix
-//                                mask kpos < kv_len[b] (paged decode and the
-//                                prefix half of chunked prefill)
+//   flash_attention_kernel       f32, the FMA fold
+//   flash_attention_bf16_kernel  bf16, the tensor-core fold
+//
+// The key-length kernels of :183 and :201 (paged decode and the prefix
+// half of chunked prefill) are split-K kernels of their own, in
+// flash_attention_lens.cu.
 //
 // Template flags: CAUSAL (iota compare qpos >= kpos, no tail offset, as the
 // Pallas kernel), STATE (also write the final m, l).  The Pallas grid is
@@ -24,23 +21,20 @@
 // tile is short and folds exactly as a full one whose extra keys are
 // masked.  A K tile wholly above the diagonal for every row of the CTA is
 // skipped: for a row with a live key such a tile changes nothing (alpha = 1
-// and p = 0 exactly).
+// and p = 0 exactly).  Both kernels are compiled at head_dim 32, 64, 96,
+// 128 and 256.
 //
-// bf16 without kv_len runs flash_attention_bf16_kernel: up to 128 Q rows a
-// CTA (a warpgroup per 64), K tiles 0 .. ceil(kend / block_k) folded on the
+// bf16 runs flash_attention_bf16_kernel: up to 128 Q rows a CTA (a
+// warpgroup per 64), K tiles 0 .. ceil(kend / block_k) folded on the
 // tensor cores by tc::fold_rows (flash_attention_wgmma.cuh), the fold the
 // bf16 tiles kernel runs, with the causal compare applied to every tile; so
 // the dense causal grid is bitwise equal to the tiles walk over
 // causal_layout in bf16.  Bound and design: flash_attention_wgmma.cuh.  The
 // CTAs of the longest causal walks (the last Q rows) start first.
 //
-// f32, and the lens kernel in both dtypes, run grid_body: fa::ROWS Q rows a
-// CTA folded by fa::fold_tile on the f32 FMA units (flash_attention.cuh),
-// bitwise equal to the f32 tiles kernel over causal_layout.  The lens
-// kernel also skips a K tile wholly past kv_len[b]; a row with no live key
-// keeps m = NEG_INF, which is all a state merge reads of it.  At paged
-// decode (Lq = 1) it is bytes-bound: each CTA streams its slot's live keys
-// once.
+// f32 runs grid_body: fa::ROWS Q rows a CTA folded by fa::fold_tile on the
+// f32 FMA units (flash_attention.cuh), bitwise equal to the f32 tiles
+// kernel over causal_layout.
 #include <limits.h>
 
 #include <type_traits>
@@ -56,7 +50,6 @@ struct GridArgs {
   const T* q;
   const T* k;
   const T* v;
-  const int* lens;  // (B,) or null
   T* o;
   float* m;  // (B, Hq, Lq) or null
   float* l;
@@ -64,21 +57,17 @@ struct GridArgs {
   float scale;
 };
 
-template <bool CAUSAL, bool LENS>
+template <bool CAUSAL>
 struct GridMask {
   int qpos0;  // absolute q position of the warp's row 0
   int k0;     // absolute key position of the tile's key 0
-  int kv_len;
   __device__ __forceinline__ float operator()(int r, int j, float s) const {
-    const int kpos = k0 + j;
-    bool live = true;
-    if (CAUSAL) live = qpos0 + r >= kpos;
-    if (LENS) live = live && kpos < kv_len;
-    return live ? s : fa::NEG_INF;
+    if (CAUSAL && qpos0 + r < k0 + j) return fa::NEG_INF;
+    return s;
   }
 };
 
-template <typename T, int D, bool CAUSAL, bool STATE, bool LENS>
+template <typename T, int D, bool CAUSAL, bool STATE>
 __device__ __forceinline__ void grid_body(const GridArgs<T>& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);
@@ -98,11 +87,6 @@ __device__ __forceinline__ void grid_body(const GridArgs<T>& a) {
   __syncthreads();
 
   int kend = a.lk;
-  int kv_len = a.lk;
-  if (LENS) {
-    kv_len = min(max(a.lens[b], 0), a.lk);
-    kend = kv_len;
-  }
   if (CAUSAL) kend = min(kend, min(q0 + ROWS, a.lq));
   const int warp_row0 = q0 + (threadIdx.x / 32) * fa::RPW;
   const bool warp_live = warp_row0 < a.lq;
@@ -110,7 +94,7 @@ __device__ __forceinline__ void grid_body(const GridArgs<T>& a) {
   fa::State<D> st;
   st.init();
   for (int k0 = 0; k0 < kend; k0 += a.block_k) {
-    const GridMask<CAUSAL, LENS> mask{warp_row0, k0, kv_len};
+    const GridMask<CAUSAL> mask{warp_row0, k0};
     fa::fold_tile<T, D>(kb + (size_t)k0 * D, vb + (size_t)k0 * D,
                         min(a.block_k, a.lk - k0), a.scale, warp_live, q_s,
                         p_s, kv_s, st, mask);
@@ -123,13 +107,7 @@ __device__ __forceinline__ void grid_body(const GridArgs<T>& a) {
 template <typename T, int D, bool CAUSAL, bool STATE>
 __global__ void __launch_bounds__(fa::THREADS)
     flash_attention_kernel(GridArgs<T> a) {
-  grid_body<T, D, CAUSAL, STATE, false>(a);
-}
-
-template <typename T, int D, bool CAUSAL, bool STATE>
-__global__ void __launch_bounds__(fa::THREADS)
-    flash_attention_lens_kernel(GridArgs<T> a) {
-  grid_body<T, D, CAUSAL, STATE, true>(a);
+  grid_body<T, D, CAUSAL, STATE>(a);
 }
 
 // The dense walk: K tiles 0 .. n - 1 in order, each under the causal
@@ -166,24 +144,18 @@ __global__ void __launch_bounds__(tc::THREADS_MAX, 1)
   const size_t bhk = (size_t)b * a.hkv + hk;
   const DenseWalk<CAUSAL> walk{(kend + a.block_k - 1) / a.block_k,
                                a.block_k};
+  const tc::FoldOut dst{a.o + bh * a.lq * D,
+                        STATE ? a.m + bh * a.lq : nullptr,
+                        STATE ? a.l + bh * a.lq : nullptr};
   tc::fold_rows<D, STATE>(a.q + bh * a.lq * D, a.k + bhk * a.lk * D,
-                          a.v + bhk * a.lk * D, a.o + bh * a.lq * D,
-                          STATE ? a.m + bh * a.lq : nullptr,
-                          STATE ? a.l + bh * a.lq : nullptr, q0, qend, a.lk,
+                          a.v + bhk * a.lk * D, dst, q0, qend, a.lk,
                           a.block_k, a.scale, walk);
 }
 
 template <typename T, int D, bool CAUSAL, bool STATE>
 int launch(const GridArgs<T>& a, int batch, cudaStream_t stream) {
   cudaError_t err;
-  if (a.lens != nullptr) {
-    const dim3 grid((a.lq + ROWS - 1) / ROWS, a.hq, batch);
-    const size_t bytes = fa::smem_bytes<T, D>();
-    auto kernel = flash_attention_lens_kernel<T, D, CAUSAL, STATE>;
-    err = fa::allow_smem(kernel, bytes);
-    if (err == cudaSuccess)
-      kernel<<<grid, fa::THREADS, bytes, stream>>>(a);
-  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     const int wgs = a.lq > 64 ? tc::WG_MAX : 1;
     const long long blocks =
         (long long)((a.lq + wgs * 64 - 1) / (wgs * 64)) * a.hq * batch;
@@ -216,22 +188,25 @@ int launch_flags(const GridArgs<T>& a, int batch, bool causal, bool state,
 }
 
 template <typename T>
-int launch_dtype(const void* q, const void* k, const void* v,
-                 const void* lens, void* o, void* m, void* l, int batch,
-                 int hq, int hkv, int lq, int lk, int d, int block_k,
-                 float scale, bool causal, bool state, cudaStream_t s) {
+int launch_dtype(const void* q, const void* k, const void* v, void* o,
+                 void* m, void* l, int batch, int hq, int hkv, int lq,
+                 int lk, int d, int block_k, float scale, bool causal,
+                 bool state, cudaStream_t s) {
   const GridArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
-                      static_cast<const T*>(v), static_cast<const int*>(lens),
-                      static_cast<T*>(o), static_cast<float*>(m),
-                      static_cast<float*>(l), hq, hkv, lq, lk, block_k,
-                      scale};
+                      static_cast<const T*>(v), static_cast<T*>(o),
+                      static_cast<float*>(m), static_cast<float*>(l),
+                      hq, hkv, lq, lk, block_k, scale};
   switch (d) {
     case 32:
       return launch_flags<T, 32>(a, batch, causal, state, s);
     case 64:
       return launch_flags<T, 64>(a, batch, causal, state, s);
+    case 96:
+      return launch_flags<T, 96>(a, batch, causal, state, s);
     case 128:
       return launch_flags<T, 128>(a, batch, causal, state, s);
+    case 256:
+      return launch_flags<T, 256>(a, batch, causal, state, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -240,25 +215,25 @@ int launch_dtype(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B, Hq, Lq, d), k / v (B, Hkv, Lk, d), o like q; m, l (B, Hq, Lq) f32
-// when state; lens (B,) int32 or null.  dtype 0 = f32, 1 = bf16 (without
-// lens: the tensor-core kernel, q, k, v 16-byte aligned).  The caller
-// checks shapes: Hq % Hkv == 0, block_k <= 128, d in {32, 64, 128}; any Lq
-// and Lk (the last K tile may be short).
+// when state.  dtype 0 = f32, 1 = bf16 (the tensor-core kernel, q, k, v
+// 16-byte aligned).  The caller checks shapes: Hq % Hkv == 0,
+// block_k <= 128, d in {32, 64, 96, 128, 256}; any Lq and Lk (the last K
+// tile may be short).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, const void* lens,
-                                      void* o, void* m, void* l, int batch,
-                                      int hq, int hkv, int lq, int lk, int d,
-                                      int block_k, float scale, int causal,
-                                      int state, int dtype, void* stream) {
+                                      const void* v, void* o, void* m,
+                                      void* l, int batch, int hq, int hkv,
+                                      int lq, int lk, int d, int block_k,
+                                      float scale, int causal, int state,
+                                      int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block_k < 1 || block_k > fa::BK_MAX || hkv < 1 || hq % hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_dtype<float>(q, k, v, lens, o, m, l, batch, hq, hkv, lq,
-                               lk, d, block_k, scale, causal, state, s);
+    return launch_dtype<float>(q, k, v, o, m, l, batch, hq, hkv, lq, lk, d,
+                               block_k, scale, causal, state, s);
   if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(q, k, v, lens, o, m, l, batch, hq,
-                                       hkv, lq, lk, d, block_k, scale,
-                                       causal, state, s);
+    return launch_dtype<__nv_bfloat16>(q, k, v, o, m, l, batch, hq, hkv, lq,
+                                       lk, d, block_k, scale, causal, state,
+                                       s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,15 @@
-// Shared pieces of the two flash-attention kernels (flash_attention.cu, the
-// dense grid with and without a key-length mask; flash_attention_tiles.cu,
-// the tile-skipping walk over a compiled TileLayout): the CTA shape, the
-// shared-memory plan, and fold_tile, which folds one K/V tile into the
-// online-softmax state (m, l, acc) of a CTA's Q rows.  Both kernels fold
-// every tile through fold_tile, so a row's arithmetic depends only on its
-// q, the tiles it visits and their order, and not on which kernel or which
-// CTA shape runs it.  That is what makes the tiles kernel over a causal
-// layout bitwise equal to the dense grid with causal=True in f32.
+// Shared pieces of the two f32 flash-attention kernels (flash_attention.cu,
+// the dense grid; flash_attention_tiles.cu, the tile-skipping walk over a
+// compiled TileLayout): the CTA shape, the shared-memory plan, and
+// fold_tile, which folds one K/V tile into the online-softmax state
+// (m, l, acc) of a CTA's Q rows, at head_dim 32, 64, 96, 128 or 256 (a
+// lane owns D / 32 columns; 153 KB of shared memory at 256).  The
+// conversions to_f, round_to and from_f serve the bf16 kernels too.  Both
+// kernels fold every tile through fold_tile, so a row's arithmetic depends
+// only on its q, the tiles it visits and their order, and not on which
+// kernel or which CTA shape runs it.  That is what makes the tiles kernel
+// over a causal layout bitwise equal to the dense grid with causal=True in
+// f32.
 //
 // The recurrence is _fa_step of src/repro/kernels/flash_attention.py:101:
 //   s = (q . k) * scale, masked to NEG_INF

@@ -221,10 +221,11 @@ __global__ void __launch_bounds__(tc::THREADS_MAX, 1)
       BAND ? nullptr
            : a.biases + (size_t)a.prowp[i] * a.block_q * a.block_k,
       i * a.block_q, a.block_q};
+  const tc::FoldOut dst{a.o + bh * a.lq * D,
+                        STATE ? a.m + bh * a.lq : nullptr,
+                        STATE ? a.l + bh * a.lq : nullptr};
   tc::fold_rows<D, STATE>(a.q + bh * a.lq * D, a.k + bhk * a.lk * D,
-                          a.v + bhk * a.lk * D, a.o + bh * a.lq * D,
-                          STATE ? a.m + bh * a.lq : nullptr,
-                          STATE ? a.l + bh * a.lq : nullptr, q0, qend, a.lk,
+                          a.v + bhk * a.lk * D, dst, q0, qend, a.lk,
                           a.block_k, a.scale, walk);
 }
 
@@ -273,8 +274,12 @@ int launch_dtype(TilesArgs<T> a, const int* order, int batch, int d,
       return launch_flags<T, 32>(a, order, batch, band, state, s);
     case 64:
       return launch_flags<T, 64>(a, order, batch, band, state, s);
+    case 96:
+      return launch_flags<T, 96>(a, order, batch, band, state, s);
     case 128:
       return launch_flags<T, 128>(a, order, batch, band, state, s);
+    case 256:
+      return launch_flags<T, 256>(a, order, batch, band, state, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -310,9 +315,9 @@ TilesArgs<T> args(const void* rowp, const void* mid, const void* prowp,
 // PARTIAL tiles by (causal, window, offset), window < 0 for none; band = 0
 // adds their bias tiles.  dtype 0 = f32 (the FMA fold; order unused), 1 =
 // bf16 (the tensor cores; q, k, v 16-byte aligned).  The caller checks
-// block_k <= 128, d in {32, 64, 128}, and that the layout has at least one
-// live tile.  The layout covers (Lq, Lk) in ceil-divided tiles: the last Q
-// tile and the last K tile may be short.
+// block_k <= 128, d in {32, 64, 96, 128, 256}, and that the layout has at
+// least one live tile.  The layout covers (Lq, Lk) in ceil-divided tiles:
+// the last Q tile and the last K tile may be short.
 extern "C" int flash_attention_tiles_launch(
     const void* rowp, const void* mid, const void* prowp, const void* cols,
     const void* biases, const void* order, const void* q, const void* k,

@@ -14,20 +14,29 @@ Three wrappers, each counting its launches:
                            ``causal_layout`` (as the JAX wrapper does)
                            unless ``row_extents=False``; calls with
                            ``kv_len`` route to :func:`flash_attention_lens`.
-    flash_attention_lens   the same grid with the key-prefix mask
-                           ``kpos < kv_len[b]``
-                           (``flash_attention_lens_kernel``, the FMA fold
-                           in both dtypes); replaces ``:183`` and ``:201``.
+    flash_attention_lens   the key-prefix mask ``kpos < kv_len[b]``, split
+                           over the keys (csrc/flash_attention_lens.cu);
+                           replaces ``:183`` and ``:201``.  A CTA owns the
+                           rows of every q-head of one kv-head and one key
+                           range (:func:`lens_partition`); the last CTA of
+                           a group merges the ranges' partials in a fixed
+                           order, in the same launch.  :func:`lens_blocks`
+                           picks the kernel: ``..._decode_kernel`` (the
+                           FMA units, f32 and small bf16 groups) or
+                           ``..._prefix_kernel`` (bf16 on the tensor
+                           cores).
     flash_attention_tiles  the tile-skipping walk over a compiled
                            :class:`~repro_torch.sparse.maskcompiler.TileLayout`
                            (csrc/flash_attention_tiles.cu: f32 the FMA
                            fold, bf16 the tensor-core fold); replaces
                            ``:275`` and ``:290``.
 
-The two folds are each shared by two kernels, so over ``causal_layout``
-the tiles walk is bitwise equal to the dense causal grid in either dtype.
-The tensor-core kernels need q, k and v 16-byte aligned; the wrappers raise
-otherwise.
+The two dense folds are each shared by two kernels, so over
+``causal_layout`` the tiles walk is bitwise equal to the dense causal grid
+in either dtype.  The dense and tiles tensor-core kernels need q, k and v
+16-byte aligned and their wrappers raise otherwise; the lens kernels copy
+16-byte chunks in both dtypes, so their wrapper copies a misaligned q, k
+or v into a fresh (aligned) tensor on the card before the launch.
 
 Layouts: q (B, Hq, Lq, d), k / v (B, Hkv, Lk, d), q-head h reads kv-head
 h // (Hq / Hkv); with ``return_state`` the wrappers also return the row
@@ -36,9 +45,9 @@ maxima ``m`` and denominators ``l``, (B, Hq, Lq) f32.
 On host tensors each wrapper computes its plain version (the same blocked
 online-softmax recurrence in torch, tile by tile); on CUDA tensors it
 launches its kernel or raises.  The kernels take f32 or bf16, head_dim in
-:data:`HEAD_DIMS` and K tiles of at most :data:`MAX_BLOCK_K` keys.  The
-blocks need not divide the lengths: the last Q tile and the last K tile
-are short.
+:data:`HEAD_DIMS` (32, 64, 96, 128 and 256) and K tiles of at most
+:data:`MAX_BLOCK_K` keys.  The blocks need not divide the lengths: the
+last Q tile and the last K tile are short.
 
 A row whose keys are all masked keeps ``m == NEG_INF``; its ``o`` and
 ``l`` are garbage (the kernels and the plain versions may disagree on
@@ -47,7 +56,8 @@ them), and :func:`merge_states` weights such a state by exactly 0.
 from __future__ import annotations
 
 import collections
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,12 +68,24 @@ from repro_torch.kernels.ref import NEG_INF, _expand_kv
 __all__ = ["NEG_INF", "merge_states", "flash_attention",
            "flash_attention_lens", "flash_attention_tiles",
            "flash_attention_plain", "flash_attention_tiles_plain",
-           "HEAD_DIMS", "MAX_BLOCK_K"]
+           "LensPartition", "lens_partition", "lens_blocks", "HEAD_DIMS",
+           "MAX_BLOCK_K"]
 
 #: head_dim values the kernels are compiled for.
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 #: The largest K tile the kernels take.
 MAX_BLOCK_K = 128
+#: The lens decode kernel's largest row block; a bf16 group with more rows
+#: (q-heads per kv-head times Lq) runs the prefix kernel.
+LENS_DECODE_ROWS = 16
+#: The lens partition aims at this many CTAs per SM, counted over the key
+#: capacity: the live lengths stay on the card, and ranges past a slot's
+#: kv_len exit at once.  At paged decode on an H100 twice as many (one
+#: tile a range) was slower (PERF.md).
+LENS_CTAS_PER_SM = 4
+#: The most key ranges of one launch (the merge keeps a weight per range
+#: and row in shared memory).
+LENS_MAX_SPLITS = 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -211,10 +233,10 @@ def flash_attention_tiles_plain(q, k, v, layout, *,
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(what, q, k, v, *ints, tensor_cores: bool = False):
+def _check(what, q, k, v, *ints, aligned=()):
     """Device, contiguity, dtype and shape checks shared by the wrappers;
-    with ``tensor_cores``, bf16 q, k, v must also be 16-byte aligned (the
-    wgmma kernels copy 16-byte chunks)."""
+    q, k, v of a dtype in ``aligned`` must also be 16-byte aligned (the
+    kernels that copy 16-byte chunks)."""
     _lib.require_cuda(what, q, k, v, *ints)
     _lib.require_dtypes(what, (q, k, v), ints,
                         allowed=tuple(_DTYPE_CODE))
@@ -225,10 +247,9 @@ def _check(what, q, k, v, *ints, tensor_cores: bool = False):
                          f"v {tuple(v.shape)}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {q.shape[3]} not in {HEAD_DIMS}")
-    if tensor_cores and q.dtype == torch.bfloat16 \
-            and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{what}: bf16 q, k, v must be 16-byte aligned "
-                         f"(the kernel copies 16-byte chunks)")
+    if q.dtype in aligned and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what}: {q.dtype} q, k, v must be 16-byte "
+                         f"aligned (the kernel copies 16-byte chunks)")
 
 
 def _outputs(q, return_state):
@@ -240,54 +261,137 @@ def _outputs(q, return_state):
             torch.empty((b, h, lq), device=q.device))
 
 
-def _launch_grid(what, q, k, v, kv_len, *, causal, scale, block_k,
-                 return_state):
-    """Launch the dense grid (kv_len None) or the lens kernel; returns the
-    outputs and whether a kernel was launched (not for empty outputs)."""
+def _launch_grid(q, k, v, *, causal, scale, block_k, return_state):
+    """Launch the dense grid; returns the outputs and whether a kernel was
+    launched (not for empty outputs)."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    ints = () if kv_len is None else (kv_len.contiguous(),)
-    _check(what, q, k, v, *ints, tensor_cores=kv_len is None)
+    _check("flash_attention", q, k, v, aligned=(torch.bfloat16,))
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     bk = min(block_k, lk)
     if bk > MAX_BLOCK_K:
-        raise ValueError(f"{what}: block_k {bk} is above {MAX_BLOCK_K}")
-    if ints and ints[0].shape != (b,):
-        raise ValueError(f"{what}: kv_len {tuple(ints[0].shape)} is not "
-                         f"({b},)")
+        raise ValueError(f"flash_attention: block_k {bk} is above "
+                         f"{MAX_BLOCK_K}")
     o, m, l = _outputs(q, return_state)
     launched = o.numel() > 0
     if launched:
         code = _lib.lib().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            ints[0].data_ptr() if ints else None, o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             m.data_ptr() if return_state else None,
             l.data_ptr() if return_state else None,
             b, hq, hkv, lq, lk, d, bk, float(scale), int(causal),
             int(return_state), _DTYPE_CODE[q.dtype], _lib.stream_of(q))
-        _lib.check(code, what)
+        _lib.check(code, "flash_attention")
     return ((o, m, l) if return_state else o), launched
+
+
+class LensPartition(NamedTuple):
+    """How the lens kernels cut the keys of an Lk-key capacity: range ``s``
+    holds K tiles ``[s * tps, min((s + 1) * tps, ntiles))`` of block_k keys
+    each (the last tile may be short), and one CTA folds each (range, row
+    block); a range's tiles at or past the keys its rows may see are not
+    folded."""
+    ntiles: int
+    tps: int
+    nsplit: int
+
+    def splits(self) -> list[tuple[int, int]]:
+        return [(s * self.tps, min((s + 1) * self.tps, self.ntiles))
+                for s in range(self.nsplit)]
+
+
+def lens_partition(lk: int, block_k: int, groups: int, sms: int
+                   ) -> LensPartition:
+    """The key ranges for ``groups`` (b, kv-head, row block) groups on a
+    card of ``sms`` SMs: about :data:`LENS_CTAS_PER_SM` CTAs per SM over
+    the capacity's ``ceil(lk / block_k)`` tiles, at most one range per tile
+    and :data:`LENS_MAX_SPLITS` in all, every range whole tiles."""
+    ntiles = -(-lk // block_k)
+    want = -(-LENS_CTAS_PER_SM * sms // max(groups, 1))
+    nsplit = max(1, min(want, ntiles, LENS_MAX_SPLITS))
+    tps = max(1, -(-ntiles // nsplit))
+    return LensPartition(ntiles, tps, max(1, -(-ntiles // tps)))
+
+
+def lens_blocks(dtype: torch.dtype, rows: int) -> tuple[str, int]:
+    """The lens kernel for a group of ``rows`` rows (q-heads per kv-head
+    times Lq) and the rows a CTA owns: ``"decode"`` (the FMA units, 4 or 16
+    rows) for f32 and for bf16 groups of at most :data:`LENS_DECODE_ROWS`
+    rows, else ``"prefix"`` (bf16 on the tensor cores, 64 or 128 rows)."""
+    if dtype == torch.bfloat16 and rows > LENS_DECODE_ROWS:
+        return "prefix", 64 if rows <= 64 else 128
+    return "decode", 4 if rows <= 4 else 16
+
+
+@functools.lru_cache(maxsize=64)
+def _lens_plan(dtype, b, hq, hkv, lq, lk, block_k, device):
+    """(kernel, rows per CTA, groups, partition) for one shape on one
+    card, made once: a decode loop pays one cache lookup a call."""
+    rows = hq // hkv * lq
+    kind, rows_blk = lens_blocks(dtype, rows)
+    groups = b * hkv * -(-rows // rows_blk)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return kind, rows_blk, groups, lens_partition(lk, block_k, groups, sms)
 
 
 def flash_attention_lens(q, k, v, kv_len, *, causal: bool = False,
                          scale: Optional[float] = None, block_q: int = 128,
                          block_k: int = 128, return_state: bool = False):
-    """Dense-grid attention over keys ``kpos < kv_len[b]`` (int32 (B,)):
-    the paged-decode and chunked-prefill read path."""
+    """Attention over keys ``kpos < kv_len[b]`` (int32 (B,)), optionally
+    causal: the paged-decode and chunked-prefill read path.  One launch a
+    call, split over the keys; the result is the same bit for bit from run
+    to run.  ``block_k`` fixes the tiles the online softmax folds;
+    ``block_q`` only the plain version's Q tiles."""
     scale = scale if scale is not None else q.shape[3] ** -0.5
     kv_len = kv_len.to(torch.int32)
     if _lib.on_host(q, k, v, kv_len):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_q=block_q, block_k=block_k,
                                      kv_len=kv_len, return_state=return_state)
-    out, launched = _launch_grid("flash_attention_lens", q, k, v, kv_len,
-                                 causal=causal, scale=scale, block_k=block_k,
-                                 return_state=return_state)
-    flash_attention_lens.launches += launched
+    what = "flash_attention_lens"
+    q, k, v, kv_len = (t.contiguous() for t in (q, k, v, kv_len))
+    _check(what, q, k, v, kv_len)
+    # the kernels copy 16-byte chunks; a fresh tensor from the caching
+    # allocator is aligned
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    bk = max(1, min(block_k, lk))
+    if bk > MAX_BLOCK_K:
+        raise ValueError(f"{what}: block_k {bk} is above {MAX_BLOCK_K}")
+    if kv_len.shape != (b,):
+        raise ValueError(f"{what}: kv_len {tuple(kv_len.shape)} is not "
+                         f"({b},)")
+    o, m, l = _outputs(q, return_state)
+    out = (o, m, l) if return_state else o
+    if o.numel() == 0:
+        return out
+    kind, rows_blk, groups, part = _lens_plan(q.dtype, b, hq, hkv, lq, lk,
+                                              bk, q.device)
+    stream = _lib.stream_of(q)
+    scratch = tickets = None
+    if part.nsplit > 1:
+        scratch, tickets = _lib.split_scratch(
+            q.device, stream, groups * part.nsplit * rows_blk * (d + 2),
+            groups)
+    code = _lib.lib().flash_attention_lens_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        o.data_ptr(), m.data_ptr() if return_state else None,
+        l.data_ptr() if return_state else None,
+        None if scratch is None else scratch.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        b, hq, hkv, lq, lk, d, bk, float(scale), int(causal),
+        int(return_state), _DTYPE_CODE[q.dtype], int(kind == "prefix"),
+        rows_blk, part.nsplit, part.tps, stream)
+    _lib.check(code, what)
+    flash_attention_lens.launches += 1
+    flash_attention_lens.kernels[kind] += 1
     return out
 
 
 flash_attention_lens.launches = 0
+#: Launches by kernel ("decode", "prefix"), beside the wrapper's count.
+flash_attention_lens.kernels = {"decode": 0, "prefix": 0}
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -318,8 +422,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_q=block_q, block_k=block_k,
                                      return_state=return_state)
-    out, launched = _launch_grid("flash_attention", q, k, v, None,
-                                 causal=causal, scale=scale,
+    out, launched = _launch_grid(q, k, v, causal=causal, scale=scale,
                                  block_k=block_k, return_state=return_state)
     flash_attention.launches += launched
     return out
@@ -377,7 +480,7 @@ def flash_attention_tiles(q, k, v, layout, *, scale: Optional[float] = None,
         return flash_attention_tiles_plain(q, k, v, layout, scale=scale,
                                            return_state=return_state)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check("flash_attention_tiles", q, k, v, tensor_cores=True)
+    _check("flash_attention_tiles", q, k, v, aligned=(torch.bfloat16,))
     bq, bk = layout.block_q, layout.block_k
     if bk > MAX_BLOCK_K:
         raise ValueError(f"flash_attention_tiles: block_k {bk} is above "

@@ -2,10 +2,14 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/matmul.py:35``
 (``matmul_kernel``).  The CUDA kernel (``csrc/matmul.cu``) computes one
-64x64 output tile per block with the K loop inside the block and an f32
-FMA accumulator; it masks ragged edges itself, so no caller pads.  It is
-bounded by operations: f32 runs at IEEE precision on the FMA units (never
-TF32).
+128x64 output tile per block of 128 threads, 8x8 outputs a thread, with
+the K loop inside the block (slabs of 16 through three shared-memory stages
+filled by cp.async, or two register-staged ones for bf16 and for strides
+that are not multiples of 4) and one f32 FMA chain per output in ascending
+k; it masks ragged edges
+itself, so no caller pads.  It is bounded by operations: f32 runs at IEEE
+precision on the FMA units (never TF32); bf16 converts to f32 on its way
+into shared memory.
 
 On a host tensor the wrapper computes :func:`matmul_plain` instead; on a
 CUDA tensor it launches the kernel or raises.

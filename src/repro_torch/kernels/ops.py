@@ -43,19 +43,24 @@ __all__ = ["backend", "current_backend", "matmul", "spmv_ell", "spmv_dia",
 
 @registry.register("matmul", "cuda", plane="cuda", cost=Cost.CUDA,
                    doc="tiled f32-accumulating CUDA kernel (csrc/matmul.cu)")
-def _matmul_cuda(a, b):
+def _matmul_cuda(a, b, *, block_m=None, block_n=None, block_k=None):
     return mm_k.matmul(a.contiguous(), b.contiguous())
 
 
 @registry.register("matmul", "torch", plane="torch", cost=Cost.TORCH,
                    doc="plain torch.matmul in f32")
-def _matmul_torch(a, b):
+def _matmul_torch(a, b, *, block_m=None, block_n=None, block_k=None):
     return ref.matmul_ref(a, b)
 
 
-def matmul(a, b):
-    """``a @ b`` with f32 accumulation, output in a's dtype."""
-    return registry.dispatch("matmul", a, b)
+def matmul(a, b, *, block_m=None, block_n=None, block_k=None):
+    """``a @ b`` with f32 accumulation, output in a's dtype.
+
+    The block keywords are the reference's: there they pin a Pallas tile.
+    Both planes here take and ignore them, and the result does not depend
+    on them; the CUDA kernel's tile is its own (128 x 64, csrc/matmul.cu)."""
+    return registry.dispatch("matmul", a, b, block_m=block_m,
+                             block_n=block_n, block_k=block_k)
 
 
 # ---------------------------------------------------------------------------

@@ -145,24 +145,6 @@ def _dia_plan(offsets: tuple[int, ...], n: int, device: torch.device
             torch.tensor(offsets, dtype=torch.int32, device=device))
 
 
-#: (device, stream) -> (partials, tickets): the DIA kernel's scratch,
-#: grown as needed.  Launches on one stream run in order, so they may share
-#: it; the kernel leaves the tickets at 0.
-_DIA_SCRATCH: dict = {}
-
-
-def _dia_scratch(device: torch.device, stream: int, nfloats: int,
-                 ntiles: int) -> tuple[torch.Tensor, torch.Tensor]:
-    key = (device, stream)
-    partial, tickets = _DIA_SCRATCH.get(key, (None, None))
-    if partial is None or partial.numel() < nfloats:
-        partial = torch.empty(nfloats, dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < ntiles:
-        tickets = torch.zeros(ntiles, dtype=torch.int32, device=device)
-    _DIA_SCRATCH[key] = (partial, tickets)
-    return partial, tickets
-
-
 def spmv_dia(diags: torch.Tensor, offsets: Sequence[int], x: torch.Tensor
              ) -> torch.Tensor:
     """``y[i] = sum_d diags[d, i] * x[i + offsets[d]]`` (f32), reads outside
@@ -186,8 +168,8 @@ def spmv_dia(diags: torch.Tensor, offsets: Sequence[int], x: torch.Tensor
     stream = _lib.stream_of(diags)
     partial = tickets = None
     if part.nchunks > 1:
-        partial, tickets = _dia_scratch(diags.device, stream,
-                                        part.nchunks * n, part.ntiles)
+        partial, tickets = _lib.split_scratch(diags.device, stream,
+                                              part.nchunks * n, part.ntiles)
     code = _lib.lib().spmv_dia_launch(
         diags.data_ptr(), offs.data_ptr(), x.data_ptr(), y.data_ptr(),
         None if partial is None else partial.data_ptr(),

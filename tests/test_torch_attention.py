@@ -335,6 +335,157 @@ def test_merge_states_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# head_dim 96 and 256 (phi3-mini-3.8b, gemma-2b)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_plain_attention_matches_pallas_at_head_dims(d):
+    """The plain versions the CUDA kernels are held against, at the head
+    sizes of phi3-mini-3.8b (96) and gemma-2b (256, MQA): the dense grid
+    (causal and not), the lens grid with state and the tiles walk, against
+    the Pallas kernels in interpret mode (bar 1e-5, as at 16)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(B=2, H=4, HK=1, LQ=32, D=d))
+    for causal in (False, True):
+        want = jfa.flash_attention(jq, jk, jv, causal=causal, block_q=16,
+                                   block_k=16, return_state=True,
+                                   row_extents=False, interpret=True)
+        got = fa.flash_attention(tq, tk, tv, causal=causal, block_q=16,
+                                 block_k=16, return_state=True,
+                                 row_extents=False)
+        for g, w in zip(got, want):
+            _close(g, w)
+    lens = np.asarray([0, 19], np.int32)
+    want = jfa.flash_attention(jq, jk, jv, causal=False, block_k=16,
+                               return_state=True, kv_len=jnp.asarray(lens),
+                               interpret=True)
+    got = fa.flash_attention(tq, tk, tv, causal=False, block_k=16,
+                             return_state=True, kv_len=torch.as_tensor(lens))
+    live = lens > 0
+    assert np.all(_np(got[1])[~live] == fa.NEG_INF)
+    for g, w in zip(got, want):
+        _close(g, w, rows=live)
+    js, ts = _spec_pair("window", 32, 32)
+    want = jfa.flash_attention_tiles(
+        jq, jk, jv, jmc.compile_layout(js, 32, 32, 16, 16),
+        return_state=True, interpret=True)
+    got = fa.flash_attention_tiles(tq, tk, tv,
+                                   tmc.compile_layout(ts, 32, 32, 16, 16),
+                                   return_state=True)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the split-K key-length kernels: the partition and a model of their fold
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lk,bk,groups,sms", [(2048, 128, 64, 132),
+                                              (1152, 128, 16, 132),
+                                              (1021, 128, 4, 132),
+                                              (80, 16, 3, 1),
+                                              (100000, 64, 1, 132),
+                                              (1, 128, 8, 132)])
+def test_lens_partition_covers_each_live_tile_once(lk, bk, groups, sms):
+    """The key ranges are whole block_k tiles, in order, disjoint, and
+    cover the capacity's tiles; for every kv_len (0, 1, a tile, a tile and
+    one key, the capacity) each live tile is folded by exactly one range
+    and no range folds a dead tile."""
+    part = fa.lens_partition(lk, bk, groups, sms)
+    ntiles = -(-lk // bk)
+    assert part.ntiles == ntiles
+    assert 1 <= part.nsplit <= fa.LENS_MAX_SPLITS
+    spans = part.splits()
+    assert len(spans) == part.nsplit
+    assert spans[0][0] == 0 and spans[-1][1] == ntiles
+    for (a0, a1), (b0, _) in zip(spans, spans[1:]):
+        assert a1 == b0 and a1 - a0 == part.tps
+    assert all(t1 > t0 for t0, t1 in spans)
+    for kv_len in (0, 1, bk, bk + 1, lk):
+        # the kernels' rule (csrc/flash_attention_lens.cu block_of): range
+        # s folds its tiles below ceil(kend / block_k)
+        kend = min(kv_len, lk)
+        live = min(ntiles, -(-kend // bk))
+        seen = []
+        for t0, t1 in spans:
+            seen += range(t0, max(t0, min(t1, live)))
+        assert seen == list(range(-(-kend // bk)))
+    # about LENS_CTAS_PER_SM CTAs per SM, never more ranges than tiles
+    want = -(-fa.LENS_CTAS_PER_SM * sms // groups)
+    assert part.nsplit <= max(1, min(want, ntiles))
+
+
+def test_lens_blocks_pick_the_kernel():
+    """f32 always runs the decode kernel (the FMA units); bf16 does up to
+    LENS_DECODE_ROWS rows per group, the prefix kernel (tensor cores)
+    above."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert fa.lens_blocks(f32, 1) == ("decode", 4)
+    assert fa.lens_blocks(f32, 2) == ("decode", 4)
+    assert fa.lens_blocks(f32, 8) == ("decode", 16)
+    assert fa.lens_blocks(f32, 256) == ("decode", 16)
+    assert fa.lens_blocks(bf16, 2) == ("decode", 4)
+    assert fa.lens_blocks(bf16, fa.LENS_DECODE_ROWS) == ("decode", 16)
+    assert fa.lens_blocks(bf16, fa.LENS_DECODE_ROWS + 1) == ("prefix", 64)
+    assert fa.lens_blocks(bf16, 256) == ("prefix", 128)
+
+
+def _lens_split_model(q, k, v, kv_len, causal, bk, part):
+    """The split-K lens kernels in torch: per key range, the plain fold of
+    its tiles (fa._fold, masked by kpos < kv_len[b] and the causal
+    compare), then the ranges' states merged by merge_states in range
+    order."""
+    b, hq, lq, d = q.shape
+    lk = k.shape[2]
+    kk, vv = ref._expand_kv(k, v, hq)
+    qpos = torch.arange(lq)[:, None]
+    states = []
+    for t0, t1 in part.splits():
+        carry = fa._init_carry(q, lq)
+        for t in range(t0, t1):
+            k0 = t * bk
+            kpos = k0 + torch.arange(min(bk, lk - k0))[None, :]
+            live = kpos[None, None] < kv_len[:, None, None, None]
+            if causal:
+                live = live & (qpos >= kpos)
+            carry = fa._fold(carry, q, kk[:, :, k0:k0 + bk],
+                             vv[:, :, k0:k0 + bk], d ** -0.5, live=live)
+        m, l, acc = carry
+        states.append(((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype),
+                       m, l))
+    out = states[0]
+    for st in states[1:]:
+        out = fa.merge_states(out, st)
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 96, 256])
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2), (8, 1)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_lens_split_model_matches_pallas(d, heads, causal):
+    """The lens kernels' split-K fold (ranges of whole tiles from
+    lens_partition, merged in order) against the JAX flash_attention with
+    kv_len in interpret mode: GQA groups 1, 2 and 8, kv_len 0, 1, a tile,
+    a tile and one key, and the capacity (bar 1e-5 on live rows)."""
+    H, HK = heads
+    lq, lk, bk = 16, 80, 16
+    (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(B=5, H=H, HK=HK, LQ=lq, LK=lk,
+                                             D=d, seed=d + H))
+    lens = np.asarray([0, 1, bk, bk + 1, lk], np.int32)
+    groups = 5 * HK
+    part = fa.lens_partition(lk, bk, groups, groups)
+    assert part.nsplit == 3 and part.tps == 2
+    got = _lens_split_model(tq, tk, tv, torch.as_tensor(lens), causal, bk,
+                            part)
+    want = jfa.flash_attention(jq, jk, jv, causal=causal, block_q=lq,
+                               block_k=bk, return_state=True,
+                               kv_len=jnp.asarray(lens), interpret=True)
+    live = lens > 0
+    assert np.all(_np(got[1])[~live] == fa.NEG_INF)
+    for g, w in zip(got, want):
+        _close(g, w, rows=live)
+
+
+# ---------------------------------------------------------------------------
 # the entry points (host tensors select the torch plane)
 # ---------------------------------------------------------------------------
 

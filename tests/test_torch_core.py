@@ -260,6 +260,38 @@ class TestRegistry:
         assert registry.device_type_of(_bind(np.ones(2))) == "cpu"
 
 
+def test_matmul_block_keywords_match_the_reference():
+    """ops.matmul takes the reference's keyword-only block sizes; both of
+    the port's planes take and ignore them (they pin a Pallas tile in the
+    reference), so the result does not depend on them."""
+    import inspect
+
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops
+
+    def kwonly(fn):
+        return [(p.name, p.default) for p in
+                inspect.signature(fn).parameters.values()
+                if p.kind is p.KEYWORD_ONLY]
+
+    assert kwonly(ops.matmul) == kwonly(jops.matmul) == [
+        ("block_m", None), ("block_n", None), ("block_k", None)]
+    for name in ("cuda", "torch"):
+        impl = registry.REGISTRY.get("matmul", name).impl
+        assert kwonly(impl) == kwonly(jops.matmul)
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(rng.standard_normal((9, 7)).astype(np.float32))
+    b = torch.as_tensor(rng.standard_normal((7, 5)).astype(np.float32))
+    plain = ops.matmul(a, b)
+    pinned = ops.matmul(a, b, block_m=8, block_n=128, block_k=16)
+    assert torch.equal(plain, pinned)
+    with jops.backend("xla"):
+        want = jops.matmul(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+                           block_m=8, block_n=128, block_k=16)
+    np.testing.assert_allclose(pinned.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
 def test_port_imports_neither_jax_nor_repro():
     code = ("import repro_torch.numerics.solvers, repro_torch.kernels.ops, "
             "repro_torch.interop, sys; "

@@ -556,6 +556,48 @@ def test_matmul_kernel_matches_plain(m, k, n, dtype, card):
 
 
 @pytest.mark.cuda
+def test_matmul_block_keywords_on_the_card(card):
+    """ops.matmul takes the reference's block keywords on the cuda plane
+    too; the kernel's tile is its own, so the result is the same bits."""
+    g = torch.Generator(device=card).manual_seed(4)
+    a = torch.randn(200, 96, device=card, generator=g)
+    b = torch.randn(96, 72, device=card, generator=g)
+    before = mm_k.matmul.launches
+    plain = ops.matmul(a, b)
+    pinned = ops.matmul(a, b, block_m=64, block_n=128, block_k=32)
+    assert mm_k.matmul.launches == before + 2
+    assert torch.equal(plain, pinned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 127, 129])
+@pytest.mark.parametrize("n", [1, 4, 68, 127, 129, 132])
+@pytest.mark.parametrize("k", [0, 13, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_edges(m, n, k, dtype, card):
+    """Around the 128 x 64 tile and the 16-deep K slab: one row or column,
+    a tile less or more one, K not a multiple of the slab (13, 100) and
+    K = 0 (zeros).  In f32, N in {4, 68, 132} with K in {0, 100} (multiples
+    of 4) takes the three-stage 16-byte cp.async ring, so its zero-filled
+    copies and float4 stores meet ragged M, N and K; every other case takes
+    the register-staged path."""
+    g = torch.Generator(device=card).manual_seed(m * 7 + n * 3 + k)
+    a = torch.randn(m, k, device=card, generator=g).to(dtype)
+    b = torch.randn(k, n, device=card, generator=g).to(dtype)
+    before = mm_k.matmul.launches
+    got = mm_k.matmul(a, b)
+    want = mm_k.matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert mm_k.matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == dtype
+    if k == 0:
+        assert not got.any()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * 10)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,fill", [(10240, 5.72), (100, 3.5), (37, 20.0)])
 def test_spmv_ell_kernel_matches_plain(n, fill, card):
     from repro_torch.numerics import sparse
@@ -880,8 +922,10 @@ def test_tiles_kernel_bitwise_equals_dense_causal_bf16(b, L, card):
 
 @pytest.mark.cuda
 def test_flash_attention_bf16_misaligned_view_raises(card):
-    """The tensor-core kernels copy 16-byte chunks: a bf16 view that starts
-    one element into its storage is refused, never run on another kernel."""
+    """The dense and tiles tensor-core kernels copy 16-byte chunks: a bf16
+    view that starts one element into its storage is refused, never run on
+    another kernel.  The key-length kernels take such a view in either
+    dtype and match the plain version."""
     q, k, v = _attn_inputs(card, torch.bfloat16, lq=64, lk=64, d=64)
     flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=card)
     qm = flat[1:].view(q.shape)
@@ -893,12 +937,21 @@ def test_flash_attention_bf16_misaligned_view_raises(card):
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa_k.flash_attention(qm, k, v, causal=True, row_extents=False)
     assert fa_k.flash_attention.launches == before
-    # the key-length kernel (the FMA fold) takes it
+    # the key-length kernels take it in either dtype (the wrapper copies a
+    # misaligned operand into an aligned one; the same kernel runs)
     kv_len = torch.tensor([64, 10], dtype=torch.int32, device=card)
-    got = fa_k.flash_attention(qm, k, v, causal=False, kv_len=kv_len)
-    _close(got, fa_k.flash_attention_plain(q, k, v, causal=False,
-                                           kv_len=kv_len),
-           ATTN_TOL[torch.bfloat16], "o")
+    flat32 = torch.empty(q.numel() + 1, device=card)
+    qm32 = flat32[1:].view(q.shape)
+    qm32.copy_(q)
+    assert qm32.data_ptr() % 16
+    for view, dtype in ((qm, torch.bfloat16), (qm32, torch.float32)):
+        kd, vd = k.to(dtype), v.to(dtype)
+        before = fa_k.flash_attention_lens.launches
+        got = fa_k.flash_attention(view, kd, vd, causal=False, kv_len=kv_len)
+        assert fa_k.flash_attention_lens.launches == before + 1
+        _close(got, fa_k.flash_attention_plain(view.clone(), kd, vd,
+                                               causal=False, kv_len=kv_len),
+               ATTN_TOL[dtype], "o")
 
 
 @pytest.mark.cuda
@@ -926,6 +979,128 @@ def test_flash_attention_lens_kernel_matches_plain(dtype, lq, lk, bk, causal,
     _close(got[0], want[0], ATTN_TOL[dtype], "o", live)
     _close(got[1], want[1], ATTN_TOL[dtype], "m", live)
     _close(got[2], want[2], ATTN_TOL[dtype] * lk, "l", live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("lq,causal", [(1, False), (3, False), (40, False),
+                                       (40, True)])
+def test_flash_attention_lens_kernel_groups(dtype, hq, hkv, lq, causal,
+                                            card):
+    """The split-K lens kernels at GQA groups 1, 2 and 8, kv_len 0, 1, the
+    capacity and ragged (a short last tile at Lk 1000), causal and not:
+    decode (f32, and bf16 groups of at most 16 rows) and prefix (bf16
+    groups above 16 rows, 64- and 128-row blocks, a block across heads at
+    group 8), each reached as lens_blocks says."""
+    b, lk = 4, 1000
+    q, k, v = _attn_inputs(card, dtype, b=b, hq=hq, hkv=hkv, lq=lq, lk=lk,
+                           d=128, seed=hq * lq)
+    kv_len = torch.tensor([0, 1, lk, 517], dtype=torch.int32, device=card)
+    kind = fa_k.lens_blocks(dtype, hq // hkv * lq)[0]
+    before = fa_k.flash_attention_lens.launches
+    by_kind = fa_k.flash_attention_lens.kernels[kind]
+    got = fa_k.flash_attention_lens(q, k, v, kv_len, causal=causal,
+                                    return_state=True)
+    torch.cuda.synchronize()
+    assert fa_k.flash_attention_lens.launches == before + 1
+    assert fa_k.flash_attention_lens.kernels[kind] == by_kind + 1
+    want = fa_k.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                      return_state=True)
+    live = kv_len > 0
+    assert torch.all(got[1][~live] == fa_k.NEG_INF)
+    _close(got[0], want[0], ATTN_TOL[dtype], "o", live)
+    _close(got[1], want[1], ATTN_TOL[dtype], "m", live)
+    _close(got[2], want[2], ATTN_TOL[dtype] * lk, "l", live)
+    o = fa_k.flash_attention_lens(q, k, v, kv_len, causal=causal)
+    assert torch.equal(o, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,lq,lk", [
+    (torch.bfloat16, 8, 1, 2048), (torch.float32, 8, 1, 2048),
+    (torch.bfloat16, 1, 128, 1152), (torch.float32, 1, 128, 1152)])
+def test_flash_attention_lens_kernel_is_bitwise_run_to_run(dtype, b, lq, lk,
+                                                           card):
+    """Paged decode (8 slots, Lq 1, kv_len spread over the capacity) and a
+    chunk's prefix (Lq 128 against 1152 keys) at qwen3-1.7b's heads: the
+    keys are split (several ranges, merged by the group's last CTA in a
+    fixed order), and the same inputs give the same bits every time."""
+    q, k, v = _attn_inputs(card, dtype, b=b, hq=16, hkv=8, lq=lq, lk=lk,
+                           d=128, seed=lk)
+    kv_len = torch.linspace(1, lk, b, device=card).round().to(torch.int32)
+    rows_blk = fa_k.lens_blocks(dtype, 2 * lq)[1]
+    groups = b * 8 * -(-2 * lq // rows_blk)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert fa_k.lens_partition(lk, 128, groups, sms).nsplit > 1
+    first = fa_k.flash_attention_lens(q, k, v, kv_len, return_state=True)
+    for _ in range(20):
+        again = fa_k.flash_attention_lens(q, k, v, kv_len, return_state=True)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+    want = fa_k.flash_attention_plain(q, k, v, causal=False, kv_len=kv_len,
+                                      return_state=True)
+    for g, w, what in zip(first, want, "oml"):
+        _close(g, w, ATTN_TOL[dtype] * (lk if what == "l" else 1), what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 1)])
+def test_attention_kernels_at_head_dims_96_and_256(dtype, d, hq, hkv, card):
+    """phi3-mini-3.8b's head_dim (96) and gemma-2b's (256, MQA 8/1) in all
+    three kernels: the dense grid (causal and not, with state; a short last
+    K tile), lens (decode at Lq 1, and at Lq 48 the prefix kernel in bf16)
+    and the tiles walk (band and bias masks)."""
+    L = 200
+    q, k, v = _attn_inputs(card, dtype, hq=hq, hkv=hkv, lq=L, lk=L, d=d,
+                           seed=d)
+    for causal in (False, True):
+        got = fa_k.flash_attention(q, k, v, causal=causal,
+                                   row_extents=False, return_state=True)
+        want = fa_k.flash_attention_plain(q, k, v, causal=causal,
+                                          return_state=True)
+        for g, w, what in zip(got, want, "oml"):
+            _close(g, w, ATTN_TOL[dtype] * (L if what == "l" else 1),
+                   f"dense causal={causal} {what}")
+    kv_len = torch.tensor([0, 150], dtype=torch.int32, device=card)
+    live = kv_len > 0
+    for lq in (1, 48):
+        ql = q[:, :, :lq].contiguous()
+        got = fa_k.flash_attention_lens(ql, k, v, kv_len, return_state=True)
+        want = fa_k.flash_attention_plain(ql, k, v, causal=False,
+                                          kv_len=kv_len, return_state=True)
+        assert torch.all(got[1][~live] == fa_k.NEG_INF)
+        for g, w, what in zip(got, want, "oml"):
+            _close(g, w, ATTN_TOL[dtype] * (L if what == "l" else 1),
+                   f"lens Lq={lq} {what}", live)
+    for spec in ("window", "globals"):
+        layout = compile_layout(_TILE_SPECS[spec](L, L), L, L, 64, 64)
+        got = fa_k.flash_attention_tiles(q, k, v, layout, return_state=True)
+        want = fa_k.flash_attention_tiles_plain(q, k, v, layout,
+                                                return_state=True)
+        for g, w, what in zip(got, want, "oml"):
+            _close(g, w, ATTN_TOL[dtype] * (L if what == "l" else 1),
+                   f"tiles {spec} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 256])
+def test_tiles_kernel_bitwise_equals_dense_causal_at_head_dims(dtype, d,
+                                                               card):
+    """The bitwise property of both folds at 96 and 256 (at 256 the bf16
+    fold stages K and V in one buffer each), with a short last tile."""
+    L = 300
+    q, k, v = _attn_inputs(card, dtype, b=2, hq=4, hkv=2, lq=L, lk=L, d=d,
+                           seed=L + d)
+    tiles = fa_k.flash_attention_tiles(q, k, v,
+                                       causal_layout(L, L, 128, 128),
+                                       return_state=True)
+    dense = fa_k.flash_attention(q, k, v, causal=True, row_extents=False,
+                                 return_state=True)
+    for t, g in zip(tiles, dense):
+        assert torch.equal(t, g)
 
 
 _TILE_SPECS = {
