@@ -2,11 +2,17 @@
 """Drive the PyTorch port (src/repro_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sparse-shapes   # only the sparse shape timings
 
 1. Print the card's name and power limit, and build the CUDA kernels from
    src/repro_torch/kernels/csrc with nvcc (timed).
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged ones.
+   main path's shapes and at ragged ones: spmm_ell also with each row's
+   columns shuffled, the SpMM suite's ragged rows, width 1, an inf in
+   X[0, :] (NaN in the padded rows) and the same bits from two calls; both
+   BSR kernels at block edges 1, 4, 8, 12, 16, 32 and 64 (and raising
+   above 64); spgemm_bsr at the suite's clustered 0.2 case at bs 32 and
+   bitwise from call to call.
 3. Run the two paths of the port, each with data made from fixed seeds and
    validated as benchmarks/*.py does, and each with the launch counts set
    to 0 just before it and read just after; every kernel of a path must
@@ -40,6 +46,10 @@
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
    trace (``kernel_ms``); lens at paged decode and at a chunk's prefix;
+   spmm_ell's launches per call, CTAs and chunks of X, spgemm_bsr's CTAs;
+   the device time of spmm_ell at the path's other ELL shapes and of
+   spgemm_bsr at the SpGEMM suite's five cases (also alone, with
+   --sparse-shapes);
    print what ptxas said of the kernels' registers and spills; profile a
    short window of each engine's work (device time by kernel group, the
    device's idle share); print one JSON line of kernel records.
@@ -77,7 +87,11 @@ PTXAS_NAMES = ("flash_attention_lens_decode_kernel",
                "flash_attention_bf16_kernelILi256",
                "flash_attention_bf16_kernel",
                "flash_attention_tiles_bf16_kernelILi256",
-               "flash_attention_tiles_bf16_kernel", "matmul_kernel")
+               "flash_attention_tiles_bf16_kernel", "matmul_kernel",
+               "spmm_ell_kernel", "spmm_bsr_kernel", "spgemm_bsr_kernel")
+#: BSR block edges phase 1 holds both BSR kernels at: the compiled ones and
+#: edges the kernels take as an argument.
+BSR_EDGES = (1, 4, 8, 12, 16, 32, 64)
 
 
 def log(*parts) -> None:
@@ -180,12 +194,13 @@ def spmm_classes(sparse, n: int):
             ("uniform", uniform, "ell"), ("ragged", ragged, "csr"))
 
 
-def clustered(n: int, frac: float, seed: int) -> np.ndarray:
+def clustered(n: int, frac: float, seed: int,
+              block: int = SPGEMM_BLOCK) -> np.ndarray:
     rng = np.random.default_rng(seed)
-    nb = n // SPGEMM_BLOCK
+    nb = n // block
     occ = rng.random((nb, nb)) < frac
     d = rng.standard_normal((n, n)).astype(np.float32)
-    return np.where(np.kron(occ, np.ones((SPGEMM_BLOCK, SPGEMM_BLOCK), bool)),
+    return np.where(np.kron(occ, np.ones((block, block), bool)),
                     d, 0.0).astype(np.float32)
 
 
@@ -282,6 +297,44 @@ def hold_sparse_kernels(torch, inp, mod2as_ell, kernels) -> None:
             max_err(torch, spmm_k.spmm_ell(m.values, m.cols, x),
                     spmm_k.spmm_ell_plain(m.values, m.cols, x), 1e-4, 1e-4,
                     f"spmm_ell n={m.shape[0]} k={k}")
+    # the walk takes any column order: mod2as with each row's columns
+    # shuffled (X swept in chunks) and the SpMM suite's ragged class (rows
+    # of 2 % fill beside dense ones), at every k the path and tests use;
+    # width 1
+    rng = np.random.default_rng(17)
+    perm = torch.as_tensor(np.argsort(rng.random(mod2as_ell.values.shape),
+                                      axis=1), device=dev)
+    shuffled = (mod2as_ell.values.gather(1, perm).contiguous(),
+                mod2as_ell.cols.gather(1, perm).contiguous())
+    ragged = sparse.ell_from_csr(sparse.csr_from_dense(
+        inp["classes"][3][1], device=dev))
+    one = (torch.randn(300, 1, device=dev),
+           torch.randint(0, 500, (300, 1), dtype=torch.int32, device=dev))
+    for what, (v, c), n in (("mod2as shuffled", shuffled, mod2as_ell.shape[1]),
+                            ("ragged", (ragged.values, ragged.cols), SPMM_N),
+                            ("width 1", one, 500)):
+        for k in (1, 3, 8, 64, 65):
+            x = torch.randn(n, k, device=dev)
+            max_err(torch, spmm_k.spmm_ell(v, c, x),
+                    spmm_k.spmm_ell_plain(v, c, x), 1e-4, 1e-4,
+                    f"spmm_ell {what} k={k}")
+    # padding adds 0 * X[0, :]: an inf there is NaN in every padded row;
+    # and the same bits from two calls
+    x = torch.randn(mod2as_ell.shape[1], 64, device=dev)
+    x[0, 7] = float("inf")
+    got = spmm_k.spmm_ell(mod2as_ell.values, mod2as_ell.cols, x)
+    want = spmm_k.spmm_ell_plain(mod2as_ell.values, mod2as_ell.cols, x)
+    padded = ((mod2as_ell.values == 0) & (mod2as_ell.cols == 0)).any(dim=1)
+    torch.cuda.synchronize()
+    if not (padded.any() and got[padded, 7].isnan().all()
+            and torch.equal(got.isnan(), want.isnan())):
+        raise AssertionError("spmm_ell: NaN from X[0, :] not as in the "
+                             "plain version")
+    x[0, 7] = 1.0
+    first = spmm_k.spmm_ell(mod2as_ell.values, mod2as_ell.cols, x)
+    if not torch.equal(spmm_k.spmm_ell(mod2as_ell.values, mod2as_ell.cols,
+                                       x), first):
+        raise AssertionError("spmm_ell: two calls on the same inputs differ")
 
     errs = []
     for what, m, k in (("blocked", inp["mats"]["blocked"], 8),
@@ -295,7 +348,7 @@ def hold_sparse_kernels(torch, inp, mod2as_ell, kernels) -> None:
             f"spmm_bsr {what} bs={m.block} k={k}"))
     kernels["spmm_bsr"]["max_abs_err"] = max(errs)
     rng = np.random.default_rng(12)
-    for bs in (8, 16, 32):
+    for bs in BSR_EDGES:
         m = random_bsr(S, torch, rng, 40, 30, bs, 0.2, empty_rows=(0, 17, 39))
         for k in (1, 3, 65):
             x = torch.randn(m.shape[1], k, device=dev)
@@ -324,13 +377,49 @@ def hold_sparse_kernels(torch, inp, mod2as_ell, kernels) -> None:
             torch, spgemm_k.spgemm_bsr(*args, ncols=b.shape[1]), want, 1e-5,
             1e-5 * scale, f"spgemm_bsr {case}"))
     kernels["spgemm_bsr"]["max_abs_err"] = max(errs)
-    for bs in (16, 32):
+    # the clustered 0.2 case again: the same bits from a second call
+    args, _ = spgemm_args(S, torch, *inp["gemm_cases"][2][3:])
+    first = spgemm_k.spgemm_bsr(*args, ncols=SPGEMM_N)
+    if not torch.equal(spgemm_k.spgemm_bsr(*args, ncols=SPGEMM_N), first):
+        raise AssertionError("spgemm_bsr: two calls on the same inputs "
+                             "differ")
+    for bs in BSR_EDGES:
         a = random_bsr(S, torch, rng, 24, 24, bs, 0.3, empty_rows=(3, 11))
         b = random_bsr(S, torch, rng, 24, 24, bs, 0.3, empty_rows=(5,))
         args, _ = spgemm_args(S, torch, a, b)
         max_err(torch, spgemm_k.spgemm_bsr(*args, ncols=b.shape[1]),
                 spgemm_k.spgemm_bsr_plain(*args, ncols=b.shape[1]), 1e-5,
                 1e-4, f"spgemm_bsr bs={bs}")
+    # the suite's clustered 0.2 operands at bs 32 (a whole output row's
+    # accumulator, 256 KB, is more than a CTA's shared memory): the warp
+    # ranges
+    A, B = (clustered(SPGEMM_N, 0.2, seed, block=32) for seed in (1, 2))
+    args, _ = spgemm_args(S, torch, S.bsr_from_dense(A, block=32),
+                          S.bsr_from_dense(B, block=32))
+    want = spgemm_k.spgemm_bsr_plain(*args, ncols=SPGEMM_N)
+    max_err(torch, spgemm_k.spgemm_bsr(*args, ncols=SPGEMM_N), want, 1e-5,
+            1e-5 * max(1.0, float(want.abs().max())),
+            "spgemm_bsr clustered 0.2 bs=32")
+    # above the largest edge both wrappers raise, naming it, and launch
+    # nothing
+    big = spmm_k.MAX_BSR_BLOCK + 1
+    bv = torch.zeros((1, big, big), device=dev)
+    bc = torch.zeros(1, dtype=torch.int32, device=dev)
+    br = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    before = spmm_k.spmm_bsr.launches, spgemm_k.spgemm_bsr.launches
+    for call in (lambda: spmm_k.spmm_bsr(bv, bc, br,
+                                         torch.ones(big, 2, device=dev)),
+                 lambda: spgemm_k.spgemm_bsr(bv, bc, br, bv, bc, br, bc, br,
+                                             ncols=big)):
+        try:
+            call()
+        except ValueError as exc:
+            if str(spmm_k.MAX_BSR_BLOCK) not in str(exc):
+                raise
+        else:
+            raise AssertionError(f"a BSR kernel took block edge {big}")
+    if (spmm_k.spmm_bsr.launches, spgemm_k.spgemm_bsr.launches) != before:
+        raise AssertionError("a BSR wrapper launched above its largest edge")
     # no pairs: A's only live block-column meets an empty block-row of B
     a = np.zeros((32, 32), np.float32)
     a[:8, :8] = 1.0
@@ -422,6 +511,38 @@ def run_sparse_path(torch, inp) -> None:
     torch.cuda.synchronize()
 
 
+def time_sparse_shapes(torch, scrub) -> dict:
+    """Device time per call (torch.profiler, cold L2) of spmm_ell at the
+    blocked-sparse path's other ELL shapes (the SpMM suite's uniform class
+    at k = 8 and 64, block-CG's ELL at k = 8) and of spgemm_bsr at the
+    SpGEMM suite's five cases, bs 8.  ``--sparse-shapes`` runs only this,
+    so that a copy of this script in an older tree times its kernels."""
+    from repro_torch import sparse as S
+    from repro_torch.kernels import spgemm as spgemm_k
+    from repro_torch.kernels import spmm as spmm_k
+    from repro_torch.numerics import sparse
+
+    dev = torch.device("cuda")
+    out = {}
+    uni = S.matrix(spmm_classes(sparse, SPMM_N)[2][1], format="ell")
+    cn, cbw, ck = CG_BLOCK[-1]
+    cg = S.matrix(sparse.banded_spd(cn, cbw, seed=cn + cbw).astype(
+        np.float32), format="ell")
+    for name, m, k in (("uniform_k8", uni, 8), ("uniform_k64", uni, 64),
+                       ("block-CG_k8", cg, ck)):
+        x = torch.randn(m.shape[1], k, device=dev)
+        out[f"spmm_ell {name}"] = kernel_ms(
+            torch, lambda: spmm_k.spmm_ell(m.values, m.cols, x), 50,
+            "spmm_ell_kernel", scrub)
+    for case, A, B in spgemm_cases(sparse, SPGEMM_N):
+        args, _ = spgemm_args(S, torch, S.bsr_from_dense(A, block=8),
+                              S.bsr_from_dense(B, block=8))
+        out[f"spgemm_bsr {case}"] = kernel_ms(
+            torch, lambda: spgemm_k.spgemm_bsr(*args, ncols=SPGEMM_N), 20,
+            "spgemm_bsr_kernel", scrub)
+    return out
+
+
 def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
                         csr_tensor) -> dict:
     """Phase 3 for the blocked-sparse kernels; returns the call that
@@ -447,6 +568,14 @@ def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
     rec["library_ms"] = cold_ms(lambda: lib_as @ x_as, 50)
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         nnz * 8 + 2 * n * k * 4, 2.0 * nnz * k)
+    before = spmm_k.spmm_ell.launches
+    spmm_k.spmm_ell(vals, cols, x_as)
+    rec["launches_per_call"] = spmm_k.spmm_ell.launches - before
+    part = spmm_k.ell_partition(n, vals.shape[1], n, k,
+                                torch.cuda.get_device_properties(
+                                    dev).multi_processor_count)
+    rec["ctas"] = part.grid(n, k)[0] * part.grid(n, k)[1]
+    rec["chunks"] = part.nchunks
 
     # spmm_bsr: the SpGEMM suite's clustered 0.2 operand times k = 64.  Its
     # live blocks are dense (normal draws), so the stored entries are the
@@ -491,8 +620,12 @@ def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         (a.nblocks + b.nblocks + plan.nc) * bs * bs * 4,
         2.0 * plan.npairs * bs ** 3)
+    span = spgemm_k.spgemm_span(bs)
+    rec["ctas"] = plan.nbrows * -(-plan.nbcols // (spgemm_k.SPGEMM_WARPS
+                                                   * span))
     log(f"spgemm_bsr timed: {plan.npairs} pairs, {plan.nc} output blocks, "
-        f"{2.0 * plan.npairs * bs ** 3 / 1e6:.1f} MFLOP")
+        f"{2.0 * plan.npairs * bs ** 3 / 1e6:.1f} MFLOP, {rec['ctas']} CTAs "
+        f"of {spgemm_k.SPGEMM_WARPS} warps ({span} block-columns a warp)")
     return {"spmm_ell": lambda: spmm_k.spmm_ell(vals, cols, x_as),
             "spmm_bsr": lambda: spmm_k.spmm_bsr(bv, bc, br, x_bsr),
             "spgemm_bsr": lambda: spgemm_k.spgemm_bsr(*args, ncols=ncols)}
@@ -1026,6 +1159,9 @@ def main() -> int:
     # f32 products run in full precision: the yardstick must not use TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--sparse-shapes"]:
+        print(json.dumps(time_sparse_shapes(torch, scrub_buffer(torch))))
+        return 0
 
     import repro_torch.core as C
     from repro_torch.kernels import _lib, ops
@@ -1384,6 +1520,11 @@ def main() -> int:
 
     timed_sparse = time_sparse_kernels(torch, sparse_in, csr, ell, kernels,
                                        cold_ms, csr_tensor)
+    shapes = time_sparse_shapes(torch, scrub)
+    kernels["spmm_ell"]["path_kernel_ms"] = {
+        k: v for k, v in shapes.items() if k.startswith("spmm_ell")}
+    kernels["spgemm_bsr"]["cases_kernel_ms"] = {
+        k: v for k, v in shapes.items() if k.startswith("spgemm_bsr")}
     timed_attn, lens_prefix = time_attention_kernels(torch, kernels,
                                                      cold_ms)
 

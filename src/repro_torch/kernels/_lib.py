@@ -57,10 +57,11 @@ _SIGNATURES = {
                         _P),
     "fft_stages_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
-    "spmm_ell_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "spmm_ell_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P),
     "spmm_bsr_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "spgemm_bsr_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _P),
+                          _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _I, _I, _P),
     "flash_attention_lens_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

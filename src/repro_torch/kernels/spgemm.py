@@ -3,8 +3,10 @@ precomputed output pattern.
 
 ``spgemm_bsr`` replaces the Pallas TPU kernel ``repro/kernels/spgemm.py:45``
 (``spgemm_bsr_kernel``).  The CUDA kernel lives in ``csrc/spgemm.cu``; that
-file's header says why it accumulates into the output's live tiles rather
-than the Pallas kernel's dense (bs, ncols) row, and what bounds it.
+file's header says how it cuts the Pallas kernel's dense (bs, ncols) row
+accumulator into warp-owned ranges of :func:`spgemm_span` block-columns in
+shared memory, and what bounds it.  It takes any block edge from 1 to
+``MAX_BSR_BLOCK`` (64).
 
 ``spgemm_bsr_plain`` is the same function in plain PyTorch, the pair
 formulation: it enumerates the contributing block pairs from the operands'
@@ -21,10 +23,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.spmm import BSR_BLOCKS
+from repro_torch.kernels.spmm import check_bsr_block
 from repro_torch.numerics.sparse import csr_row_ids
 
-__all__ = ["spgemm_bsr", "spgemm_bsr_plain"]
+__all__ = ["spgemm_bsr", "spgemm_bsr_plain", "spgemm_span", "SPGEMM_WARPS"]
+
+#: Warps per CTA of the kernel (each owns one range of block-columns), and
+#: the shared memory a warp's range accumulator may take.
+SPGEMM_WARPS = 4
+SPGEMM_ACC_BYTES = 4096
 
 _NOT_IN_PLAN = ("spgemm_bsr: a block product's output tile is not in "
                 "c_cols/c_rowp (the pattern must be spgemm_symbolic's for "
@@ -60,6 +67,14 @@ def spgemm_bsr_plain(a_vals, a_cols, a_rowp, b_vals, b_cols, b_rowp,
     return out.index_add_(0, slot, prod).to(a_vals.dtype)
 
 
+def spgemm_span(bs: int) -> int:
+    """Block-columns of one output row a warp of the kernel owns: as many
+    (bs, bs) f32 tiles as fit :data:`SPGEMM_ACC_BYTES`, at least 1 and at
+    most 32 (a presence bit per block-column in one register): 16 at bs 8,
+    4 at bs 16, 1 at bs 32 and 64."""
+    return max(1, min(32, SPGEMM_ACC_BYTES // (4 * bs * bs)))
+
+
 def spgemm_bsr(a_vals: torch.Tensor, a_cols: torch.Tensor,
                a_rowp: torch.Tensor, b_vals: torch.Tensor,
                b_cols: torch.Tensor, b_rowp: torch.Tensor,
@@ -82,8 +97,7 @@ def spgemm_bsr(a_vals: torch.Tensor, a_cols: torch.Tensor,
             f"{tuple(a_rowp.shape)}, b {tuple(b_vals.shape)}/"
             f"{tuple(b_cols.shape)}/{tuple(b_rowp.shape)}, c "
             f"{tuple(c_cols.shape)}/{tuple(c_rowp.shape)}, ncols {ncols}")
-    if bs not in BSR_BLOCKS:
-        raise ValueError(f"spgemm_bsr: block {bs} not in {BSR_BLOCKS}")
+    check_bsr_block("spgemm_bsr", bs)
     _lib.require_dtypes("spgemm_bsr", (a_vals, b_vals),
                    (a_cols, a_rowp, b_cols, b_rowp, c_cols, c_rowp))
     nc = c_cols.shape[0]
@@ -95,7 +109,8 @@ def spgemm_bsr(a_vals: torch.Tensor, a_cols: torch.Tensor,
     err = torch.zeros(1, dtype=torch.int32, device=a_vals.device)
     code = _lib.lib().spgemm_bsr_launch(
         *(t.data_ptr() for t in args), c_vals.data_ptr(), err.data_ptr(),
-        a_rowp.shape[0] - 1, bs, _lib.stream_of(a_vals))
+        a_rowp.shape[0] - 1, bs, ncols // bs, spgemm_span(bs),
+        _lib.stream_of(a_vals))
     _lib.check(code, "spgemm_bsr")
     spgemm_bsr.launches += 1
     if err.item():                       # waits for the kernel

@@ -509,6 +509,310 @@ def test_spgemm_bsr_plain_raises_on_a_tile_missing_from_the_plan():
         spgemm_k.spgemm_bsr(*args, ncols=ncols)
 
 
+#: Block edges off the selector's 8/16/32 ladder that the CUDA kernels take
+#: (1..64), with a block grid that keeps n <= 256.
+EDGE_GRIDS = [(1, 6, 5), (4, 6, 5), (12, 6, 5), (64, 4, 3)]
+
+
+@pytest.mark.parametrize("bs,nbr,nbc", EDGE_GRIDS)
+def test_spmm_bsr_block_edges_match_jax(bs, nbr, nbc, jax_ops, jax_spmm):
+    """The wrapper's host path at block edges 1, 4, 12 and 64 against the
+    JAX Pallas kernel (interpret mode) and the JAX oracle."""
+    jnp, _, jref = jax_ops
+    rng = np.random.default_rng(bs + 7)
+    vals, cols, rowp = _bsr_operand(rng, nbr, nbc, bs, 0.5, empty_rows=(1,))
+    x = _randn(rng, (nbc * bs, 5))
+    args = (vals, cols, rowp, x)
+    want = jax_spmm.spmm_bsr(*map(jnp.asarray, args), block_rhs=5,
+                             interpret=True)
+    got = spmm_k.spmm_bsr(*map(torch.as_tensor, args))
+    assert got.shape == (nbr * bs, 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.spmm_bsr_ref(*map(jnp.asarray, args))),
+        rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got.numpy()[bs:2 * bs], 0.0)
+
+
+@pytest.mark.parametrize("bs,nb", [(1, 40), (4, 16), (12, 8), (64, 4)])
+def test_spgemm_bsr_block_edges_match_jax(bs, nb, jax_ops):
+    """The wrapper's host path at block edges 1, 4, 12 and 64 against the
+    JAX package's ``bsr_xla`` SpGEMM and its dense oracle."""
+    from repro import sparse as JS
+
+    jnp, _, jref = jax_ops
+    rng = np.random.default_rng(bs + 3)
+    av, ac, ar = _bsr_operand(rng, nb, nb, bs, 0.4, empty_rows=(1,))
+    bv, bc, br = _bsr_operand(rng, nb, nb, bs, 0.4, empty_rows=(2,))
+    shape = (nb * bs, nb * bs)
+    ja = JS.BSR(jnp.asarray(av), jnp.asarray(ac), jnp.asarray(ar), shape, bs)
+    jb = JS.BSR(jnp.asarray(bv), jnp.asarray(bc), jnp.asarray(br), shape, bs)
+    plan = JS.spgemm_symbolic(ja, jb)
+    got = spgemm_k.spgemm_bsr(
+        *map(torch.as_tensor, (av, ac, ar, bv, bc, br, plan.c_cols,
+                               plan.c_rowp)), ncols=shape[1])
+    want = JS.spgemm(ja, jb, variant="bsr_xla")
+    np.testing.assert_array_equal(np.asarray(want.cols), plan.c_cols)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.values),
+                               rtol=1e-5, atol=1e-4)
+    dense = np.asarray(jref.spgemm_bsr_ref(
+        *map(jnp.asarray, (av, ac, ar, bv, bc, br)), a_shape=shape,
+        b_shape=shape))
+    tiles = dense.reshape(nb, bs, nb, bs).transpose(0, 2, 1, 3)
+    brows = np.repeat(np.arange(nb), np.diff(plan.c_rowp))
+    np.testing.assert_allclose(got.numpy(), tiles[brows, plan.c_cols],
+                               rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the ELL kernel's cut and walk, modelled in numpy (the kernel runs only on
+# the card; these hold the index scheme it implements)
+# ---------------------------------------------------------------------------
+
+def _sorted_ell(n):
+    """ell_from_csr's ELL of a random matrix (ascending columns, padding of
+    value 0 and column 0 at each row's end) and its live entries a row."""
+    from repro_torch.numerics import sparse
+
+    csr = sparse.csr_from_dense(sparse.random_sparse(n, 12.0, seed=5),
+                                device="cpu")
+    ell = sparse.ell_from_csr(csr)
+    return (ell.values.numpy().copy(), ell.cols.numpy().copy(),
+            np.diff(csr.rowp.numpy()))
+
+
+def _ell_walk_model(values, cols, x, part):
+    """The walk of ``csrc/spmm.cu`` spmm_ell_kernel for each row: a pointer
+    over the stored entries, windows of ``ELL_WIN`` of them, X swept in
+    ``part.nchunks`` chunks of ``part.chunk`` rows; in each chunk a row
+    takes its entries from the pointer on up to the first one at or past
+    the chunk's end (the last chunk takes all that are left).  Where X[0, :]
+    is finite, padding (value 0, column 0) is passed over: it adds exactly
+    0.  Returns the product (f32 sums in the kernel's order), how many
+    times each stored entry was taken, and how many were read from the
+    staged chunk."""
+    win = spmm_k.ELL_WIN
+    nrows, width = values.shape
+    n, k = x.shape
+    x0fin = bool(np.isfinite(x[0]).all())
+    y = np.zeros((nrows, k), np.float32)
+    taken = np.zeros((nrows, width), np.int64)
+    staged = 0
+    for i in range(nrows):
+        ptr = wb = 0
+        acc = np.zeros(k, np.float32)
+        passes = max(part.nchunks, 1)     # no chunks: gather every row
+        for ch in range(passes):
+            lo = ch * part.chunk
+            end = min(n, lo + part.chunk)
+            hi = np.iinfo(np.int64).max if ch + 1 == passes else end
+            while ptr < width:
+                if ptr == wb + win:
+                    wb += win
+                j0 = ptr - wb
+                stops = [j for j in range(j0, win)
+                         if wb + j >= width or cols[i, wb + j] >= hi]
+                j1 = stops[0] if stops else win
+                for j in range(j0, j1):
+                    c, v = cols[i, wb + j], values[i, wb + j]
+                    taken[i, wb + j] += 1
+                    if x0fin and c == 0 and v == 0:
+                        continue
+                    acc = (acc + v * x[c]).astype(np.float32)
+                    staged += lo <= c < end
+                ptr = wb + j1
+                if j1 < win:
+                    break
+        y[i] = acc
+    return y, taken, staged
+
+
+def _ell_case(kind, rng):
+    """(values, cols, n) of an ELL of the given kind."""
+    from repro_torch.numerics import sparse
+
+    if kind in ("sorted", "shuffled", "reversed"):
+        n = 150
+        vals, cols, _ = _sorted_ell(n)
+        if kind == "shuffled":
+            for i in range(n):
+                p = rng.permutation(cols.shape[1])
+                vals[i], cols[i] = vals[i, p], cols[i, p]
+        elif kind == "reversed":
+            vals, cols = vals[:, ::-1].copy(), cols[:, ::-1].copy()
+        return vals, cols, n
+    if kind == "ragged":       # a few dense rows among short ones
+        n = 120
+        a = sparse.random_sparse(n, 2.0, seed=6).astype(np.float32)
+        a[[3, 77]] = _randn(rng, (2, n))
+        ell = sparse.ell_from_csr(sparse.csr_from_dense(a, device="cpu"))
+        return ell.values.numpy(), ell.cols.numpy(), n
+    if kind == "width1":
+        n = 90
+        return (_randn(rng, (70, 1)),
+                rng.integers(0, n, (70, 1)).astype(np.int32), n)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["sorted", "shuffled", "reversed", "ragged",
+                                  "width1"])
+@pytest.mark.parametrize("chunk", [None, 16, 7, 0])
+def test_ell_walk_model_takes_every_entry_once(kind, chunk):
+    """Whatever the column order, the walk takes every stored entry exactly
+    once and gives the plain product; rows in ascending order read every
+    entry they add from the staged chunk."""
+    rng = np.random.default_rng(len(kind) + (chunk or 0))
+    vals, cols, n = _ell_case(kind, rng)
+    x = _randn(rng, (n, 3))
+    part = spmm_k.ell_partition(vals.shape[0], vals.shape[1], n, 3, 132)
+    if chunk is not None:
+        part = spmm_k.EllPartition(part.cpl, part.rpw, part.nwarps, chunk,
+                                   -(-n // chunk) if chunk else 0, 2,
+                                   part.stride)
+    y, taken, staged = _ell_walk_model(vals, cols, x, part)
+    np.testing.assert_array_equal(taken, 1)
+    want = spmm_k.spmm_ell(*map(torch.as_tensor, (vals, cols, x)))
+    np.testing.assert_allclose(y, want.numpy(), rtol=1e-4, atol=1e-5)
+    if kind == "sorted" and part.nchunks:
+        assert staged == int(_sorted_ell(n)[2].sum())
+
+
+def test_ell_walk_model_keeps_nan_from_x0_in_padded_rows():
+    """Padding (value 0, column 0) adds 0 * X[0, :]: an inf there gives NaN
+    in every padded row, as in the plain version."""
+    rng = np.random.default_rng(8)
+    vals, cols, n = _ell_case("sorted", rng)
+    x = _randn(rng, (n, 4))
+    x[0, 1] = np.inf
+    part = spmm_k.EllPartition(1, 1, 1, 16, -(-n // 16), 2, 4)
+    y, _, _ = _ell_walk_model(vals, cols, x, part)
+    want = spmm_k.spmm_ell(*map(torch.as_tensor, (vals, cols, x))).numpy()
+    np.testing.assert_array_equal(np.isnan(y), np.isnan(want))
+    padded = ((vals == 0) & (cols == 0)).any(axis=1)
+    assert padded.any() and np.isnan(y[padded, 1]).all()
+    np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("nrows,width,n,k,sms", [
+    (10240, 675, 10240, 64, 132), (1024, 16, 1024, 8, 132),
+    (1024, 16, 1024, 64, 132), (512, 255, 512, 8, 132),
+    (37, 20, 37, 65, 132), (100, 4, 100, 1, 132), (50000, 8, 50000, 3, 132),
+    (10240, 675, 10240, 64, 1), (5, 3, 7, 33, 8)])
+def test_ell_partition_fits_the_card(nrows, width, n, k, sms):
+    """The cut covers every row and column of the product, fits one CTA's
+    shared memory, at mod2as puts one row tile on each SM, and stages no X
+    where a tile's entries are fewer than X's rows (the SpMM suite's
+    uniform class)."""
+    part = spmm_k.ell_partition(nrows, width, n, k, sms)
+    tiles, panels = part.grid(nrows, k)
+    assert tiles * part.rows >= nrows and panels * part.panel >= k
+    assert 1 <= part.nwarps <= (20 if part.rpw == 4 else 15)
+    assert part.rpw in (1, 4)
+    assert part.cpl == (1 if k <= 32 else 2)
+    assert part.stride >= min(k, part.panel) and part.stride % part.cpl == 0
+    assert part.smem_bytes <= spmm_k.SMEM_PER_CTA - 64
+    gather = part.rows * width < n
+    assert (part.chunk, part.nchunks) == (0, 0) if gather else \
+        part.chunk * part.nchunks >= n > part.chunk * (part.nchunks - 1)
+    assert part.nbuf == (1 if part.nchunks <= 1 else 2)
+    if (nrows, k, sms) == (10240, 64, 132):
+        assert (part.rpw, part.nwarps, tiles) == (4, 20, 128)
+        assert part.nchunks > 1
+    if (nrows, width) == (1024, 16):
+        assert gather
+    if (nrows, width) == (512, 255):
+        assert not gather
+
+
+# ---------------------------------------------------------------------------
+# the SpGEMM kernel's warp ranges, modelled in numpy
+# ---------------------------------------------------------------------------
+
+def _spgemm_range_model(av, ac, ar, bv, bc, br, c_cols, c_rowp, nbcols,
+                        span):
+    """``csrc/spgemm.cu`` spgemm_bsr_kernel's cut: output row i's block-
+    columns in ranges of ``span`` (a warp each; CTAs of SPGEMM_WARPS
+    ranges), each range's live slots found by a search of c_cols, and for
+    every block p of A's row (in order) the sub-run of B's row a_cols[p]
+    inside the range found by two searches.  Returns (c_vals, err, the
+    number of pair products taken)."""
+    bs = av.shape[1]
+    nc = c_cols.shape[0]
+    out = np.zeros((nc, bs, bs), np.float32)
+    err, pairs = False, 0
+    per_cta = spgemm_k.SPGEMM_WARPS * span
+    for i in range(c_rowp.shape[0] - 1):
+        for w in range(-(-nbcols // per_cta) * spgemm_k.SPGEMM_WARPS):
+            jw0 = w * span
+            if jw0 >= nbcols:
+                continue
+            jw1 = min(jw0 + span, nbcols)
+            c_lo, c_hi = c_rowp[i], c_rowp[i + 1]
+            s0 = c_lo + np.searchsorted(c_cols[c_lo:c_hi], jw0)
+            slot = {int(c_cols[s]) - jw0: s for s in range(s0, c_hi)
+                    if c_cols[s] < jw1}
+            acc = np.zeros((span, bs, bs), np.float32)
+            for p in range(ar[i], ar[i + 1]):
+                r0, r1 = br[ac[p]], br[ac[p] + 1]
+                lo = r0 + np.searchsorted(bc[r0:r1], jw0)
+                top = min(r1, lo + span)
+                hi = lo + np.searchsorted(bc[lo:top], jw1)
+                for q in range(lo, hi):
+                    jj = int(bc[q]) - jw0
+                    if jj not in slot:
+                        err = True
+                        continue
+                    acc[jj] += (av[p] @ bv[q]).astype(np.float32)
+                    pairs += 1
+            for jj, s in slot.items():
+                out[s] = acc[jj]
+    return out, err, pairs
+
+
+@pytest.mark.parametrize("bs", [1, 4, 8, 12, 32, 64])
+def test_spgemm_span_fits_the_accumulator(bs):
+    span = spgemm_k.spgemm_span(bs)
+    assert 1 <= span <= 32
+    assert span == 1 or span * bs * bs * 4 <= spgemm_k.SPGEMM_ACC_BYTES
+    assert spgemm_k.SPGEMM_WARPS * span * (bs * bs * 4 + 4) <= \
+        spmm_k.SMEM_PER_CTA
+    if bs == 8:
+        assert span == 16
+
+
+@pytest.mark.parametrize("bs,nb,span", [(8, 24, 16), (8, 24, 1), (4, 40, 32),
+                                        (12, 10, None), (1, 70, None)])
+def test_spgemm_range_model_matches_plain(bs, nb, span):
+    """Every pair product lands in exactly one warp's range, in p order,
+    and the ranges' slots together give the plain pair formulation."""
+    from repro_torch import sparse
+
+    span = span or spgemm_k.spgemm_span(bs)
+    rng = np.random.default_rng(bs * 10 + nb)
+    a, b = (sparse.BSR(*(torch.as_tensor(v) for v in
+                         _bsr_operand(rng, nb, nb, bs, 0.3,
+                                      empty_rows=(2, 5))), (nb * bs,) * 2, bs)
+            for _ in range(2))
+    plan = sparse.spgemm_symbolic(a, b)
+    host = [t.numpy() for t in (a.values, a.cols, a.rowp, b.values, b.cols,
+                                b.rowp)]
+    got, err, pairs = _spgemm_range_model(*host, plan.c_cols, plan.c_rowp,
+                                          nb, span)
+    assert not err and pairs == plan.npairs
+    want = spgemm_k.spgemm_bsr(a.values, a.cols, a.rowp, b.values, b.cols,
+                               b.rowp, torch.as_tensor(plan.c_cols),
+                               torch.as_tensor(plan.c_rowp), ncols=nb * bs)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_spgemm_range_model_flags_a_tile_missing_from_the_plan():
+    args, ncols = _spgemm_args_missing_a_tile("cpu")
+    host = [t.numpy() for t in args]
+    _, err, _ = _spgemm_range_model(*host, ncols // 8, spgemm_k.spgemm_span(8))
+    assert err
+
+
 def test_non_power_of_two_fft_has_no_variant():
     with pytest.raises(LookupError):
         ops.fft(torch.zeros(12, dtype=torch.complex64))
@@ -726,8 +1030,106 @@ def test_spmm_ell_kernel_matches_plain(n, fill, k, card):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def _random_ell(rng, nrows, n, width, order="sorted"):
+    """An ELL with rows of 1..width distinct columns (ascending, shuffled
+    or descending), padded as ell_from_csr pads (value 0, column 0)."""
+    vals = np.zeros((nrows, width), np.float32)
+    cols = np.zeros((nrows, width), np.int32)
+    for i in range(nrows):
+        m = int(rng.integers(1, width + 1))
+        c = np.sort(rng.choice(n, size=m, replace=False))
+        if order == "shuffled":
+            c = rng.permutation(c)
+        elif order == "reversed":
+            c = c[::-1]
+        cols[i, :m] = c
+        vals[i, :m] = rng.standard_normal(m)
+    return vals, cols
+
+
+def _ell_on_card(kind, card, rng):
+    """(values, cols, n) on the card: the model cases, the SpMM suite's
+    ragged class (n = 1024, four dense rows) and multi-chunk ELLs (n =
+    4096, X swept in chunks at k > 8) in each column order."""
+    from repro_torch.numerics import sparse
+
+    if kind == "ragged_suite":
+        n = 1024
+        a = sparse.random_sparse(n, 2.0, seed=4).astype(np.float32)
+        a[rng.choice(n, size=4, replace=False)] = _randn(rng, (4, n))
+        ell = sparse.ell_from_csr(sparse.csr_from_dense(a, device=card))
+        return ell.values, ell.cols, n
+    if kind.startswith("chunks_"):
+        n = 4096
+        vals, cols = _random_ell(rng, 3000, n, 300, kind[len("chunks_"):])
+    else:
+        vals, cols, n = _ell_case(kind, rng)
+    return (torch.as_tensor(np.ascontiguousarray(vals), device=card),
+            torch.as_tensor(np.ascontiguousarray(cols), device=card), n)
+
+
+ELL_CARD_KINDS = ["sorted", "shuffled", "reversed", "ragged", "width1",
+                  "ragged_suite", "chunks_sorted", "chunks_shuffled",
+                  "chunks_reversed"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("kind", ELL_CARD_KINDS)
+@pytest.mark.parametrize("k", [1, 3, 8, 64, 65])
+def test_spmm_ell_kernel_any_column_order(kind, k, card):
+    """The kernel against its plain version for rows in any column order,
+    of very different lengths, of width 1, and with X swept in chunks."""
+    rng = np.random.default_rng(k + len(kind))
+    vals, cols, n = _ell_on_card(kind, card, rng)
+    x = torch.as_tensor(_randn(rng, (n, k)), device=card)
+    before = spmm_k.spmm_ell.launches
+    got = spmm_k.spmm_ell(vals, cols, x)
+    want = spmm_k.spmm_ell_plain(vals, cols, x)
+    torch.cuda.synchronize()
+    assert spmm_k.spmm_ell.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sorted", "chunks_sorted",
+                                  "chunks_shuffled"])
+def test_spmm_ell_kernel_keeps_nan_from_x0(kind, card):
+    """An inf in X[0, :] gives NaN in every padded row's column, as 0 *
+    X[0, :] does in the plain version."""
+    rng = np.random.default_rng(3)
+    vals, cols, n = _ell_on_card(kind, card, rng)
+    x = torch.as_tensor(_randn(rng, (n, 64)), device=card)
+    x[0, 5] = float("inf")
+    got = spmm_k.spmm_ell(vals, cols, x)
+    want = spmm_k.spmm_ell_plain(vals, cols, x)
+    torch.cuda.synchronize()
+    padded = ((vals == 0) & (cols == 0)).any(dim=1)
+    assert padded.any() and got[padded, 5].isnan().all()
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["chunks_sorted", "chunks_shuffled"])
+def test_spmm_ell_kernel_is_bitwise_run_to_run(kind, card):
+    from repro_torch.numerics import sparse
+
+    rng = np.random.default_rng(11)
+    vals, cols, n = _ell_on_card(kind, card, rng)
+    x = torch.as_tensor(_randn(rng, (n, 64)), device=card)
+    first = spmm_k.spmm_ell(vals, cols, x)
+    for _ in range(3):
+        assert torch.equal(spmm_k.spmm_ell(vals, cols, x), first)
+    a = sparse.random_sparse(10240, 5.72, seed=10240)
+    ell = sparse.ell_from_csr(sparse.csr_from_dense(a, device=card))
+    x = torch.as_tensor(_randn(rng, (10240, 64)), device=card)
+    first = spmm_k.spmm_ell(ell.values, ell.cols, x)
+    assert torch.equal(spmm_k.spmm_ell(ell.values, ell.cols, x), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 16, 32, 1, 4, 12, 64])
 @pytest.mark.parametrize("k", [1, 3, 65])
 def test_spmm_bsr_kernel_matches_plain(bs, k, card):
     rng = np.random.default_rng(bs * 1000 + k)
@@ -757,7 +1159,7 @@ def test_spmm_bsr_no_blocks_gives_zeros_without_launch(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("bs", [8, 16, 32, 1, 4, 12, 64])
 def test_spgemm_bsr_kernel_matches_plain(bs, card):
     from repro_torch import sparse
 
@@ -778,6 +1180,73 @@ def test_spgemm_bsr_kernel_matches_plain(bs, card):
     torch.cuda.synchronize()
     assert spgemm_k.spgemm_bsr.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _clustered(n, bs, frac, seed):
+    """The SpGEMM suite's clustered operand (benchmarks/spgemm.py) at block
+    edge ``bs``."""
+    rng = np.random.default_rng(seed)
+    nb = n // bs
+    occ = rng.random((nb, nb)) < frac
+    d = rng.standard_normal((n, n)).astype(np.float32)
+    return np.where(np.kron(occ, np.ones((bs, bs), bool)), d, 0.0) \
+        .astype(np.float32)
+
+
+def _spgemm_card_args(a, b):
+    from repro_torch import sparse
+
+    plan = sparse.spgemm_symbolic(a, b)
+    dev = a.device
+    return (a.values, a.cols, a.rowp, b.values, b.cols, b.rowp,
+            torch.as_tensor(plan.c_cols, device=dev),
+            torch.as_tensor(plan.c_rowp, device=dev))
+
+
+SPGEMM_CARD_CASES = {
+    # the suite's timed case; bs 32 (a whole output row's accumulator,
+    # 256 KB, is more than a CTA's shared memory) and 64; a banded product
+    "clustered0.2_bs8": (2048, 8, 0.2), "clustered0.2_bs32": (2048, 32, 0.2),
+    "clustered0.3_bs64": (1024, 64, 0.3), "banded_bw127_bs8": (2048, 8, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SPGEMM_CARD_CASES))
+def test_spgemm_bsr_kernel_at_suite_sizes(case, card):
+    """The kernel against its plain version at the SpGEMM suite's sizes,
+    and the same bits from a second call."""
+    from repro_torch import sparse
+    from repro_torch.numerics.sparse import banded_spd
+
+    n, bs, frac = SPGEMM_CARD_CASES[case]
+    if frac is None:
+        ops = [banded_spd(n, 127, seed=s).astype(np.float32) for s in (3, 4)]
+    else:
+        ops = [_clustered(n, bs, frac, s) for s in (1, 2)]
+    a, b = (sparse.bsr_from_dense(m, block=bs, device=card) for m in ops)
+    args = _spgemm_card_args(a, b)
+    got = spgemm_k.spgemm_bsr(*args, ncols=n)
+    want = spgemm_k.spgemm_bsr_plain(*args, ncols=n)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(spgemm_k.spgemm_bsr(*args, ncols=n), got)
+
+
+@pytest.mark.cuda
+def test_bsr_kernels_raise_above_the_largest_block(card):
+    bs = spmm_k.MAX_BSR_BLOCK + 1
+    vals = torch.zeros((1, bs, bs), device=card)
+    cols = torch.zeros(1, dtype=torch.int32, device=card)
+    rowp = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    before = spmm_k.spmm_bsr.launches, spgemm_k.spgemm_bsr.launches
+    with pytest.raises(ValueError, match="outside 1..64"):
+        spmm_k.spmm_bsr(vals, cols, rowp, torch.ones(bs, 2, device=card))
+    with pytest.raises(ValueError, match="outside 1..64"):
+        spgemm_k.spgemm_bsr(vals, cols, rowp, vals, cols, rowp, cols, rowp,
+                            ncols=bs)
+    assert (spmm_k.spmm_bsr.launches, spgemm_k.spgemm_bsr.launches) == before
 
 
 @pytest.mark.cuda

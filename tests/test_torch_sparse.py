@@ -234,6 +234,25 @@ class TestSpmm:
         got = TS.spmm(TS.matrix(a, format=fmt, device=CPU), _tb(x)).read()
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
+    @pytest.mark.parametrize("block", [4, 64])
+    def test_pinned_block_edge_matches_jax(self, block):
+        """A BSR block edge off the selector's 8/16/32 ladder, pinned at
+        construction (the CUDA kernels take 1..64), against the JAX
+        package's xla plane and its Pallas kernel in interpret mode."""
+        a = _blocked(128, block=block, nblocks=max(2, 640 // block ** 2),
+                     seed=block)
+        x = _rhs(128, 8, seed=block)
+        tm = TS.matrix(a, format="bsr", block=block, device=CPU)
+        jm = JS.matrix(a, format="bsr", block=block)
+        assert tm.block == jm.block == block
+        got = TS.spmm(tm, _tb(x)).read()
+        np.testing.assert_allclose(got, JS.spmm(jm, J.bind(x)).read(),
+                                   rtol=1e-4, atol=1e-5)
+        with jreg.use_backend("interpret"):
+            want = JS.spmm(jm, J.bind(x)).read()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got, a @ x, rtol=1e-4, atol=1e-5)
+
     @pytest.mark.parametrize("name", sorted(CLASSES))
     def test_auto_selected_spmm_matches_jax(self, name):
         a = CLASSES[name][0]()

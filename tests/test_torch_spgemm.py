@@ -164,6 +164,41 @@ class TestNumeric:
         np.testing.assert_allclose(got.todense(), a @ b, rtol=1e-5,
                                    atol=1e-4)
 
+    @pytest.mark.parametrize("block,n", [(1, 48), (4, 128), (12, 120),
+                                         (64, 256)])
+    def test_block_edges_match_jax(self, block, n):
+        """Block edges off the selector's 8/16/32 ladder (the CUDA kernel
+        takes 1..64): plans identical, products held against bsr_xla and
+        the dense oracle."""
+        a = _blocked(n, block=block, frac=0.3, seed=block)
+        b = _blocked(n, block=block, frac=0.3, seed=block + 1)
+        (ta, tb), (ja, jb) = _both(a, b, block=block)
+        got = TS.spgemm(ta, tb)
+        want = JS.spgemm(ja, jb, variant="bsr_xla")
+        assert got.block == block and got.nblocks > 0
+        np.testing.assert_array_equal(got.cols.numpy(), np.asarray(want.cols))
+        np.testing.assert_array_equal(got.rowp.numpy(), np.asarray(want.rowp))
+        np.testing.assert_allclose(got.values.numpy(),
+                                   np.asarray(want.values), rtol=1e-5,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got.todense(), _jax_dense_ref(ja, jb),
+                                   rtol=1e-5, atol=1e-4)
+
+    @pytest.mark.parametrize("block", [4, 64])
+    def test_pinned_block_matches_jax(self, block):
+        """spgemm(..., block=) re-tiles a CSR and a bs-8 BSR operand to the
+        pinned edge, as the JAX entry point does."""
+        A, B = _blocked(128, seed=2), _banded()
+        got = TS.spgemm(TS.matrix(A, format="csr", device=CPU),
+                        TS.bsr_from_dense(B, device=CPU), block=block)
+        want = JS.spgemm(JS.matrix(A, format="csr"), JS.bsr_from_dense(B),
+                         block=block, variant="bsr_xla")
+        assert got.block == want.block == block
+        np.testing.assert_allclose(got.todense(), want.todense(), rtol=1e-5,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got.todense(), A @ B, rtol=1e-5,
+                                   atol=1e-4)
+
     @pytest.mark.parametrize("fmt_a,fmt_b", [
         ("bsr", "bsr"), ("bsr", "csr"), ("csr", "bsr"), ("csr", "csr"),
         ("ell", "dia"), ("dia", "bsr")])
