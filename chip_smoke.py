@@ -2,7 +2,7 @@
 """Drive the PyTorch port (src/repro_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sparse-shapes   # only the sparse shape timings
+    python3 chip_smoke.py --sparse-shapes   # the sparse kernels' A/B hook
 
 1. Print the card's name and power limit, and build the CUDA kernels from
    src/repro_torch/kernels/csrc with nvcc (timed).
@@ -46,10 +46,12 @@
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
    trace (``kernel_ms``); lens at paged decode and at a chunk's prefix;
-   spmm_ell's launches per call, CTAs and chunks of X, spgemm_bsr's CTAs;
-   the device time of spmm_ell at the path's other ELL shapes and of
-   spgemm_bsr at the SpGEMM suite's five cases (also alone, with
-   --sparse-shapes);
+   spmm_ell's launches per call, and the CTAs of spmm_ell and spgemm_bsr
+   as the trace records their grids; the device time of spmm_ell at the
+   path's other ELL shapes, of spgemm_bsr at the SpGEMM suite's five
+   cases, and of each sparse kernel summed over one run of phase 2b's path
+   (also alone with --sparse-shapes, which a copy of this script in a
+   checkout of an older commit runs to time that tree's kernels);
    print what ptxas said of the kernels' registers and spills; profile a
    short window of each engine's work (device time by kernel group, the
    device's idle share); print one JSON line of kernel records.
@@ -151,6 +153,52 @@ def kernel_ms(torch, fn, iters: int, kernel: str, scrub):
     total_us = sum(e.device_time_total for e in prof.key_averages()
                    if kernel in e.key)
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def launch_grids(torch, fn, kernel: str) -> list:
+    """The grid of each launch of a CUDA kernel whose name holds ``kernel``
+    in one call of ``fn``, as the torch.profiler trace records it (kineto's
+    kernel events carry their launch's grid and block; the trace is read
+    back from a temporary file); empty if the trace shows no such launch."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    finally:
+        os.unlink(path)
+    return [e["args"]["grid"] for e in events
+            if e.get("cat") == "kernel" and kernel in e.get("name", "")
+            and "grid" in e.get("args", {})]
+
+
+def path_kernel_device_ms(torch, fn, kernels: tuple) -> dict:
+    """Device time and launches of each kernel in ``kernels`` over one run
+    of ``fn``, from a torch.profiler trace: {name: (ms, launches)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in kernels:
+        evs = [e for e in prof.key_averages() if f"{name}_kernel" in e.key
+               and e.device_time_total > 0]
+        out[name] = (sum(e.device_time_total for e in evs) / 1e3,
+                     sum(e.count for e in evs))
+    return out
 
 
 def max_err(torch, got, want, rtol: float, atol: float, what: str) -> float:
@@ -449,9 +497,10 @@ def hold_sparse_kernels(torch, inp, mod2as_ell, kernels) -> None:
     torch.cuda.synchronize()
 
 
-def run_sparse_path(torch, inp) -> None:
+def run_sparse_path(torch, inp, say=log) -> None:
     """Phase 2b: the blocked-sparse path through the entry points a user
-    calls, validated as benchmarks/spmm.py and benchmarks/spgemm.py do."""
+    calls, validated as benchmarks/spmm.py and benchmarks/spgemm.py do;
+    ``say`` takes its report lines."""
     import repro_torch.core as C
     from repro_torch import sparse as S
     from repro_torch.core import registry
@@ -473,7 +522,7 @@ def run_sparse_path(torch, inp) -> None:
             if not err < 1e-3:
                 raise AssertionError(f"spmm {label} k={k}: max error {err}")
         rows.append(f"{label}->{fmt}")
-    log(f"spmm n={SPMM_N} k={SPMM_RHS}: {', '.join(rows)} ok")
+    say(f"spmm n={SPMM_N} k={SPMM_RHS}: {', '.join(rows)} ok")
 
     rows = []
     for label, a, b, fmt in inp["cg_systems"]:
@@ -491,7 +540,7 @@ def run_sparse_path(torch, inp) -> None:
         rows.append(f"{label} {S.format_of(m)}{blk}: "
                     f"{int(res.iterations)} iters, rel {rel:.1e}, "
                     f"{time.perf_counter() - t:.2f} s")
-    log("block-CG: " + "; ".join(rows))
+    say("block-CG: " + "; ".join(rows))
 
     rows = []
     for case, A, B, a, b in inp["gemm_cases"]:
@@ -507,16 +556,26 @@ def run_sparse_path(torch, inp) -> None:
         if not err < 1e-3:
             raise AssertionError(f"spgemm {case}: relative error {err}")
         rows.append(f"{case}: {c.nblocks} blocks, rel err {err:.1e}")
-    log(f"spgemm n={SPGEMM_N} block {SPGEMM_BLOCK}: " + "; ".join(rows))
+    say(f"spgemm n={SPGEMM_N} block {SPGEMM_BLOCK}: " + "; ".join(rows))
     torch.cuda.synchronize()
 
 
-def time_sparse_shapes(torch, scrub) -> dict:
+#: The blocked-sparse path's kernels.
+SPARSE_KERNELS = ("spmm_ell", "spmm_bsr", "spgemm_bsr")
+
+
+def time_sparse_shapes(torch, scrub, inp) -> dict:
     """Device time per call (torch.profiler, cold L2) of spmm_ell at the
     blocked-sparse path's other ELL shapes (the SpMM suite's uniform class
     at k = 8 and 64, block-CG's ELL at k = 8) and of spgemm_bsr at the
-    SpGEMM suite's five cases, bs 8.  ``--sparse-shapes`` runs only this,
-    so that a copy of this script in an older tree times its kernels."""
+    SpGEMM suite's five cases, bs 8; and each sparse kernel's device time
+    and launches summed over one run of phase 2b's path (warm, as the
+    path runs: ``path <kernel>`` keys).
+
+    ``--sparse-shapes`` runs only this.  It is the A/B hook for redesigns
+    of these kernels: copy this script into a checkout of an older commit
+    and run it there and here in one call (old, new, new, old), so that
+    both trees' kernels are timed at the same shapes on the same card."""
     from repro_torch import sparse as S
     from repro_torch.kernels import spgemm as spgemm_k
     from repro_torch.kernels import spmm as spmm_k
@@ -540,6 +599,11 @@ def time_sparse_shapes(torch, scrub) -> dict:
         out[f"spgemm_bsr {case}"] = kernel_ms(
             torch, lambda: spgemm_k.spgemm_bsr(*args, ncols=SPGEMM_N), 20,
             "spgemm_bsr_kernel", scrub)
+    path = path_kernel_device_ms(
+        torch, lambda: run_sparse_path(torch, inp, say=lambda *_: None),
+        SPARSE_KERNELS)
+    for name, (ms, n) in path.items():
+        out[f"path {name}"] = {"ms": ms, "launches": n}
     return out
 
 
@@ -571,11 +635,14 @@ def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
     before = spmm_k.spmm_ell.launches
     spmm_k.spmm_ell(vals, cols, x_as)
     rec["launches_per_call"] = spmm_k.spmm_ell.launches - before
-    part = spmm_k.ell_partition(n, vals.shape[1], n, k,
-                                torch.cuda.get_device_properties(
-                                    dev).multi_processor_count)
-    rec["ctas"] = part.grid(n, k)[0] * part.grid(n, k)[1]
-    rec["chunks"] = part.nchunks
+    grids = launch_grids(torch, lambda: spmm_k.spmm_ell(vals, cols, x_as),
+                         "spmm_ell_kernel")
+    rec["ctas"] = sum(int(np.prod(g)) for g in grids) if grids else None
+    part = spmm_k._ell_plan(n, vals.shape[1], n, k, vals.device)
+    log(f"spmm_ell timed: n={n} width {vals.shape[1]} k={k}, traced grids "
+        f"{grids}; the wrapper's plan (derived, not measured): "
+        f"{part.rows} rows a CTA, X in {part.nchunks(n)} chunks of "
+        f"{part.chunk} rows")
 
     # spmm_bsr: the SpGEMM suite's clustered 0.2 operand times k = 64.  Its
     # live blocks are dense (normal draws), so the stored entries are the
@@ -620,12 +687,14 @@ def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         (a.nblocks + b.nblocks + plan.nc) * bs * bs * 4,
         2.0 * plan.npairs * bs ** 3)
-    span = spgemm_k.spgemm_span(bs)
-    rec["ctas"] = plan.nbrows * -(-plan.nbcols // (spgemm_k.SPGEMM_WARPS
-                                                   * span))
+    grids = launch_grids(
+        torch, lambda: spgemm_k.spgemm_bsr(*args, ncols=ncols),
+        "spgemm_bsr_kernel")
+    rec["ctas"] = sum(int(np.prod(g)) for g in grids) if grids else None
     log(f"spgemm_bsr timed: {plan.npairs} pairs, {plan.nc} output blocks, "
-        f"{2.0 * plan.npairs * bs ** 3 / 1e6:.1f} MFLOP, {rec['ctas']} CTAs "
-        f"of {spgemm_k.SPGEMM_WARPS} warps ({span} block-columns a warp)")
+        f"{2.0 * plan.npairs * bs ** 3 / 1e6:.1f} MFLOP, traced grids "
+        f"{grids} of {spgemm_k.SPGEMM_WARPS} warps (spgemm_span: "
+        f"{spgemm_k.spgemm_span(bs)} block-columns a warp, derived)")
     return {"spmm_ell": lambda: spmm_k.spmm_ell(vals, cols, x_as),
             "spmm_bsr": lambda: spmm_k.spmm_bsr(bv, bc, br, x_bsr),
             "spgemm_bsr": lambda: spgemm_k.spgemm_bsr(*args, ncols=ncols)}
@@ -1160,7 +1229,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--sparse-shapes"]:
-        print(json.dumps(time_sparse_shapes(torch, scrub_buffer(torch))))
+        inp = sparse_inputs()
+        run_sparse_path(torch, inp, say=lambda *_: None)
+        print(json.dumps(time_sparse_shapes(torch, scrub_buffer(torch),
+                                            inp)))
         return 0
 
     import repro_torch.core as C
@@ -1520,11 +1592,15 @@ def main() -> int:
 
     timed_sparse = time_sparse_kernels(torch, sparse_in, csr, ell, kernels,
                                        cold_ms, csr_tensor)
-    shapes = time_sparse_shapes(torch, scrub)
+    shapes = time_sparse_shapes(torch, scrub, sparse_in)
     kernels["spmm_ell"]["path_kernel_ms"] = {
         k: v for k, v in shapes.items() if k.startswith("spmm_ell")}
     kernels["spgemm_bsr"]["cases_kernel_ms"] = {
         k: v for k, v in shapes.items() if k.startswith("spgemm_bsr")}
+    for name in SPARSE_KERNELS:
+        rec = shapes[f"path {name}"]
+        kernels[name]["path_device_ms"] = rec["ms"]
+        kernels[name]["path_traced_launches"] = rec["launches"]
     timed_attn, lens_prefix = time_attention_kernels(torch, kernels,
                                                      cold_ms)
 

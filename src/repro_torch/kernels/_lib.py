@@ -58,7 +58,7 @@ _SIGNATURES = {
     "fft_stages_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
     "spmm_ell_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _P),
+                        _P),
     "spmm_bsr_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "spgemm_bsr_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _P),

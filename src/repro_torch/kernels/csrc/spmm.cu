@@ -44,8 +44,8 @@
 // (one CTA of 80 rows per SM at mod2as).  Where a CTA's stored entries
 // are fewer than X's rows (each staged row would serve less than one
 // entry; the SpMM suite's uniform class, 16 a row at n = 1024), nothing is
-// staged and every entry gathers its row of X from global memory, up to
-// eight loads in flight.
+// staged and every entry, padding included, gathers its row of X from
+// global memory, up to sixteen loads in flight.
 //
 // spmm_bsr_kernel replaces src/repro/kernels/spmm.py:91 (spmm_bsr_kernel),
 // a recorded loop over one block-row's live blocks with a (bs, bs) x
@@ -239,7 +239,9 @@ __device__ __forceinline__ float2 ell_entry(const EllArgs& a, int row,
 // ell_partition), so that a thread may take 80 or 128 registers.
 // GATHER: the instantiation for a.nchunks == 0 (X's rows gathered from
 // global memory); the others never take that path, which keeps it out of
-// their registers.
+// their registers.  It has no chunks to wait for and no padding scan: a
+// row's few entries are all added (padding adds 0 * X[0, :]), so its
+// dependent global reads are the window and one group of X's rows.
 template <int CPL, int RPW, bool GATHER>
 __global__ void __launch_bounds__(RPW == 4 ? 672 : 512)
     spmm_ell_kernel(const EllArgs a) {
@@ -260,7 +262,7 @@ __global__ void __launch_bounds__(RPW == 4 ? 672 : 512)
   // full[b]: chunk buffer b holds its chunk; empty[b]: every walking warp
   // is done with it
   __shared__ uint64_t full[2], empty[2];
-  if (threadIdx.x == 0) {
+  if (!GATHER && threadIdx.x == 0) {
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -274,7 +276,7 @@ __global__ void __launch_bounds__(RPW == 4 ? 672 : 512)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if (!GATHER) __syncthreads();
   if (warp == walkers) {  // the producer: chunk ch into buffer ch % nbuf
     for (int ch = 0; ch < a.nchunks; ++ch) {
       const int b = ch % a.nbuf;
@@ -291,9 +293,9 @@ __global__ void __launch_bounds__(RPW == 4 ? 672 : 512)
   bool fin = true;
 #pragma unroll
   for (int t = 0; t < CPL; ++t)
-    if (act && lane * CPL + t < pw)
+    if (!GATHER && act && lane * CPL + t < pw)
       fin &= isfinite(__ldg(a.x + p0 + lane * CPL + t));
-  const bool x0fin = __all_sync(FULL, fin);
+  const bool x0fin = !GATHER && __all_sync(FULL, fin);
 
   // per row: where its walk ends (the width, less the trailing padding
   // where X[0, :] is finite), the next entry to take, the first entry of
@@ -386,7 +388,7 @@ __global__ void __launch_bounds__(RPW == 4 ? 672 : 512)
             }
             if (j < jl) ell_add<CPL>(win[j], xrow, a.stride, acc[s]);
           } else if (GATHER) {  // nothing staged: gather, G at a time
-            constexpr int G = RPW == 4 ? 4 : 8;  // registers: 4 rows a warp
+            constexpr int G = RPW == 4 ? 4 : 16;  // registers: 4 rows a warp
             const float* xg = a.x + p0 + lane * CPL;
             const int nv = min(CPL, pw - lane * CPL);
             for (; j + G <= jl; j += G)
@@ -414,7 +416,7 @@ __global__ void __launch_bounds__(RPW == 4 ? 672 : 512)
       }
     }
     __syncwarp();  // the warp is done with buffer b
-    if (lane == 0)
+    if (!GATHER && lane == 0)
       asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                        smem_u32(empty + b))
                    : "memory");
@@ -447,8 +449,9 @@ int launch_ell(const EllArgs& a, int nwarps, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// BS > 0: a compiled block edge (a multiple of 8); BS == 0: the edge is
-// the argument bs (1..64), shared memory sized at launch.
+// BS > 0: a compiled block edge (a multiple of 8), its tiles in static
+// shared memory; BS == 0: the edge is the argument bs (1..64), shared
+// memory sized at launch.
 template <int BS>
 __global__ void __launch_bounds__(BSR_THREADS)
     spmm_bsr_kernel(const float* __restrict__ values,
@@ -458,9 +461,10 @@ __global__ void __launch_bounds__(BSR_THREADS)
   constexpr int ROWS_PER_PASS = BSR_THREADS / BSR_PANEL;           // 8
   constexpr int RPT = (BS ? BS : BSR_MAX) / ROWS_PER_PASS;         // <= 8
   const int bs = BS ? BS : bs_arg;
+  __shared__ float blk_s[BS ? BS * BS : 1], xs_s[BS ? BS * BSR_PANEL : 1];
   extern __shared__ __align__(16) float bsm[];
-  float* blk = bsm;            // (bs, bs)
-  float* xs = bsm + bs * bs;   // (bs, BSR_PANEL)
+  float* blk = BS ? blk_s : bsm;           // (bs, bs)
+  float* xs = BS ? xs_s : bsm + bs * bs;   // (bs, BSR_PANEL)
   const int brow = blockIdx.x;
   const int c0 = blockIdx.y * BSR_PANEL;
   const int tx = threadIdx.x % BSR_PANEL;
@@ -506,7 +510,8 @@ int launch_bsr(const void* values, const void* cols, const void* rowp,
                const void* x, void* y, int nbrows, int bs, int k,
                cudaStream_t stream) {
   const dim3 grid(nbrows, (k + BSR_PANEL - 1) / BSR_PANEL);
-  const size_t bytes = sizeof(float) * (size_t)bs * (bs + BSR_PANEL);
+  const size_t bytes =
+      BS ? 0 : sizeof(float) * (size_t)bs * (bs + BSR_PANEL);
   spmm_bsr_kernel<BS><<<grid, BSR_THREADS, bytes, stream>>>(
       static_cast<const float*>(values), static_cast<const int*>(cols),
       static_cast<const int*>(rowp), static_cast<const float*>(x),
@@ -517,18 +522,26 @@ int launch_bsr(const void* values, const void* cols, const void* rowp,
 }  // namespace
 
 // cpl: columns a lane owns (1: panels of 32, 2: panels of 64); rpw: rows a
-// warp walks (1 or 4); nwarps: walking warps (the CTA has one more); the
-// rest as kernels/spmm.py ell_partition gives it.
+// warp walks (1 or 4); nwarps: walking warps (the CTA has one more); chunk:
+// rows of X a chunk stages (0: none, every entry gathers its row of X), as
+// kernels/spmm.py ell_partition gives them.  The chunk count, the buffers
+// and the staged rows' stride follow from these here, as EllPartition's
+// methods work them out for its shared-memory budget.
 extern "C" int spmm_ell_launch(const void* values, const void* cols,
                                const void* x, void* y, int nrows, int width,
                                int n, int k, int cpl, int rpw, int nwarps,
-                               int chunk, int nchunks, int nbuf, int stride,
-                               void* stream) {
+                               int chunk, void* stream) {
+  if (cpl < 1 || cpl > 2 || nwarps < 1 || chunk < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pw = k < 32 * cpl ? k : 32 * cpl;
+  const int nchunks = chunk ? (n + chunk - 1) / chunk : 0;
   EllArgs a{static_cast<const float*>(values), static_cast<const int*>(cols),
             static_cast<const float*>(x), static_cast<float*>(y),
-            nrows, width, n, k, chunk, nchunks, nbuf, stride, false};
-  // one panel that is all of X's columns: a chunk is a contiguous block
-  a.vec = k <= 32 * cpl && k % 4 == 0 && stride == k &&
+            nrows, width, n, k, chunk, nchunks, nchunks > 1 ? 2 : 1,
+            cpl * ((pw + cpl - 1) / cpl), false};
+  // one panel that is all of X's columns (k % 4 == 0 makes the stride k):
+  // a chunk is a contiguous block
+  a.vec = k <= 32 * cpl && k % 4 == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool g = nchunks == 0;

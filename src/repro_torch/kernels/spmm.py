@@ -47,16 +47,15 @@ ELL_WIN = 64
 class EllPartition:
     """How ``spmm_ell_kernel`` cuts one call: CTAs of ``nwarps`` walking
     warps (and one that copies X), each walking ``rpw`` rows, a lane owning
-    ``cpl`` columns of a panel of ``32 * cpl``; X swept in ``nchunks``
-    chunks of ``chunk`` rows through ``nbuf`` shared-memory buffers of
-    ``stride`` floats a row."""
+    ``cpl`` columns of a panel of ``32 * cpl``; X swept in chunks of
+    ``chunk`` rows (0: nothing staged, every entry gathers its row of X).
+    Only these four reach the kernel: ``csrc/spmm.cu`` spmm_ell_launch
+    works out the chunk count, the buffers and the staged rows' stride
+    from them as the methods below do."""
     cpl: int
     rpw: int
     nwarps: int
     chunk: int
-    nchunks: int
-    nbuf: int
-    stride: int
 
     @property
     def rows(self) -> int:
@@ -68,9 +67,21 @@ class EllPartition:
         """Columns of X per CTA."""
         return 32 * self.cpl
 
-    @property
-    def smem_bytes(self) -> int:
-        return 4 * self.nbuf * self.chunk * self.stride \
+    def nchunks(self, n: int) -> int:
+        """Chunks of X's ``n`` rows (0 where nothing is staged)."""
+        return -(-n // self.chunk) if self.chunk else 0
+
+    def nbuf(self, n: int) -> int:
+        """Chunk buffers: two where X takes more than one chunk."""
+        return 2 if self.nchunks(n) > 1 else 1
+
+    def stride(self, k: int) -> int:
+        """Floats per staged row of X: the panel's width, padded to
+        ``cpl``."""
+        return self.cpl * -(-min(self.panel, k) // self.cpl)
+
+    def smem_bytes(self, n: int, k: int) -> int:
+        return 4 * self.nbuf(n) * self.chunk * self.stride(k) \
             + 8 * self.rows * ELL_WIN
 
     def grid(self, nrows: int, k: int) -> tuple[int, int]:
@@ -90,28 +101,25 @@ def ell_partition(nrows: int, width: int, n: int, k: int, sms: int
     shared memory in one chunk if it fits beside the row windows, else in
     two buffers of as many rows as fit; where a tile's stored entries are
     fewer than X's rows (a staged row would serve less than one entry), in
-    no chunk at all (``chunk == nchunks == 0``): every entry gathers its
-    row from global memory."""
+    no chunk at all (``chunk == 0``): every entry gathers its row from
+    global memory."""
     if min(nrows, width, n, k) < 1 or sms < 1:
         raise ValueError(f"ell_partition: nrows {nrows}, width {width}, "
                          f"n {n}, k {k}, sms {sms}")
     cpl = 1 if k <= 32 else 2
-    pw = min(32 * cpl, k)
-    stride = cpl * -(-pw // cpl)
     npanels = -(-k // (32 * cpl))
     rpw = 4 if nrows > 15 * sms else 1
     nwarps = max(1, min(20 if rpw == 4 else 15,
                         -(-nrows * npanels // (rpw * sms))))
-    # the row windows, and 64 bytes for the kernel's static barriers
-    budget = SMEM_PER_CTA - 8 * nwarps * rpw * ELL_WIN - 64
-    row_bytes = 4 * stride
+    gather = EllPartition(cpl, rpw, nwarps, 0)
     if nwarps * rpw * width < n:
-        return EllPartition(cpl, rpw, nwarps, 0, 0, 1, stride)
+        return gather
+    # the row windows, and 64 bytes for the kernel's static barriers
+    budget = SMEM_PER_CTA - gather.smem_bytes(n, k) - 64
+    row_bytes = 4 * gather.stride(k)
     if n * row_bytes <= budget:
-        chunk, nbuf = n, 1
-    else:
-        chunk, nbuf = budget // (2 * row_bytes), 2
-    return EllPartition(cpl, rpw, nwarps, chunk, -(-n // chunk), nbuf, stride)
+        return EllPartition(cpl, rpw, nwarps, n)
+    return EllPartition(cpl, rpw, nwarps, budget // (2 * row_bytes))
 
 
 @functools.lru_cache(maxsize=64)
@@ -148,7 +156,7 @@ def spmm_ell(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor
     code = _lib.lib().spmm_ell_launch(
         values.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
         nrows, width, n, k, part.cpl, part.rpw, part.nwarps, part.chunk,
-        part.nchunks, part.nbuf, part.stride, _lib.stream_of(values))
+        _lib.stream_of(values))
     _lib.check(code, "spmm_ell")
     spmm_ell.launches += 1
     return y

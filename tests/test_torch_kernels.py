@@ -585,24 +585,24 @@ def _sorted_ell(n):
 def _ell_walk_model(values, cols, x, part):
     """The walk of ``csrc/spmm.cu`` spmm_ell_kernel for each row: a pointer
     over the stored entries, windows of ``ELL_WIN`` of them, X swept in
-    ``part.nchunks`` chunks of ``part.chunk`` rows; in each chunk a row
+    ``part.nchunks(n)`` chunks of ``part.chunk`` rows; in each chunk a row
     takes its entries from the pointer on up to the first one at or past
-    the chunk's end (the last chunk takes all that are left).  Where X[0, :]
-    is finite, padding (value 0, column 0) is passed over: it adds exactly
-    0.  Returns the product (f32 sums in the kernel's order), how many
+    the chunk's end (the last chunk takes all that are left).  Where X is
+    staged and X[0, :] is finite, padding (value 0, column 0) is passed
+    over: it adds exactly 0.  Returns the product (f32 sums in the kernel's order), how many
     times each stored entry was taken, and how many were read from the
     staged chunk."""
     win = spmm_k.ELL_WIN
     nrows, width = values.shape
     n, k = x.shape
-    x0fin = bool(np.isfinite(x[0]).all())
+    x0fin = bool(np.isfinite(x[0]).all()) and part.chunk > 0
     y = np.zeros((nrows, k), np.float32)
     taken = np.zeros((nrows, width), np.int64)
     staged = 0
     for i in range(nrows):
         ptr = wb = 0
         acc = np.zeros(k, np.float32)
-        passes = max(part.nchunks, 1)     # no chunks: gather every row
+        passes = max(part.nchunks(n), 1)  # no chunks: gather every row
         for ch in range(passes):
             lo = ch * part.chunk
             end = min(n, lo + part.chunk)
@@ -667,14 +667,12 @@ def test_ell_walk_model_takes_every_entry_once(kind, chunk):
     x = _randn(rng, (n, 3))
     part = spmm_k.ell_partition(vals.shape[0], vals.shape[1], n, 3, 132)
     if chunk is not None:
-        part = spmm_k.EllPartition(part.cpl, part.rpw, part.nwarps, chunk,
-                                   -(-n // chunk) if chunk else 0, 2,
-                                   part.stride)
+        part = spmm_k.EllPartition(part.cpl, part.rpw, part.nwarps, chunk)
     y, taken, staged = _ell_walk_model(vals, cols, x, part)
     np.testing.assert_array_equal(taken, 1)
     want = spmm_k.spmm_ell(*map(torch.as_tensor, (vals, cols, x)))
     np.testing.assert_allclose(y, want.numpy(), rtol=1e-4, atol=1e-5)
-    if kind == "sorted" and part.nchunks:
+    if kind == "sorted" and part.chunk:
         assert staged == int(_sorted_ell(n)[2].sum())
 
 
@@ -685,7 +683,7 @@ def test_ell_walk_model_keeps_nan_from_x0_in_padded_rows():
     vals, cols, n = _ell_case("sorted", rng)
     x = _randn(rng, (n, 4))
     x[0, 1] = np.inf
-    part = spmm_k.EllPartition(1, 1, 1, 16, -(-n // 16), 2, 4)
+    part = spmm_k.EllPartition(1, 1, 1, 16)
     y, _, _ = _ell_walk_model(vals, cols, x, part)
     want = spmm_k.spmm_ell(*map(torch.as_tensor, (vals, cols, x))).numpy()
     np.testing.assert_array_equal(np.isnan(y), np.isnan(want))
@@ -710,15 +708,16 @@ def test_ell_partition_fits_the_card(nrows, width, n, k, sms):
     assert 1 <= part.nwarps <= (20 if part.rpw == 4 else 15)
     assert part.rpw in (1, 4)
     assert part.cpl == (1 if k <= 32 else 2)
-    assert part.stride >= min(k, part.panel) and part.stride % part.cpl == 0
-    assert part.smem_bytes <= spmm_k.SMEM_PER_CTA - 64
+    stride, nchunks = part.stride(k), part.nchunks(n)
+    assert stride >= min(k, part.panel) and stride % part.cpl == 0
+    assert part.smem_bytes(n, k) <= spmm_k.SMEM_PER_CTA - 64
     gather = part.rows * width < n
-    assert (part.chunk, part.nchunks) == (0, 0) if gather else \
-        part.chunk * part.nchunks >= n > part.chunk * (part.nchunks - 1)
-    assert part.nbuf == (1 if part.nchunks <= 1 else 2)
+    assert (part.chunk, nchunks) == (0, 0) if gather else \
+        part.chunk * nchunks >= n > part.chunk * (nchunks - 1)
+    assert part.nbuf(n) == (1 if nchunks <= 1 else 2)
     if (nrows, k, sms) == (10240, 64, 132):
         assert (part.rpw, part.nwarps, tiles) == (4, 20, 128)
-        assert part.nchunks > 1
+        assert nchunks > 1
     if (nrows, width) == (1024, 16):
         assert gather
     if (nrows, width) == (512, 255):
