@@ -10,9 +10,9 @@
    main path's shapes and at ragged ones: spmm_ell also with each row's
    columns shuffled, the SpMM suite's ragged rows, width 1, an inf in
    X[0, :] (NaN in the padded rows) and the same bits from two calls; both
-   BSR kernels at block edges 1, 4, 8, 12, 16, 32 and 64 (and raising
-   above 64); spgemm_bsr at the suite's clustered 0.2 case at bs 32 and
-   bitwise from call to call.
+   BSR kernels at block edges 1, 4, 8, 12, 16, 32 and 64 and at 96 (run on
+   sub-blocks of 48), each bitwise from call to call; spgemm_bsr at the
+   suite's clustered 0.2 case at bs 32.
 3. Run the two paths of the port, each with data made from fixed seeds and
    validated as benchmarks/*.py does, and each with the launch counts set
    to 0 just before it and read just after; every kernel of a path must
@@ -46,10 +46,11 @@
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
    trace (``kernel_ms``); lens at paged decode and at a chunk's prefix;
-   spmm_ell's launches per call, and the CTAs of spmm_ell and spgemm_bsr
+   spmm_ell's launches per call, and the CTAs of the three sparse kernels
    as the trace records their grids; the device time of spmm_ell at the
-   path's other ELL shapes, of spgemm_bsr at the SpGEMM suite's five
-   cases, and of each sparse kernel summed over one run of phase 2b's path
+   path's other ELL shapes, of spmm_bsr at the path's BSR shapes, of
+   spgemm_bsr at the SpGEMM suite's five cases, and of each sparse kernel
+   summed over one run of phase 2b's path
    (also alone with --sparse-shapes, which a copy of this script in a
    checkout of an older commit runs to time that tree's kernels);
    print what ptxas said of the kernels' registers and spills; profile a
@@ -91,9 +92,12 @@ PTXAS_NAMES = ("flash_attention_lens_decode_kernel",
                "flash_attention_tiles_bf16_kernelILi256",
                "flash_attention_tiles_bf16_kernel", "matmul_kernel",
                "spmm_ell_kernel", "spmm_bsr_kernel", "spgemm_bsr_kernel")
-#: BSR block edges phase 1 holds both BSR kernels at: the compiled ones and
-#: edges the kernels take as an argument.
-BSR_EDGES = (1, 4, 8, 12, 16, 32, 64)
+#: Profiler sessions a trace-read measurement tries: a session now and then
+#: records no device event for a kernel that ran.
+TRACE_TRIES = 3
+#: BSR block edges phase 1 holds both BSR kernels at: edges the kernels
+#: run as they are (1..64), and one above that the wrappers re-cut.
+BSR_EDGES = (1, 4, 8, 12, 16, 32, 64, 96)
 
 
 def log(*parts) -> None:
@@ -137,29 +141,33 @@ def time_ms(torch, fn, iters: int, scrub) -> float:
 def kernel_ms(torch, fn, iters: int, kernel: str, scrub):
     """Device time per call of ``fn`` spent in CUDA kernels whose name holds
     ``kernel``, from a torch.profiler trace, with a cold L2 as in
-    :func:`time_ms`; None if the trace shows no device time for it.  Unlike
-    :func:`time_ms`, this leaves out the gaps in which the device waits for
-    the host to launch."""
+    :func:`time_ms`; None if no trace of TRACE_TRIES shows device time for
+    it.  Unlike :func:`time_ms`, this leaves out the gaps in which the
+    device waits for the host to launch."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            scrub.sum()
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if kernel in e.key)
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                scrub.sum()
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if kernel in e.key)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
 
 
 def launch_grids(torch, fn, kernel: str) -> list:
     """The grid of each launch of a CUDA kernel whose name holds ``kernel``
     in one call of ``fn``, as the torch.profiler trace records it (kineto's
     kernel events carry their launch's grid and block; the trace is read
-    back from a temporary file); empty if the trace shows no such launch."""
+    back from a temporary file); empty if no trace of TRACE_TRIES shows
+    such a launch."""
     import os
     import tempfile
 
@@ -167,20 +175,24 @@ def launch_grids(torch, fn, kernel: str) -> list:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        events = json.loads(Path(path).read_text())["traceEvents"]
-    finally:
-        os.unlink(path)
-    return [e["args"]["grid"] for e in events
-            if e.get("cat") == "kernel" and kernel in e.get("name", "")
-            and "grid" in e.get("args", {})]
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            events = json.loads(Path(path).read_text())["traceEvents"]
+        finally:
+            os.unlink(path)
+        grids = [e["args"]["grid"] for e in events
+                 if e.get("cat") == "kernel" and kernel in e.get("name", "")
+                 and "grid" in e.get("args", {})]
+        if grids:
+            return grids
+    return []
 
 
 def path_kernel_device_ms(torch, fn, kernels: tuple) -> dict:
@@ -407,6 +419,10 @@ def hold_sparse_kernels(torch, inp, mod2as_ell, kernels) -> None:
             if got[17 * bs:18 * bs].any():
                 raise AssertionError(f"spmm_bsr bs={bs}: empty block-row "
                                      f"not zero")
+            if not torch.equal(spmm_k.spmm_bsr(m.values, m.cols, m.rowp, x),
+                               got):
+                raise AssertionError(f"spmm_bsr bs={bs} k={k}: two calls "
+                                     f"on the same inputs differ")
     empty = random_bsr(S, torch, rng, 4, 4, 8, 0.0)
     before = spmm_k.spmm_bsr.launches
     y = spmm_k.spmm_bsr(empty.values, empty.cols, empty.rowp,
@@ -448,26 +464,6 @@ def hold_sparse_kernels(torch, inp, mod2as_ell, kernels) -> None:
     max_err(torch, spgemm_k.spgemm_bsr(*args, ncols=SPGEMM_N), want, 1e-5,
             1e-5 * max(1.0, float(want.abs().max())),
             "spgemm_bsr clustered 0.2 bs=32")
-    # above the largest edge both wrappers raise, naming it, and launch
-    # nothing
-    big = spmm_k.MAX_BSR_BLOCK + 1
-    bv = torch.zeros((1, big, big), device=dev)
-    bc = torch.zeros(1, dtype=torch.int32, device=dev)
-    br = torch.tensor([0, 1], dtype=torch.int32, device=dev)
-    before = spmm_k.spmm_bsr.launches, spgemm_k.spgemm_bsr.launches
-    for call in (lambda: spmm_k.spmm_bsr(bv, bc, br,
-                                         torch.ones(big, 2, device=dev)),
-                 lambda: spgemm_k.spgemm_bsr(bv, bc, br, bv, bc, br, bc, br,
-                                             ncols=big)):
-        try:
-            call()
-        except ValueError as exc:
-            if str(spmm_k.MAX_BSR_BLOCK) not in str(exc):
-                raise
-        else:
-            raise AssertionError(f"a BSR kernel took block edge {big}")
-    if (spmm_k.spmm_bsr.launches, spgemm_k.spgemm_bsr.launches) != before:
-        raise AssertionError("a BSR wrapper launched above its largest edge")
     # no pairs: A's only live block-column meets an empty block-row of B
     a = np.zeros((32, 32), np.float32)
     a[:8, :8] = 1.0
@@ -567,10 +563,14 @@ SPARSE_KERNELS = ("spmm_ell", "spmm_bsr", "spgemm_bsr")
 def time_sparse_shapes(torch, scrub, inp) -> dict:
     """Device time per call (torch.profiler, cold L2) of spmm_ell at the
     blocked-sparse path's other ELL shapes (the SpMM suite's uniform class
-    at k = 8 and 64, block-CG's ELL at k = 8) and of spgemm_bsr at the
+    at k = 8 and 64, block-CG's ELL at k = 8), of spmm_bsr at the path's
+    BSR shapes (the SpMM suite's blocked class at k = 8 and 64, block-CG's
+    BSR at k = 8), at the timed shape (the SpGEMM suite's clustered 0.2
+    operand at k = 64; also through the wrapper with CUDA events, ``..
+    wrapper_ms``) and at 16 long block-rows, and of spgemm_bsr at the
     SpGEMM suite's five cases, bs 8; and each sparse kernel's device time
-    and launches summed over one run of phase 2b's path (warm, as the
-    path runs: ``path <kernel>`` keys).
+    and launches summed over one run of phase 2b's path (warm, as the path
+    runs: ``path <kernel>`` keys).
 
     ``--sparse-shapes`` runs only this.  It is the A/B hook for redesigns
     of these kernels: copy this script into a checkout of an older commit
@@ -593,6 +593,27 @@ def time_sparse_shapes(torch, scrub, inp) -> dict:
         out[f"spmm_ell {name}"] = kernel_ms(
             torch, lambda: spmm_k.spmm_ell(m.values, m.cols, x), 50,
             "spmm_ell_kernel", scrub)
+    blocked = S.matrix(spmm_classes(sparse, SPMM_N)[1][1], format="bsr")
+    cg = S.matrix(sparse.banded_spd(cn, cbw, seed=cn + cbw).astype(
+        np.float32), format="bsr")
+    timed = S.bsr_from_dense(clustered(SPGEMM_N, 0.2, 1),
+                             block=SPGEMM_BLOCK)
+    # few long block-rows (16 of about 510 blocks): off the path, the shape
+    # for which the kernel splits a row over CTAs
+    long_rows = random_bsr(S, torch, np.random.default_rng(16), 16, 600, 8,
+                           0.85)
+    for name, m, k in (("blocked_k8", blocked, 8),
+                       ("blocked_k64", blocked, 64), ("block-CG_k8", cg, ck),
+                       ("clustered0.2_k64", timed, 64),
+                       ("long_rows_k64", long_rows, 64)):
+        x = torch.randn(m.shape[1], k, device=dev)
+        out[f"spmm_bsr {name}"] = kernel_ms(
+            torch, lambda: spmm_k.spmm_bsr(m.values, m.cols, m.rowp, x), 50,
+            "spmm_bsr_kernel", scrub)
+    x = torch.randn(timed.shape[1], 64, device=dev)
+    out["spmm_bsr clustered0.2_k64 wrapper_ms"] = time_ms(
+        torch, lambda: spmm_k.spmm_bsr(timed.values, timed.cols, timed.rowp,
+                                       x), 50, scrub)
     for case, A, B in spgemm_cases(sparse, SPGEMM_N):
         args, _ = spgemm_args(S, torch, S.bsr_from_dense(A, block=8),
                               S.bsr_from_dense(B, block=8))
@@ -667,8 +688,13 @@ def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         m.nnz * 4 + m.nblocks * 4 + br.numel() * 4 + 2 * m.shape[0] * k * 4,
         2.0 * m.nnz * k)
+    grids = launch_grids(torch, lambda: spmm_k.spmm_bsr(bv, bc, br, x_bsr),
+                         "spmm_bsr_kernel")
+    rec["ctas"] = sum(int(np.prod(g)) for g in grids) if grids else None
+    part = spmm_k._bsr_plan(br.numel() - 1, m.nblocks, m.block, k, bv.device)
     log(f"spmm_bsr timed: n={m.shape[0]} bs={m.block} {m.nblocks} blocks "
-        f"k={k}; library call: {note}")
+        f"k={k}, traced grids {grids}; library call: {note}; the wrapper's "
+        f"plan (derived, not measured): {part}")
 
     # spgemm_bsr: the clustered 0.2 A @ B, numeric phase only (the plan is
     # made once on the host).  The library call, torch.sparse CSR @ CSR,
@@ -1595,6 +1621,8 @@ def main() -> int:
     shapes = time_sparse_shapes(torch, scrub, sparse_in)
     kernels["spmm_ell"]["path_kernel_ms"] = {
         k: v for k, v in shapes.items() if k.startswith("spmm_ell")}
+    kernels["spmm_bsr"]["shapes_kernel_ms"] = {
+        k: v for k, v in shapes.items() if k.startswith("spmm_bsr")}
     kernels["spgemm_bsr"]["cases_kernel_ms"] = {
         k: v for k, v in shapes.items() if k.startswith("spgemm_bsr")}
     for name in SPARSE_KERNELS:

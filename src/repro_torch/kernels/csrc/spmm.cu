@@ -49,13 +49,36 @@
 //
 // spmm_bsr_kernel replaces src/repro/kernels/spmm.py:91 (spmm_bsr_kernel),
 // a recorded loop over one block-row's live blocks with a (bs, bs) x
-// (bs, bn) product per block.  Here a CTA owns one block-row and a panel
-// of 32 columns of X.  For each live block it stages the bs x bs tile and
-// the matching bs x 32 strip of X in shared memory; each thread keeps up
-// to 8 outputs of the (bs, 32) output tile in registers (rows ty, ty + 8,
-// ...).  Block edges 8, 16, 32 and 64 are compiled in; any other edge up
-// to 64 runs the same kernel with bs as an argument.  Ragged k is masked;
-// a block-row with no live blocks writes zeros.
+// (bs, bn) product per block.  Carried over block by block, that loop is a
+// chain of dependent memory round trips on this card (one block, two CTA
+// barriers, the next block).  Here the unit of work is (block-row, panel
+// of X's columns, part of the row's blocks):
+//
+//   CTA  = (block-row, panel, one of `ctas` parts of the row's blocks);
+//          the row's blocks are cut into ctas * warps contiguous ranges,
+//          one a warp, in order (kernels/spmm.py bsr_partition sizes the
+//          panel, the lanes, the warps and the parts)
+//   warp = a ring of BSR_STAGES stages in shared memory: blocks j + 1 ..
+//          j + 3 of its range are in flight (cp.async: 16-byte pieces
+//          where bs, k and the panel are multiples of 4 and the operands
+//          16-byte aligned, else 4-byte) while block j is multiplied, with
+//          no barrier but the warp's own; its (bs, panel) partial in
+//          registers, a lane owning RPL rows x 2 columns
+//   then   the warps' partials are added in shared memory in warp order;
+//          with ctas > 1 each CTA's sum goes to a scratch slot and the
+//          unit's last CTA (an integer ticket) adds the slots in CTA order
+//          and writes y
+//
+// The panel is shaped from k: at most 64 columns and at most 1024 / bs,
+// so that a lane keeps at most 32 outputs; at k <= 32 the panel is k
+// itself and the lanes cover (row, column) pairs of the bs x k tile, so
+// that none idles at k = 8.  Each output is an FMA chain over t in order,
+// block by block in p order, the ranges added in order: y is the same bit
+// for bit from run to run, with no float atomics.  A block's rows are
+// staged with a stride that puts the lanes' rows on distinct banks.
+// Ragged bs, k and panels are masked; an empty block-row writes zeros.
+// Edges 1..64 run here; kernels/spmm.py re-cuts a larger edge into
+// sub-blocks of a divisor first.
 //
 // Bound on this card.  ELL: each stored nonzero is read once (8 bytes) and
 // drives k FMAs on a row of X: at mod2as (n = 10240, width 675, 6.0 M
@@ -63,11 +86,14 @@
 // is held by shared memory instead: every stored entry reads k * 4 bytes
 // of its staged X row (1.5 GB a call at 128 bytes a clock an SM, about 2.5
 // clocks an entry with the window's reads), and each CTA copies all of X
-// once from L2 (2.6 MB per SM).  BSR: 8 bytes of index per block and 4
-// bytes per stored value, each driving k FMAs; at the SpGEMM suite's
-// clustered operand (n = 2048, bs 8, 13 k blocks) and k = 64 it is
-// bytes-bound at a few microseconds and latency-bound in practice (one CTA
-// per block-row and k panel, 512 CTAs).
+// once from L2 (2.6 MB per SM).  BSR: 4 bytes per stored value and 4 of
+// index per block, each value driving k FMAs; at the SpGEMM suite's
+// clustered 0.2 operand (n = 2048, bs 8, 13,052 blocks) and k = 64 the
+// bound is its 107 MFLOP at the f32 FMA rate, 1.6 us.  This design is held
+// by L2 instead: every block reads its bs x k strip of X there (2 KB, 27 MB
+// a call), and a warp's first block waits on three dependent loads (rowp,
+// cols, the block).  So it stays on the FMA units in f32: TF32 mma would
+// loosen the sums and buys nothing this far from the FMA peak.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -77,9 +103,11 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int ELL_WIN = 64;  // entries of a row in shared memory at once
 constexpr uint32_t ELL_PIECE = 16384;  // bytes of X a bulk copy moves
-constexpr int BSR_THREADS = 256;
-constexpr int BSR_PANEL = 32;  // columns of X per CTA (one warp wide)
-constexpr int BSR_MAX = 64;    // the largest block edge
+constexpr int BSR_MAX = 64;         // the largest block edge
+constexpr int BSR_MAX_PANEL = 64;   // the widest panel of X's columns
+constexpr int BSR_MAX_WARPS = 8;    // warps a CTA
+constexpr int BSR_STAGES = 4;       // a warp's ring: 3 blocks in flight
+constexpr int SMEM_PER_CTA = 232448;
 
 struct EllArgs {
   const float* values;  // (nrows, width)
@@ -449,74 +477,256 @@ int launch_ell(const EllArgs& a, int nwarps, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// BS > 0: a compiled block edge (a multiple of 8), its tiles in static
-// shared memory; BS == 0: the edge is the argument bs (1..64), shared
-// memory sized at launch.
-template <int BS>
-__global__ void __launch_bounds__(BSR_THREADS)
-    spmm_bsr_kernel(const float* __restrict__ values,
-                    const int* __restrict__ cols, const int* __restrict__ rowp,
-                    const float* __restrict__ x, float* __restrict__ y,
-                    int bs_arg, int k) {
-  constexpr int ROWS_PER_PASS = BSR_THREADS / BSR_PANEL;           // 8
-  constexpr int RPT = (BS ? BS : BSR_MAX) / ROWS_PER_PASS;         // <= 8
-  const int bs = BS ? BS : bs_arg;
-  __shared__ float blk_s[BS ? BS * BS : 1], xs_s[BS ? BS * BSR_PANEL : 1];
-  extern __shared__ __align__(16) float bsm[];
-  float* blk = BS ? blk_s : bsm;           // (bs, bs)
-  float* xs = BS ? xs_s : bsm + bs * bs;   // (bs, BSR_PANEL)
-  const int brow = blockIdx.x;
-  const int c0 = blockIdx.y * BSR_PANEL;
-  const int tx = threadIdx.x % BSR_PANEL;
-  const int ty = threadIdx.x / BSR_PANEL;
-  float acc[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-  const int start = __ldg(rowp + brow);
-  const int stop = __ldg(rowp + brow + 1);
-  for (int p = start; p < stop; ++p) {
-    const float* vp = values + (size_t)p * bs * bs;
-    for (int e = threadIdx.x; e < bs * bs; e += BSR_THREADS)
-      blk[e] = __ldg(vp + e);
-    const float* xp = x + (size_t)__ldg(cols + p) * bs * k;
-    for (int e = threadIdx.x; e < bs * BSR_PANEL; e += BSR_THREADS) {
-      const int r = e / BSR_PANEL;
-      const int c = c0 + e % BSR_PANEL;
-      xs[e] = c < k ? __ldg(xp + (size_t)r * k + c) : 0.f;
+// ---------------------------------------------------------------------------
+// spmm_bsr
+
+struct BsrArgs {
+  const float* values;  // (nblocks, bs, bs)
+  const int* cols;      // (nblocks,)
+  const int* rowp;      // (nbrows + 1,)
+  const float* x;       // (n, k)
+  float* y;             // (nbrows * bs, k)
+  float* partial;  // ctas > 1: (nbrows * npanels * ctas, bs * panel) slots
+  int* tickets;    // ctas > 1: (nbrows * npanels,), 0 between launches
+  int nbrows, bs, k;
+  int panel;         // columns of X a unit spans (the last may be narrower)
+  int lc_log2;       // log2 of the lanes across the panel, 2 columns each
+  int warps, ctas;   // warps a CTA; CTAs a (block-row, panel)
+  int vs, xs;        // floats per staged row of a block / of X's strip
+  int vals_floats;   // floats of a stage's block (a multiple of 4)
+  int stage_floats;  // floats of a stage: the block, then X's strip
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A lane's share of a copy of `rows` rows of q pieces each (16 bytes with
+// VEC, else 4): pieces lane, lane + 32, ..., walked as (row, piece) pairs
+// without a division a piece.
+struct Pieces {
+  int r0, u0, dr, du, q;
+};
+
+__device__ __forceinline__ Pieces pieces_of(int q, int lane) {
+  return {lane / q, lane % q, 32 / q, 32 % q, q};
+}
+
+template <bool VEC>
+__device__ __forceinline__ void copy_rows(float* dst, int dstride,
+                                          const float* src, size_t sstride,
+                                          int rows, const Pieces& p) {
+  constexpr int W = VEC ? 4 : 1;
+  for (int r = p.r0, u = p.u0; r < rows;) {
+    if constexpr (VEC)
+      cp_async16(dst + r * dstride + W * u, src + r * sstride + W * u);
+    else
+      cp_async4(dst + r * dstride + u, src + r * sstride + u);
+    r += p.dr;
+    u += p.du;
+    if (u >= p.q) {
+      u -= p.q;
+      ++r;
     }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int i = ty + r * ROWS_PER_PASS;
-      if (BS == 0 && i >= bs) break;
-#pragma unroll
-      for (int t = 0; t < bs; ++t)
-        acc[r] = fmaf(blk[i * bs + t], xs[t * BSR_PANEL + tx], acc[r]);
-    }
-    __syncthreads();
-  }
-  const int col = c0 + tx;
-  if (col >= k) return;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int i = ty + r * ROWS_PER_PASS;
-    if (BS == 0 && i >= bs) break;
-    y[((size_t)brow * bs + i) * k + col] = acc[r];
   }
 }
 
-template <int BS>
-int launch_bsr(const void* values, const void* cols, const void* rowp,
-               const void* x, void* y, int nbrows, int bs, int k,
-               cudaStream_t stream) {
-  const dim3 grid(nbrows, (k + BSR_PANEL - 1) / BSR_PANEL);
-  const size_t bytes =
-      BS ? 0 : sizeof(float) * (size_t)bs * (bs + BSR_PANEL);
-  spmm_bsr_kernel<BS><<<grid, BSR_THREADS, bytes, stream>>>(
-      static_cast<const float*>(values), static_cast<const int*>(cols),
-      static_cast<const int*>(rowp), static_cast<const float*>(x),
-      static_cast<float*>(y), bs, k);
+// RPL: rows of the output tile a lane owns (rows lr, lr + lrs, ...; a
+// power of two, at least ceil(bs / lrs)); VEC: 16-byte copies and float4
+// reads of a block's rows.
+template <int RPL, bool VEC>
+__global__ void __launch_bounds__(BSR_MAX_WARPS * 32)
+    spmm_bsr_kernel(const BsrArgs a) {
+  extern __shared__ __align__(16) float bsm[];
+  __shared__ int ticket;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bs = a.bs;
+  const int brow = blockIdx.x / a.ctas;
+  const int part = blockIdx.x - brow * a.ctas;
+  const int p0 = blockIdx.y * a.panel;
+  const int pw = min(a.panel, a.k - p0);
+  const size_t ring_floats = (size_t)BSR_STAGES * a.stage_floats;
+  float* ring = bsm + warp * ring_floats;
+
+  // the warp's range [lo, lo + nblk) of the block-row's blocks: the row
+  // cut evenly over its ctas * warps warps, in order
+  const int start = __ldg(a.rowp + brow);
+  const long long len = __ldg(a.rowp + brow + 1) - start;
+  const int nw = a.ctas * a.warps;
+  const int g = part * a.warps + warp;
+  const int lo = start + static_cast<int>(len * g / nw);
+  const int nblk = start + static_cast<int>(len * (g + 1) / nw) - lo;
+
+  // the lane's outputs: rows lr + r * lrs (read clamped into the block)
+  // and columns c, c + 1 of the panel
+  const int lc = lane & ((1 << a.lc_log2) - 1);
+  const int lr = lane >> a.lc_log2;
+  const int lrs = 32 >> a.lc_log2;
+  const int c = 2 * lc;
+  int vrow[RPL];
+  float acc[RPL][2];
+#pragma unroll
+  for (int r = 0; r < RPL; ++r) {
+    vrow[r] = min(lr + r * lrs, bs - 1) * a.vs;
+    acc[r][0] = acc[r][1] = 0.f;
+  }
+
+  // block lo + j into stage j % BSR_STAGES (j counts up by one a call,
+  // uniform over the warp); its block-column from a window of 32 of the
+  // range's columns, one a lane
+  constexpr int W = VEC ? 4 : 1;  // floats a copied piece
+  const Pieces vp = pieces_of(bs / W, lane), xp = pieces_of(pw / W, lane);
+  int cwin = 0, cbase = -32;
+  auto issue = [&](int j) {
+    if (j >= nblk) return;
+    if (j - cbase >= 32) {
+      cbase = j;
+      cwin = j + lane < nblk ? __ldg(a.cols + lo + j + lane) : 0;
+    }
+    const int col = __shfl_sync(FULL, cwin, j - cbase);
+    float* vs = ring + (j % BSR_STAGES) * a.stage_floats;
+    copy_rows<VEC>(vs, a.vs, a.values + (size_t)(lo + j) * bs * bs, bs, bs,
+                   vp);
+    copy_rows<VEC>(vs + a.vals_floats, a.xs,
+                   a.x + (size_t)col * bs * a.k + p0, a.k, bs, xp);
+  };
+
+  // one cp.async group a block (empty past the range), so that waiting for
+  // all but the newest BSR_STAGES - 1 groups waits for block j alone
+#pragma unroll
+  for (int j = 0; j < BSR_STAGES - 1; ++j) {
+    issue(j);
+    cp_async_commit();
+  }
+  const int cx = min(c, a.xs - 2);  // the lane's columns, read in bounds
+  for (int j = 0; j < nblk; ++j) {
+    issue(j + BSR_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<BSR_STAGES - 1>();
+    __syncwarp();  // every lane's pieces of block j have landed
+    const float* vs = ring + (j % BSR_STAGES) * a.stage_floats;
+    const float* xs = vs + a.vals_floats + cx;
+    if constexpr (VEC) {
+      for (int t = 0; t < bs; t += 4) {
+        float2 xv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          xv[u] = *reinterpret_cast<const float2*>(xs + (t + u) * a.xs);
+#pragma unroll
+        for (int r = 0; r < RPL; ++r) {
+          const float4 v = *reinterpret_cast<const float4*>(vs + vrow[r] + t);
+          acc[r][0] = fmaf(v.x, xv[0].x, acc[r][0]);
+          acc[r][1] = fmaf(v.x, xv[0].y, acc[r][1]);
+          acc[r][0] = fmaf(v.y, xv[1].x, acc[r][0]);
+          acc[r][1] = fmaf(v.y, xv[1].y, acc[r][1]);
+          acc[r][0] = fmaf(v.z, xv[2].x, acc[r][0]);
+          acc[r][1] = fmaf(v.z, xv[2].y, acc[r][1]);
+          acc[r][0] = fmaf(v.w, xv[3].x, acc[r][0]);
+          acc[r][1] = fmaf(v.w, xv[3].y, acc[r][1]);
+        }
+      }
+    } else {
+      for (int t = 0; t < bs; ++t) {
+        const float2 xv = *reinterpret_cast<const float2*>(xs + t * a.xs);
+#pragma unroll
+        for (int r = 0; r < RPL; ++r) {
+          const float v = vs[vrow[r] + t];
+          acc[r][0] = fmaf(v, xv.x, acc[r][0]);
+          acc[r][1] = fmaf(v, xv.y, acc[r][1]);
+        }
+      }
+    }
+    __syncwarp();  // the warp is done with block j's stage
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // the warp's partial, (bs, pw) row-major, at the start of its ring; then
+  // the CTA's sum, warp by warp in order
+#pragma unroll
+  for (int r = 0; r < RPL; ++r) {
+    const int i = lr + r * lrs;
+    if (i < bs && c < pw) ring[i * pw + c] = acc[r][0];
+    if (i < bs && c + 1 < pw) ring[i * pw + c + 1] = acc[r][1];
+  }
+  __syncthreads();
+  const int tile = bs * pw;
+  const int unit = brow * gridDim.y + blockIdx.y;
+  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < a.warps; ++w) s += bsm[w * ring_floats + e];
+    if (a.ctas == 1) {
+      const int i = e / pw;
+      a.y[((size_t)brow * bs + i) * a.k + p0 + (e - i * pw)] = s;
+    } else {
+      a.partial[((size_t)unit * a.ctas + part) * bs * a.panel + e] = s;
+    }
+  }
+  if (a.ctas == 1) return;
+
+  // several parts: the unit's last CTA adds the slots in part order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) ticket = atomicAdd(a.tickets + unit, 1);
+  __syncthreads();
+  if (ticket != a.ctas - 1) return;
+  __threadfence();
+  const float* slots = a.partial + (size_t)unit * a.ctas * bs * a.panel;
+  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+    float s = 0.f;
+    for (int q = 0; q < a.ctas; ++q)
+      s += __ldcg(slots + (size_t)q * bs * a.panel + e);
+    const int i = e / pw;
+    a.y[((size_t)brow * bs + i) * a.k + p0 + (e - i * pw)] = s;
+  }
+  if (threadIdx.x == 0) a.tickets[unit] = 0;  // for the next launch
+}
+
+template <int RPL, bool VEC>
+int launch_bsr(const BsrArgs& a, size_t bytes, cudaStream_t stream) {
+  const dim3 grid(a.nbrows * a.ctas, (a.k + a.panel - 1) / a.panel);
+  auto kernel = spmm_bsr_kernel<RPL, VEC>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, a.warps * 32, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC>
+int launch_bsr_rows(const BsrArgs& a, int rpl, size_t bytes,
+                    cudaStream_t stream) {
+  switch (rpl) {
+    case 1:
+      return launch_bsr<1, VEC>(a, bytes, stream);
+    case 2:
+      return launch_bsr<2, VEC>(a, bytes, stream);
+    case 4:
+      return launch_bsr<4, VEC>(a, bytes, stream);
+    case 8:
+      return launch_bsr<8, VEC>(a, bytes, stream);
+    case 16:
+      return launch_bsr<16, VEC>(a, bytes, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -560,22 +770,45 @@ extern "C" int spmm_ell_launch(const void* values, const void* cols,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The cut comes from kernels/spmm.py bsr_partition: panel (1..64 columns
+// of X), lanes_c (lanes across the panel, a power of two, 2 columns each),
+// rpl (rows a lane owns: 1, 2, 4, 8 or 16), warps (1..8) and ctas (parts of
+// a block-row's blocks; partial and tickets are its scratch when above 1).
+// The stage layout follows from these here, as BsrPartition.smem_bytes
+// bounds it.
 extern "C" int spmm_bsr_launch(const void* values, const void* cols,
                                const void* rowp, const void* x, void* y,
-                               int nbrows, int bs, int k, void* stream) {
+                               void* partial, void* tickets, int nbrows,
+                               int bs, int k, int panel, int lanes_c,
+                               int rpl, int warps, int ctas, void* stream) {
+  int lc_log2 = 0;
+  while (lc_log2 < 5 && (1 << lc_log2) < lanes_c) ++lc_log2;
+  if (bs < 1 || bs > BSR_MAX || k < 1 || nbrows < 1 || panel < 1 ||
+      panel > BSR_MAX_PANEL || panel > k || (1 << lc_log2) != lanes_c ||
+      2 * lanes_c < panel || rpl * (32 >> lc_log2) < bs || warps < 1 ||
+      warps > BSR_MAX_WARPS || ctas < 1 ||
+      (ctas > 1 && (partial == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = bs % 4 == 0 && k % 4 == 0 && panel % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(values) |
+                    reinterpret_cast<uintptr_t>(x)) % 16 == 0;
+  BsrArgs a{static_cast<const float*>(values), static_cast<const int*>(cols),
+            static_cast<const int*>(rowp), static_cast<const float*>(x),
+            static_cast<float*>(y), static_cast<float*>(partial),
+            static_cast<int*>(tickets), nbrows, bs, k, panel, lc_log2,
+            warps, ctas, 0, 0, 0, 0};
+  // row strides: a float4 read (vec) or a float read of the lanes' rows
+  // lands on distinct banks (vs / 4 odd, or vs odd); X's rows hold the
+  // panel (rounded up to the float2 a lane reads)
+  a.vs = vec ? ((bs / 4) % 2 ? bs : bs + 4) : (bs | 1);
+  a.xs = vec ? panel : panel + (panel & 1);
+  a.vals_floats = (bs * a.vs + 3) & ~3;
+  a.stage_floats = a.vals_floats + ((bs * a.xs + 3) & ~3);
+  const size_t bytes =
+      sizeof(float) * (size_t)warps * BSR_STAGES * a.stage_floats;
+  if (bytes + 64 > SMEM_PER_CTA)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bs) {
-    case 8:
-      return launch_bsr<8>(values, cols, rowp, x, y, nbrows, bs, k, s);
-    case 16:
-      return launch_bsr<16>(values, cols, rowp, x, y, nbrows, bs, k, s);
-    case 32:
-      return launch_bsr<32>(values, cols, rowp, x, y, nbrows, bs, k, s);
-    case 64:
-      return launch_bsr<64>(values, cols, rowp, x, y, nbrows, bs, k, s);
-    default:
-      if (bs < 1 || bs > BSR_MAX)
-        return static_cast<int>(cudaErrorInvalidValue);
-      return launch_bsr<0>(values, cols, rowp, x, y, nbrows, bs, k, s);
-  }
+  return vec ? launch_bsr_rows<true>(a, rpl, bytes, s)
+             : launch_bsr_rows<false>(a, rpl, bytes, s);
 }

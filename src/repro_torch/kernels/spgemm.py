@@ -5,8 +5,10 @@ precomputed output pattern.
 (``spgemm_bsr_kernel``).  The CUDA kernel lives in ``csrc/spgemm.cu``; that
 file's header says how it cuts the Pallas kernel's dense (bs, ncols) row
 accumulator into warp-owned ranges of :func:`spgemm_span` block-columns in
-shared memory, and what bounds it.  It takes any block edge from 1 to
-``MAX_BSR_BLOCK`` (64).
+shared memory, and what bounds it.  It runs block edges 1 to
+``MAX_BSR_BLOCK`` (64); the wrapper takes any edge, running a larger one on
+``spmm.bsr_recut``'s sub-blocks (A, B and the output pattern re-cut alike)
+and putting C's blocks back together.
 
 ``spgemm_bsr_plain`` is the same function in plain PyTorch, the pair
 formulation: it enumerates the contributing block pairs from the operands'
@@ -23,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.spmm import check_bsr_block
+from repro_torch.kernels.spmm import bsr_recut, bsr_uncut, recut_edge
 from repro_torch.numerics.sparse import csr_row_ids
 
 __all__ = ["spgemm_bsr", "spgemm_bsr_plain", "spgemm_span", "SPGEMM_WARPS"]
@@ -97,25 +99,35 @@ def spgemm_bsr(a_vals: torch.Tensor, a_cols: torch.Tensor,
             f"{tuple(a_rowp.shape)}, b {tuple(b_vals.shape)}/"
             f"{tuple(b_cols.shape)}/{tuple(b_rowp.shape)}, c "
             f"{tuple(c_cols.shape)}/{tuple(c_rowp.shape)}, ncols {ncols}")
-    check_bsr_block("spgemm_bsr", bs)
     _lib.require_dtypes("spgemm_bsr", (a_vals, b_vals),
-                   (a_cols, a_rowp, b_cols, b_rowp, c_cols, c_rowp))
+                        (a_cols, a_rowp, b_cols, b_rowp, c_cols, c_rowp))
     nc = c_cols.shape[0]
     if nc == 0 or na == 0 or b_vals.shape[0] == 0:
         return torch.zeros((nc, bs, bs), dtype=torch.float32,
                            device=a_vals.device)
-    c_vals = torch.empty((nc, bs, bs), dtype=torch.float32,
+    d = recut_edge(bs)
+    order = None
+    if d != bs:
+        # every sub-block pair of A(I, K) and B(K, J) lands in a sub-block
+        # of C(I, J): the re-cut plan holds it exactly when the plan holds
+        # C(I, J)
+        a_vals, a_cols, a_rowp, _ = bsr_recut(a_vals, a_cols, a_rowp, bs, d)
+        b_vals, b_cols, b_rowp, _ = bsr_recut(b_vals, b_cols, b_rowp, bs, d)
+        _, c_cols, c_rowp, order = bsr_recut(None, c_cols, c_rowp, bs, d)
+        args = (a_vals, a_cols, a_rowp, b_vals, b_cols, b_rowp, c_cols,
+                c_rowp)
+    c_vals = torch.empty((c_cols.shape[0], d, d), dtype=torch.float32,
                          device=a_vals.device)
     err = torch.zeros(1, dtype=torch.int32, device=a_vals.device)
     code = _lib.lib().spgemm_bsr_launch(
         *(t.data_ptr() for t in args), c_vals.data_ptr(), err.data_ptr(),
-        a_rowp.shape[0] - 1, bs, ncols // bs, spgemm_span(bs),
+        a_rowp.shape[0] - 1, d, ncols // d, spgemm_span(d),
         _lib.stream_of(a_vals))
     _lib.check(code, "spgemm_bsr")
     spgemm_bsr.launches += 1
     if err.item():                       # waits for the kernel
         raise ValueError(_NOT_IN_PLAN)
-    return c_vals
+    return c_vals if order is None else bsr_uncut(c_vals, order)
 
 
 spgemm_bsr.launches = 0

@@ -7,34 +7,38 @@ multi-RHS panel X (n, k).
 file's header says what bounds them and how they are laid out.  They mask
 ragged rows and k themselves, so no operand is padded here.
 :func:`ell_partition` sizes the ELL kernel's row tiles, warps and chunks of
-X from the shape and the SM count.
+X, and :func:`bsr_partition` the BSR kernel's panels, lanes, warps and
+CTAs a block-row, from the shape and the SM count.
 
 On host tensors the wrappers compute the plain versions; on CUDA tensors
 they launch their kernel or raise.  They take f32 values and X and int32
-indices, and refuse any other dtype.  The BSR kernel takes any block edge
-from 1 to :data:`MAX_BSR_BLOCK`.
+indices, and refuse any other dtype.  The BSR kernels run block edges 1 to
+:data:`MAX_BSR_BLOCK`; both BSR wrappers take any edge, re-cutting a
+larger one into sub-blocks of edge :func:`recut_edge` first
+(:func:`bsr_recut`, the same matrix on the operands' device).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import spmm_bsr_ref, spmm_ell_ref
+from repro_torch.numerics.sparse import csr_row_ids
 
 __all__ = ["spmm_ell", "spmm_bsr", "spmm_ell_plain", "spmm_bsr_plain",
-           "MAX_BSR_BLOCK", "check_bsr_block", "EllPartition",
-           "ell_partition"]
+           "MAX_BSR_BLOCK", "recut_edge", "bsr_recut", "bsr_uncut",
+           "EllPartition", "ell_partition", "BsrPartition", "bsr_partition"]
 
 #: The plain PyTorch versions the kernels are held against.
 spmm_ell_plain = spmm_ell_ref
 spmm_bsr_plain = spmm_bsr_ref
 
-#: The largest BSR block edge the CUDA kernels take (csrc/spmm.cu and
-#: csrc/spgemm.cu; 8, 16, 32 and 64 are compiled in, other edges run with
-#: the edge as an argument).
+#: The largest BSR block edge the CUDA kernels run (csrc/spmm.cu and
+#: csrc/spgemm.cu); the wrappers re-cut a larger edge (:func:`bsr_recut`).
 MAX_BSR_BLOCK = 64
 
 #: Shared memory one CTA may have on sm_90 (227 KB), and the entries of a
@@ -165,29 +169,183 @@ def spmm_ell(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor
 spmm_ell.launches = 0
 
 
-def check_bsr_block(what: str, bs: int) -> None:
-    """Raise unless the CUDA BSR kernels take block edge ``bs``."""
-    if not 1 <= bs <= MAX_BSR_BLOCK:
-        raise ValueError(f"{what}: block edge {bs} is outside 1.."
-                         f"{MAX_BSR_BLOCK}, the edges the CUDA kernels take")
+#: The BSR kernel's ring of stages a warp, its largest panel of X's
+#: columns, its warps a CTA, and the outputs a lane may keep (csrc/spmm.cu).
+BSR_STAGES = 4
+BSR_MAX_PANEL = 64
+BSR_MAX_WARPS = 8
+BSR_LANE_OUTPUTS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrPartition:
+    """How ``spmm_bsr_kernel`` cuts one call: units of (block-row, panel of
+    ``panel`` columns of X), each cut into ``ctas`` CTAs of ``warps`` warps;
+    the row's blocks are split evenly into ``ctas * warps`` contiguous
+    ranges, one a warp.  Lanes cover the (bs, panel) output tile as
+    ``32 // lanes_c`` rows x ``lanes_c`` pairs of columns, a lane owning
+    ``rpl`` rows x 2 columns.  Only these five reach the kernel."""
+    panel: int
+    lanes_c: int
+    rpl: int
+    warps: int
+    ctas: int
+
+    def grid(self, nbrows: int, k: int) -> tuple[int, int]:
+        return nbrows * self.ctas, -(-k // self.panel)
+
+    def ranges(self, start: int, stop: int) -> list[tuple[int, int]]:
+        """The warps' ranges of a block-row's blocks ``[start, stop)``, in
+        the order their partials are added: CTA by CTA, warp by warp."""
+        nw = self.ctas * self.warps
+        n = stop - start
+        return [(start + n * g // nw, start + n * (g + 1) // nw)
+                for g in range(nw)]
+
+    @staticmethod
+    def stage_bytes(bs: int, panel: int) -> int:
+        """One stage at its largest (the kernel pads a block's rows to at
+        most bs + 4 floats and X's to panel + 1; each region rounded up to
+        4 floats)."""
+        up4 = lambda v: -(-v // 4) * 4  # noqa: E731
+        return 4 * (up4(bs * (bs + 4)) + up4(bs * (panel + 1)))
+
+    def smem_bytes(self, bs: int) -> int:
+        return self.warps * BSR_STAGES * self.stage_bytes(bs, self.panel)
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def bsr_partition(nbrows: int, nblocks: int, bs: int, k: int, sms: int
+                  ) -> BsrPartition:
+    """The BSR kernel's cut of ``nblocks`` blocks of edge ``bs`` in
+    ``nbrows`` block-rows times X (n, k), on a card of ``sms`` SMs.
+
+    The panel is k up to 64 columns, and no wider than keeps a lane at 32
+    outputs (a power of two <= 1024 / bs: 64 at bs 8 and 16, 32 at bs 32,
+    16 at bs 64); lanes pair up its columns, a power of two of them across,
+    the rest of the 32 down the rows.  A block-row gets one warp per block
+    on average, up to 8 and as many as fit shared memory; where the units
+    (block-rows x panels) leave SMs idle and a warp would still walk more
+    blocks than its ring holds in flight, the row's blocks are also split
+    over CTAs (merged by the unit's last CTA)."""
+    if min(nbrows, nblocks, bs, k, sms) < 1 or bs > MAX_BSR_BLOCK:
+        raise ValueError(f"bsr_partition: nbrows {nbrows}, nblocks "
+                         f"{nblocks}, bs {bs}, k {k}, sms {sms}")
+    cap = 1 << ((BSR_LANE_OUTPUTS * 32) // bs).bit_length() - 1
+    panel = min(k, BSR_MAX_PANEL, cap)
+    lanes_c = _pow2_at_least(-(-panel // 2))
+    rpl = _pow2_at_least(-(-bs // (32 // lanes_c)))
+    per_row = nblocks / nbrows
+    stage = BsrPartition.stage_bytes(bs, panel)
+    fit = (SMEM_PER_CTA - 64) // (BSR_STAGES * stage)
+    warps = max(1, min(BSR_MAX_WARPS, fit, math.ceil(per_row)))
+    units = nbrows * -(-k // panel)
+    ctas = 1
+    walk = BSR_STAGES - 1
+    if units < sms and per_row > warps * walk:
+        ctas = min(math.ceil(per_row / (warps * walk)), -(-sms // units))
+    return BsrPartition(panel, lanes_c, rpl, warps, ctas)
+
+
+@functools.lru_cache(maxsize=64)
+def _bsr_plan(nbrows: int, nblocks: int, bs: int, k: int,
+              device: torch.device) -> BsrPartition:
+    """The partition for one shape on one card, made once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return bsr_partition(nbrows, nblocks, bs, k, sms)
+
+
+def recut_edge(bs: int) -> int:
+    """The edge the BSR kernels run a block edge ``bs`` at: ``bs`` itself
+    up to :data:`MAX_BSR_BLOCK`, above it its largest divisor that is no
+    larger."""
+    return next(d for d in range(min(bs, MAX_BSR_BLOCK), 0, -1)
+                if bs % d == 0)
+
+
+def _recut_order(rowp: torch.Tensor, nblocks: int, m: int) -> torch.Tensor:
+    """Where sub-block (a, b) of block p lands when each block is cut into
+    m x m sub-blocks: (nblocks, m, m) positions in the re-cut entry order,
+    which walks sub-block-row a of block-row I over I's blocks in order,
+    m sub-blocks each.  Blocks past rowp[-1] (none in a well-formed BSR)
+    land after every row's."""
+    dev = rowp.device
+    r = torch.cat((rowp.long(), torch.full((1,), nblocks, device=dev)))
+    row = csr_row_ids(r, nblocks)
+    start = r[row]
+    length = r[row + 1] - start
+    # sub-block (0, 0) of block p; then a sub-block-row down is a whole
+    # block-row's m * length further, a sub-block across is one further
+    first = m * m * start + m * (torch.arange(nblocks, device=dev) - start)
+    ar = torch.arange(m, device=dev)
+    return first.view(-1, 1, 1) + (m * length).view(-1, 1, 1) \
+        * ar.view(1, m, 1) + ar.view(1, 1, m)
+
+
+def bsr_recut(values: torch.Tensor | None, cols: torch.Tensor,
+              rowp: torch.Tensor, bs: int, d: int):
+    """The same BSR matrix in sub-blocks of edge ``d`` (a divisor of
+    ``bs``): each block (I, J) becomes the m x m sub-blocks (I*m + a,
+    J*m + b), m = bs // d, a sub-block-row holding its sub-blocks in its
+    block-row's block order.  Returns ``(values, cols, rowp, order)``
+    (``values`` None if none were given); ``order`` (nblocks, m, m) says
+    where sub-block (a, b) of block p went, so that results made on the
+    re-cut pattern can be put back.  Torch operations only, on the
+    operands' device, with no host sync: every size follows from the
+    shapes."""
+    nblocks = cols.shape[0]
+    m = bs // d
+    order = _recut_order(rowp, nblocks, m)
+    flat = order.reshape(-1)
+    ar = torch.arange(m, device=cols.device)
+    sub_cols = (cols.long().view(-1, 1, 1) * m + ar.view(1, 1, m)).expand(
+        nblocks, m, m).reshape(-1)
+    new_cols = torch.empty_like(flat, dtype=torch.int32).index_copy_(
+        0, flat, sub_cols.to(torch.int32))
+    r = rowp.long()
+    starts = (m * m * r[:-1]).view(-1, 1) \
+        + ar.view(1, m) * (m * (r[1:] - r[:-1])).view(-1, 1)
+    new_rowp = torch.cat((starts.reshape(-1), m * m * r[-1:]))
+    new_vals = None
+    if values is not None:
+        sub = values.reshape(nblocks, m, d, m, d).permute(0, 1, 3, 2, 4) \
+            .reshape(nblocks * m * m, d, d)
+        new_vals = torch.empty_like(sub).index_copy_(0, flat, sub)
+    return new_vals, new_cols, new_rowp.to(torch.int32), order
+
+
+def bsr_uncut(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`bsr_recut` on values: the (nblocks * m * m,
+    d, d) sub-blocks of a re-cut pattern put back into the (nblocks, bs,
+    bs) blocks ``order`` came from."""
+    nblocks, m, _ = order.shape
+    d = values.shape[-1]
+    return values[order.reshape(-1)].reshape(nblocks, m, m, d, d) \
+        .permute(0, 1, 3, 2, 4).reshape(nblocks, m * d, m * d)
 
 
 def spmm_bsr(values: torch.Tensor, cols: torch.Tensor, rowp: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """``y[I*bs:(I+1)*bs, :] = sum_{p in rowp[I]..rowp[I+1]} values[p] @
-    x[cols[p]*bs : +bs, :]``; an empty matrix gives zeros."""
+    x[cols[p]*bs : +bs, :]``; an empty matrix gives zeros.  Any block edge:
+    above :data:`MAX_BSR_BLOCK` the kernel runs on :func:`bsr_recut`'s
+    sub-blocks.  One launch a call; the result is the same bit for bit from
+    run to run."""
     if _lib.on_host(values, cols, rowp, x):
         return spmm_bsr_plain(values, cols, rowp, x)
     _lib.require_cuda("spmm_bsr", values, cols, rowp, x)
     if values.ndim != 3 or values.shape[1] != values.shape[2] \
-            or cols.shape != values.shape[:1] or rowp.ndim != 1 \
-            or x.ndim != 2 or x.shape[0] % max(values.shape[1], 1):
+            or values.shape[1] < 1 or cols.shape != values.shape[:1] \
+            or rowp.ndim != 1 or rowp.shape[0] < 1 or x.ndim != 2 \
+            or x.shape[0] % values.shape[1]:
         raise ValueError(f"spmm_bsr: values {tuple(values.shape)}, cols "
                          f"{tuple(cols.shape)}, rowp {tuple(rowp.shape)}, "
                          f"x {tuple(x.shape)}")
-    nblocks, bs, _ = values.shape
-    check_bsr_block("spmm_bsr", bs)
     _lib.require_dtypes("spmm_bsr", (values, x), (cols, rowp))
+    nblocks, bs, _ = values.shape
     nbrows = rowp.shape[0] - 1
     k = x.shape[1]
     if nblocks == 0:
@@ -197,9 +355,23 @@ def spmm_bsr(values: torch.Tensor, cols: torch.Tensor, rowp: torch.Tensor,
                     device=values.device)
     if nbrows == 0 or k == 0:
         return y
+    d = recut_edge(bs)
+    if d != bs:
+        values, cols, rowp, _ = bsr_recut(values, cols, rowp, bs, d)
+        nblocks, nbrows, bs = values.shape[0], rowp.shape[0] - 1, d
+    part = _bsr_plan(nbrows, nblocks, bs, k, values.device)
+    stream = _lib.stream_of(values)
+    partial = tickets = None
+    if part.ctas > 1:
+        grid = part.grid(nbrows, k)
+        partial, tickets = _lib.split_scratch(
+            values.device, stream, grid[0] * grid[1] * bs * part.panel,
+            nbrows * grid[1])
     code = _lib.lib().spmm_bsr_launch(
         values.data_ptr(), cols.data_ptr(), rowp.data_ptr(), x.data_ptr(),
-        y.data_ptr(), nbrows, bs, k, _lib.stream_of(values))
+        y.data_ptr(), None if partial is None else partial.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), nbrows, bs, k,
+        part.panel, part.lanes_c, part.rpl, part.warps, part.ctas, stream)
     _lib.check(code, "spmm_bsr")
     spmm_bsr.launches += 1
     return y

@@ -509,15 +509,16 @@ def test_spgemm_bsr_plain_raises_on_a_tile_missing_from_the_plan():
         spgemm_k.spgemm_bsr(*args, ncols=ncols)
 
 
-#: Block edges off the selector's 8/16/32 ladder that the CUDA kernels take
-#: (1..64), with a block grid that keeps n <= 256.
-EDGE_GRIDS = [(1, 6, 5), (4, 6, 5), (12, 6, 5), (64, 4, 3)]
+#: Block edges off the selector's 8/16/32 ladder: edges the CUDA kernels
+#: run as they are (1..64), with a block grid that keeps n <= 256, and one
+#: above 64 that the wrappers re-cut on the card.
+EDGE_GRIDS = [(1, 6, 5), (4, 6, 5), (12, 6, 5), (64, 4, 3), (96, 3, 2)]
 
 
 @pytest.mark.parametrize("bs,nbr,nbc", EDGE_GRIDS)
 def test_spmm_bsr_block_edges_match_jax(bs, nbr, nbc, jax_ops, jax_spmm):
-    """The wrapper's host path at block edges 1, 4, 12 and 64 against the
-    JAX Pallas kernel (interpret mode) and the JAX oracle."""
+    """The wrapper's host path at block edges 1, 4, 12, 64 and 96 against
+    the JAX Pallas kernel (interpret mode) and the JAX oracle."""
     jnp, _, jref = jax_ops
     rng = np.random.default_rng(bs + 7)
     vals, cols, rowp = _bsr_operand(rng, nbr, nbc, bs, 0.5, empty_rows=(1,))
@@ -535,10 +536,11 @@ def test_spmm_bsr_block_edges_match_jax(bs, nbr, nbc, jax_ops, jax_spmm):
     np.testing.assert_array_equal(got.numpy()[bs:2 * bs], 0.0)
 
 
-@pytest.mark.parametrize("bs,nb", [(1, 40), (4, 16), (12, 8), (64, 4)])
+@pytest.mark.parametrize("bs,nb", [(1, 40), (4, 16), (12, 8), (64, 4),
+                                   (96, 3)])
 def test_spgemm_bsr_block_edges_match_jax(bs, nb, jax_ops):
-    """The wrapper's host path at block edges 1, 4, 12 and 64 against the
-    JAX package's ``bsr_xla`` SpGEMM and its dense oracle."""
+    """The wrapper's host path at block edges 1, 4, 12, 64 and 96 against
+    the JAX package's ``bsr_xla`` SpGEMM and its dense oracle."""
     from repro import sparse as JS
 
     jnp, _, jref = jax_ops
@@ -810,6 +812,175 @@ def test_spgemm_range_model_flags_a_tile_missing_from_the_plan():
     host = [t.numpy() for t in args]
     _, err, _ = _spgemm_range_model(*host, ncols // 8, spgemm_k.spgemm_span(8))
     assert err
+
+
+# ---------------------------------------------------------------------------
+# the BSR SpMM kernel's work split, and the re-cut of edges above 64, in
+# numpy and on the host
+# ---------------------------------------------------------------------------
+
+def _bsr_split_model(vals, cols, rowp, x, part):
+    """``csrc/spmm.cu`` spmm_bsr_kernel's cut: for each (block-row, panel)
+    unit, the row's blocks in ``part.ranges`` (one a warp), each warp's
+    partial summed over its range in p order, the warps' partials added in
+    warp order within a CTA and the CTAs' sums in CTA order.  Returns the
+    product (f32), how many times each block was taken in each panel, and
+    for each block-row the blocks in the order their products were
+    added."""
+    nbrows, bs = rowp.size - 1, vals.shape[1]
+    k = x.shape[1]
+    npanels = -(-k // part.panel)
+    y = np.full((nbrows * bs, k), np.nan, np.float32)
+    taken = np.zeros((vals.shape[0], npanels), np.int64)
+    added = {}
+    for i in range(nbrows):
+        ranges = part.ranges(int(rowp[i]), int(rowp[i + 1]))
+        for pi in range(npanels):
+            p0 = pi * part.panel
+            pw = min(part.panel, k - p0)
+            total = np.zeros((bs, pw), np.float32)
+            order = []
+            for cta in range(part.ctas):
+                cta_sum = np.zeros((bs, pw), np.float32)
+                for w in range(part.warps):
+                    lo, hi = ranges[cta * part.warps + w]
+                    acc = np.zeros((bs, pw), np.float32)
+                    for p in range(lo, hi):
+                        xs = x[cols[p] * bs:(cols[p] + 1) * bs, p0:p0 + pw]
+                        acc = (acc + vals[p] @ xs).astype(np.float32)
+                        taken[p, pi] += 1
+                        order.append(p)
+                    cta_sum = (cta_sum + acc).astype(np.float32)
+                total = (total + cta_sum).astype(np.float32)
+            y[i * bs:(i + 1) * bs, p0:p0 + pw] = total
+            added.setdefault(i, []).append(order)
+    return y, taken, added
+
+
+def _bsr_case(name):
+    """(vals, cols, rowp, n columns, k values, the SMs) of a named shape:
+    the timed shape (the SpGEMM suite's clustered 0.2 operand, bs 8);
+    block-CG's (half-bandwidth 127 at n 512 in 32-blocks: 16 block-rows);
+    the SpMM suite's blocked class (n 1024, bs 8, 6 % of the blocks); a
+    ragged grid with empty block-rows at bs 12; few long block-rows (split
+    over CTAs)."""
+    rng = np.random.default_rng(len(name))
+    if name == "timed":
+        occ, bs, ks = np.random.default_rng(1).random((256, 256)) < 0.2, 8, \
+            (64,)
+    elif name == "block-CG":
+        i = np.arange(16)
+        occ, bs, ks = np.abs(i[:, None] - i[None, :]) <= 4, 32, (8,)
+    elif name == "blocked":
+        occ, bs, ks = rng.random((128, 128)) < 0.06, 8, (8, 64)
+    elif name == "ragged":
+        occ, bs, ks = rng.random((9, 7)) < 0.4, 12, (1, 3, 65)
+        occ[[0, 4, 8]] = False
+    elif name == "long rows":
+        occ, bs, ks = rng.random((4, 90)) < 0.8, 8, (8, 3)
+        occ[2] = False
+    else:
+        raise ValueError(name)
+    from repro_torch.sparse import block_pattern
+    cols, rowp = block_pattern(occ)
+    vals = _randn(rng, (cols.size, bs, bs))
+    return vals, cols, rowp, occ.shape[1] * bs, ks
+
+
+BSR_CASES = ["timed", "block-CG", "blocked", "ragged", "long rows"]
+
+
+@pytest.mark.parametrize("name", BSR_CASES)
+def test_bsr_split_model_adds_every_block_once_in_order(name):
+    """Under bsr_partition's cut (132 SMs) every stored block is added
+    exactly once per panel, into its own block-row, and each block-row's
+    products are added in p order (warp ranges, then CTAs, in order): an
+    order fixed by the data alone.  The sums give the plain product; an
+    empty block-row gives zeros."""
+    vals, cols, rowp, n, ks = _bsr_case(name)
+    nbrows, bs = rowp.size - 1, vals.shape[1]
+    rng = np.random.default_rng(3)
+    for k in ks:
+        part = spmm_k.bsr_partition(nbrows, cols.size, bs, k, 132)
+        x = _randn(rng, (n, k))
+        y, taken, added = _bsr_split_model(vals, cols, rowp, x, part)
+        np.testing.assert_array_equal(taken, 1)
+        for i in range(nbrows):
+            for order in added[i]:
+                assert order == list(range(rowp[i], rowp[i + 1]))
+        want = spmm_k.spmm_bsr(*map(torch.as_tensor, (vals, cols, rowp, x)))
+        np.testing.assert_allclose(y, want.numpy(), rtol=1e-4, atol=1e-4)
+        empty = np.flatnonzero(np.diff(rowp) == 0)
+        for i in empty:
+            np.testing.assert_array_equal(y[i * bs:(i + 1) * bs], 0.0)
+        if name == "long rows":
+            assert part.ctas > 1
+        if name in ("timed", "block-CG", "blocked"):
+            assert part.ctas == 1 and part.warps == 8
+
+
+@pytest.mark.parametrize("bs", [1, 3, 4, 8, 12, 16, 32, 33, 48, 64])
+@pytest.mark.parametrize("k", [1, 3, 8, 32, 64, 65, 200])
+def test_bsr_partition_fits_the_card(bs, k):
+    """The cut covers the (bs, panel) tile with 32 lanes of at most 32
+    outputs each, fits one CTA's shared memory, takes k itself as the panel
+    up to 32 columns (at bs <= 32), and at k = 8 leaves no lane idle at the path's edges
+    (bs 8 and 32)."""
+    for nbrows, nblocks in ((256, 13052), (16, 124), (4, 360), (1, 1)):
+        part = spmm_k.bsr_partition(nbrows, nblocks, bs, k, 132)
+        lanes_r = 32 // part.lanes_c
+        assert part.lanes_c * lanes_r == 32
+        assert 1 <= part.panel <= min(k, spmm_k.BSR_MAX_PANEL)
+        assert 2 * part.lanes_c >= part.panel
+        assert part.lanes_c == 1 or part.lanes_c < part.panel  # no wider
+        assert part.rpl in (1, 2, 4, 8, 16) and lanes_r * part.rpl >= bs
+        assert 2 * part.rpl <= spmm_k.BSR_LANE_OUTPUTS
+        assert 1 <= part.warps <= spmm_k.BSR_MAX_WARPS and part.ctas >= 1
+        assert part.smem_bytes(bs) <= spmm_k.SMEM_PER_CTA - 64
+        if k <= 32 and bs <= 32:
+            assert part.panel == k
+        if k == 8 and bs in (8, 32):
+            assert 2 * part.lanes_c == 8 and lanes_r * part.rpl == bs
+        grid = part.grid(nbrows, k)
+        assert grid[0] == nbrows * part.ctas and grid[1] * part.panel >= k
+
+
+@pytest.mark.parametrize("bs", [96, 128, 65])
+def test_bsr_recut_is_the_same_matrix(bs):
+    """An edge above 64 re-cut into sub-blocks of its largest divisor <= 64
+    gives the same plain SpMM and SpGEMM results as the uncut operands, and
+    bsr_uncut puts the blocks back as they were."""
+    from repro_torch import sparse
+
+    d = spmm_k.recut_edge(bs)
+    assert d <= 64 and bs % d == 0 and d == max(
+        e for e in range(1, 65) if bs % e == 0)
+    rng = np.random.default_rng(bs)
+    vals, cols, rowp = map(torch.as_tensor, _bsr_operand(
+        rng, 4, 3, bs, 0.5, empty_rows=(1,)))
+    v2, c2, r2, order = spmm_k.bsr_recut(vals, cols, rowp, bs, d)
+    m = bs // d
+    assert v2.shape == (cols.numel() * m * m, d, d)
+    assert r2.shape == (4 * m + 1,) and int(r2[-1]) == cols.numel() * m * m
+    assert torch.equal(spmm_k.bsr_uncut(v2, order), vals)
+    x = torch.as_tensor(_randn(rng, (3 * bs, 5)))
+    torch.testing.assert_close(spmm_k.spmm_bsr_plain(v2, c2, r2, x),
+                               spmm_k.spmm_bsr_plain(vals, cols, rowp, x),
+                               rtol=1e-5, atol=1e-4)
+    nb = 4
+    a, b = (sparse.BSR(*(torch.as_tensor(v) for v in _bsr_operand(
+        rng, nb, nb, bs, 0.5, empty_rows=(e,))), (nb * bs,) * 2, bs)
+        for e in (1, 2))
+    plan = sparse.spgemm_symbolic(a, b)
+    cc, cr = torch.as_tensor(plan.c_cols), torch.as_tensor(plan.c_rowp)
+    want = spgemm_k.spgemm_bsr_plain(a.values, a.cols, a.rowp, b.values,
+                                     b.cols, b.rowp, cc, cr, ncols=nb * bs)
+    a2 = spmm_k.bsr_recut(a.values, a.cols, a.rowp, bs, d)[:3]
+    b2 = spmm_k.bsr_recut(b.values, b.cols, b.rowp, bs, d)[:3]
+    _, cc2, cr2, corder = spmm_k.bsr_recut(None, cc, cr, bs, d)
+    got = spmm_k.bsr_uncut(spgemm_k.spgemm_bsr_plain(
+        *a2, *b2, cc2, cr2, ncols=nb * bs), corder)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 def test_non_power_of_two_fft_has_no_variant():
@@ -1128,7 +1299,7 @@ def test_spmm_ell_kernel_is_bitwise_run_to_run(kind, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs", [8, 16, 32, 1, 4, 12, 64])
+@pytest.mark.parametrize("bs", [8, 16, 32, 1, 4, 12, 64, 65, 96, 128])
 @pytest.mark.parametrize("k", [1, 3, 65])
 def test_spmm_bsr_kernel_matches_plain(bs, k, card):
     rng = np.random.default_rng(bs * 1000 + k)
@@ -1147,6 +1318,40 @@ def test_spmm_bsr_kernel_matches_plain(bs, k, card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", BSR_CASES)
+def test_spmm_bsr_kernel_matches_plain_at_path_shapes(name, card):
+    """The kernel at the blocked-sparse path's shapes (the timed shape at k
+    64, block-CG's bs 32 at k 8, the SpMM suite's blocked class at k 8 and
+    64), ragged k with empty block-rows, and few long block-rows split over
+    CTAs."""
+    vals, cols, rowp, n, ks = _bsr_case(name)
+    args = [torch.as_tensor(v, device=card) for v in (vals, cols, rowp)]
+    rng = np.random.default_rng(5)
+    for k in ks:
+        x = torch.as_tensor(_randn(rng, (n, k)), device=card)
+        before = spmm_k.spmm_bsr.launches
+        got = spmm_k.spmm_bsr(*args, x)
+        want = spmm_k.spmm_bsr_plain(*args, x)
+        torch.cuda.synchronize()
+        assert spmm_k.spmm_bsr.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["timed", "long rows"])
+def test_spmm_bsr_kernel_is_bitwise_run_to_run(name, card):
+    """The same bits from two calls: warp ranges and CTA parts are added in
+    a fixed order (the long rows take the ticket merge)."""
+    vals, cols, rowp, n, ks = _bsr_case(name)
+    args = [torch.as_tensor(v, device=card) for v in (vals, cols, rowp)]
+    x = torch.as_tensor(_randn(np.random.default_rng(6), (n, ks[0])),
+                        device=card)
+    first = spmm_k.spmm_bsr(*args, x)
+    for _ in range(3):
+        assert torch.equal(spmm_k.spmm_bsr(*args, x), first)
+
+
+@pytest.mark.cuda
 def test_spmm_bsr_no_blocks_gives_zeros_without_launch(card):
     vals = torch.zeros((0, 8, 8), device=card)
     cols = torch.zeros(0, dtype=torch.int32, device=card)
@@ -1158,7 +1363,7 @@ def test_spmm_bsr_no_blocks_gives_zeros_without_launch(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs", [8, 16, 32, 1, 4, 12, 64])
+@pytest.mark.parametrize("bs", [8, 16, 32, 1, 4, 12, 64, 65, 96, 128])
 def test_spgemm_bsr_kernel_matches_plain(bs, card):
     from repro_torch import sparse
 
@@ -1231,21 +1436,6 @@ def test_spgemm_bsr_kernel_at_suite_sizes(case, card):
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
     assert torch.equal(spgemm_k.spgemm_bsr(*args, ncols=n), got)
-
-
-@pytest.mark.cuda
-def test_bsr_kernels_raise_above_the_largest_block(card):
-    bs = spmm_k.MAX_BSR_BLOCK + 1
-    vals = torch.zeros((1, bs, bs), device=card)
-    cols = torch.zeros(1, dtype=torch.int32, device=card)
-    rowp = torch.tensor([0, 1], dtype=torch.int32, device=card)
-    before = spmm_k.spmm_bsr.launches, spgemm_k.spgemm_bsr.launches
-    with pytest.raises(ValueError, match="outside 1..64"):
-        spmm_k.spmm_bsr(vals, cols, rowp, torch.ones(bs, 2, device=card))
-    with pytest.raises(ValueError, match="outside 1..64"):
-        spgemm_k.spgemm_bsr(vals, cols, rowp, vals, cols, rowp, cols, rowp,
-                            ncols=bs)
-    assert (spmm_k.spmm_bsr.launches, spgemm_k.spgemm_bsr.launches) == before
 
 
 @pytest.mark.cuda
