@@ -138,16 +138,20 @@ def time_ms(torch, fn, iters: int, scrub) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def kernel_ms(torch, fn, iters: int, kernel: str, scrub):
+def kernel_ms(torch, fn, iters: int, kernel: str, scrub, launches: int = 1):
     """Device time per call of ``fn`` spent in CUDA kernels whose name holds
     ``kernel``, from a torch.profiler trace, with a cold L2 as in
-    :func:`time_ms`; None if no trace of TRACE_TRIES shows device time for
-    it.  Unlike :func:`time_ms`, this leaves out the gaps in which the
-    device waits for the host to launch."""
+    :func:`time_ms`.  Each of ``fn``'s calls launches such kernels
+    ``launches`` times; a trace counts only if it holds iters x launches
+    kernel events with device time (a session now and then drops some, and
+    the mean over what is left would read low).  None if no trace of
+    TRACE_TRIES is whole.  Unlike :func:`time_ms`, this leaves out the gaps
+    in which the device waits for the host to launch."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -155,10 +159,14 @@ def kernel_ms(torch, fn, iters: int, kernel: str, scrub):
                 scrub.sum()
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.device_time_total for e in prof.key_averages()
-                       if kernel in e.key)
-        if total_us > 0:
-            return total_us / iters / 1e3
+        evs = [e for e in prof.key_averages()
+               if kernel in e.key and e.device_time_total > 0]
+        count = sum(e.count for e in evs)
+        if count == iters * launches:
+            return sum(e.device_time_total for e in evs) / iters / 1e3
+        seen.append(count)
+    log(f"kernel_ms {kernel}: traces held {seen} events, not "
+        f"{iters * launches}; no time kept")
     return None
 
 
@@ -565,10 +573,12 @@ def time_sparse_shapes(torch, scrub, inp) -> dict:
     blocked-sparse path's other ELL shapes (the SpMM suite's uniform class
     at k = 8 and 64, block-CG's ELL at k = 8), of spmm_bsr at the path's
     BSR shapes (the SpMM suite's blocked class at k = 8 and 64, block-CG's
-    BSR at k = 8), at the timed shape (the SpGEMM suite's clustered 0.2
+    BSR at k = 8) and at the timed shape (the SpGEMM suite's clustered 0.2
     operand at k = 64; also through the wrapper with CUDA events, ``..
-    wrapper_ms``) and at 16 long block-rows, and of spgemm_bsr at the
-    SpGEMM suite's five cases, bs 8; and each sparse kernel's device time
+    wrapper_ms``), of spgemm_bsr at the SpGEMM suite's five cases, bs 8;
+    spmm_bsr through the wrapper (CUDA events) on one matrix stored at
+    edge 128 (re-cut on each call) and at edge 64, and through sparse.spmm
+    (which keeps a matrix's re-cut); and each sparse kernel's device time
     and launches summed over one run of phase 2b's path (warm, as the path
     runs: ``path <kernel>`` keys).
 
@@ -598,14 +608,9 @@ def time_sparse_shapes(torch, scrub, inp) -> dict:
         np.float32), format="bsr")
     timed = S.bsr_from_dense(clustered(SPGEMM_N, 0.2, 1),
                              block=SPGEMM_BLOCK)
-    # few long block-rows (16 of about 510 blocks): off the path, the shape
-    # for which the kernel splits a row over CTAs
-    long_rows = random_bsr(S, torch, np.random.default_rng(16), 16, 600, 8,
-                           0.85)
     for name, m, k in (("blocked_k8", blocked, 8),
                        ("blocked_k64", blocked, 64), ("block-CG_k8", cg, ck),
-                       ("clustered0.2_k64", timed, 64),
-                       ("long_rows_k64", long_rows, 64)):
+                       ("clustered0.2_k64", timed, 64)):
         x = torch.randn(m.shape[1], k, device=dev)
         out[f"spmm_bsr {name}"] = kernel_ms(
             torch, lambda: spmm_k.spmm_bsr(m.values, m.cols, m.rowp, x), 50,
@@ -614,6 +619,21 @@ def time_sparse_shapes(torch, scrub, inp) -> dict:
     out["spmm_bsr clustered0.2_k64 wrapper_ms"] = time_ms(
         torch, lambda: spmm_k.spmm_bsr(timed.values, timed.cols, timed.rowp,
                                        x), 50, scrub)
+    # the clustered 0.2 pattern in 128-blocks (16 x 16 of them), stored at
+    # edge 128 and at edge 64: the same matrix, so the difference is the
+    # wrapper's re-cut
+    wide = clustered(SPGEMM_N, 0.2, 1, block=128)
+    x = torch.randn(SPGEMM_N, 64, device=dev)
+    for edge in (128, 64):
+        m = S.bsr_from_dense(wide, block=edge)
+        try:
+            out[f"spmm_bsr edge{edge}_k64 wrapper_ms"] = time_ms(
+                torch, lambda: spmm_k.spmm_bsr(m.values, m.cols, m.rowp, x),
+                50, scrub)
+            out[f"spmm_bsr edge{edge}_k64 sparse.spmm_ms"] = time_ms(
+                torch, lambda: S.spmm(m, x), 50, scrub)
+        except ValueError as exc:  # a tree whose kernels refuse the edge
+            log(f"spmm_bsr edge {edge}: {exc}")
     for case, A, B in spgemm_cases(sparse, SPGEMM_N):
         args, _ = spgemm_args(S, torch, S.bsr_from_dense(A, block=8),
                               S.bsr_from_dense(B, block=8))
@@ -691,7 +711,7 @@ def time_sparse_kernels(torch, inp, mod2as_csr, mod2as_ell, kernels, cold_ms,
     grids = launch_grids(torch, lambda: spmm_k.spmm_bsr(bv, bc, br, x_bsr),
                          "spmm_bsr_kernel")
     rec["ctas"] = sum(int(np.prod(g)) for g in grids) if grids else None
-    part = spmm_k._bsr_plan(br.numel() - 1, m.nblocks, m.block, k, bv.device)
+    part = spmm_k.bsr_partition(br.numel() - 1, m.nblocks, m.block, k)
     log(f"spmm_bsr timed: n={m.shape[0]} bs={m.block} {m.nblocks} blocks "
         f"k={k}, traced grids {grids}; library call: {note}; the wrapper's "
         f"plan (derived, not measured): {part}")
@@ -1669,7 +1689,8 @@ def main() -> int:
                "flash_attention_tiles": "flash_attention_tiles_"}
     for name, fn in timed.items():
         kernels[name]["kernel_ms"] = kernel_ms(
-            torch, fn, 20, symbols.get(name, f"{name}_kernel"), scrub)
+            torch, fn, 20, symbols.get(name, f"{name}_kernel"), scrub,
+            kernels[name].get("launches_per_call", 1))
     kernels["flash_attention_lens"]["prefix_kernel_ms"] = kernel_ms(
         torch, lens_prefix, 20, "flash_attention_lens_prefix_kernel", scrub)
     fixed_prof, cont_prof = serve["profile"]()

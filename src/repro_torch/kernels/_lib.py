@@ -59,8 +59,8 @@ _SIGNATURES = {
                           _P),
     "spmm_ell_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P),
-    "spmm_bsr_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _P),
+    "spmm_bsr_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P),
     "spgemm_bsr_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -198,8 +198,8 @@ def check(code: int, what: str) -> None:
 
 #: (device, stream) -> (partials, tickets): the scratch of the kernels that
 #: split a sum over CTAs and let the last CTA of a group add the partials
-#: (spmv_dia, flash_attention_lens, spmm_bsr), grown as needed.  Launches
-#: on one stream run in order, so they may share it; the kernels leave the
+#: (spmv_dia, flash_attention_lens), grown as needed.  Launches on one
+#: stream run in order, so they may share it; the kernels leave the
 #: tickets at 0.
 _SPLIT_SCRATCH: dict = {}
 

@@ -52,22 +52,21 @@
 // (bs, bn) product per block.  Carried over block by block, that loop is a
 // chain of dependent memory round trips on this card (one block, two CTA
 // barriers, the next block).  Here the unit of work is (block-row, panel
-// of X's columns, part of the row's blocks):
+// of X's columns):
 //
-//   CTA  = (block-row, panel, one of `ctas` parts of the row's blocks);
-//          the row's blocks are cut into ctas * warps contiguous ranges,
-//          one a warp, in order (kernels/spmm.py bsr_partition sizes the
-//          panel, the lanes, the warps and the parts)
+//   CTA  = (block-row, panel); the row's blocks are cut into `warps`
+//          contiguous ranges, one a warp, in order (kernels/spmm.py
+//          bsr_partition sizes the panel, the lanes and the warps; the
+//          launcher takes as many of those warps as its stages fit in
+//          shared memory)
 //   warp = a ring of BSR_STAGES stages in shared memory: blocks j + 1 ..
 //          j + 3 of its range are in flight (cp.async: 16-byte pieces
 //          where bs, k and the panel are multiples of 4 and the operands
 //          16-byte aligned, else 4-byte) while block j is multiplied, with
 //          no barrier but the warp's own; its (bs, panel) partial in
 //          registers, a lane owning RPL rows x 2 columns
-//   then   the warps' partials are added in shared memory in warp order;
-//          with ctas > 1 each CTA's sum goes to a scratch slot and the
-//          unit's last CTA (an integer ticket) adds the slots in CTA order
-//          and writes y
+//   then   the warps' partials are added in shared memory in warp order
+//          and y is written once
 //
 // The panel is shaped from k: at most 64 columns and at most 1024 / bs,
 // so that a lane keeps at most 32 outputs; at k <= 32 the panel is k
@@ -104,7 +103,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int ELL_WIN = 64;  // entries of a row in shared memory at once
 constexpr uint32_t ELL_PIECE = 16384;  // bytes of X a bulk copy moves
 constexpr int BSR_MAX = 64;         // the largest block edge
-constexpr int BSR_MAX_PANEL = 64;   // the widest panel of X's columns
 constexpr int BSR_MAX_WARPS = 8;    // warps a CTA
 constexpr int BSR_STAGES = 4;       // a warp's ring: 3 blocks in flight
 constexpr int SMEM_PER_CTA = 232448;
@@ -486,12 +484,10 @@ struct BsrArgs {
   const int* rowp;      // (nbrows + 1,)
   const float* x;       // (n, k)
   float* y;             // (nbrows * bs, k)
-  float* partial;  // ctas > 1: (nbrows * npanels * ctas, bs * panel) slots
-  int* tickets;    // ctas > 1: (nbrows * npanels,), 0 between launches
   int nbrows, bs, k;
   int panel;         // columns of X a unit spans (the last may be narrower)
   int lc_log2;       // log2 of the lanes across the panel, 2 columns each
-  int warps, ctas;   // warps a CTA; CTAs a (block-row, panel)
+  int warps;         // warps a CTA
   int vs, xs;        // floats per staged row of a block / of X's strip
   int vals_floats;   // floats of a stage's block (a multiple of 4)
   int stage_floats;  // floats of a stage: the block, then X's strip
@@ -551,25 +547,21 @@ template <int RPL, bool VEC>
 __global__ void __launch_bounds__(BSR_MAX_WARPS * 32)
     spmm_bsr_kernel(const BsrArgs a) {
   extern __shared__ __align__(16) float bsm[];
-  __shared__ int ticket;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int bs = a.bs;
-  const int brow = blockIdx.x / a.ctas;
-  const int part = blockIdx.x - brow * a.ctas;
+  const int brow = blockIdx.x;
   const int p0 = blockIdx.y * a.panel;
   const int pw = min(a.panel, a.k - p0);
   const size_t ring_floats = (size_t)BSR_STAGES * a.stage_floats;
   float* ring = bsm + warp * ring_floats;
 
   // the warp's range [lo, lo + nblk) of the block-row's blocks: the row
-  // cut evenly over its ctas * warps warps, in order
+  // cut evenly over the CTA's warps, in order
   const int start = __ldg(a.rowp + brow);
   const long long len = __ldg(a.rowp + brow + 1) - start;
-  const int nw = a.ctas * a.warps;
-  const int g = part * a.warps + warp;
-  const int lo = start + static_cast<int>(len * g / nw);
-  const int nblk = start + static_cast<int>(len * (g + 1) / nw) - lo;
+  const int lo = start + static_cast<int>(len * warp / a.warps);
+  const int nblk = start + static_cast<int>(len * (warp + 1) / a.warps) - lo;
 
   // the lane's outputs: rows lr + r * lrs (read clamped into the block)
   // and columns c, c + 1 of the panel
@@ -656,7 +648,7 @@ __global__ void __launch_bounds__(BSR_MAX_WARPS * 32)
   __syncwarp();
 
   // the warp's partial, (bs, pw) row-major, at the start of its ring; then
-  // the CTA's sum, warp by warp in order
+  // the CTA's sum, warp by warp in order, into y
 #pragma unroll
   for (int r = 0; r < RPL; ++r) {
     const int i = lr + r * lrs;
@@ -664,41 +656,17 @@ __global__ void __launch_bounds__(BSR_MAX_WARPS * 32)
     if (i < bs && c + 1 < pw) ring[i * pw + c + 1] = acc[r][1];
   }
   __syncthreads();
-  const int tile = bs * pw;
-  const int unit = brow * gridDim.y + blockIdx.y;
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+  for (int e = threadIdx.x; e < bs * pw; e += blockDim.x) {
     float s = 0.f;
     for (int w = 0; w < a.warps; ++w) s += bsm[w * ring_floats + e];
-    if (a.ctas == 1) {
-      const int i = e / pw;
-      a.y[((size_t)brow * bs + i) * a.k + p0 + (e - i * pw)] = s;
-    } else {
-      a.partial[((size_t)unit * a.ctas + part) * bs * a.panel + e] = s;
-    }
-  }
-  if (a.ctas == 1) return;
-
-  // several parts: the unit's last CTA adds the slots in part order
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) ticket = atomicAdd(a.tickets + unit, 1);
-  __syncthreads();
-  if (ticket != a.ctas - 1) return;
-  __threadfence();
-  const float* slots = a.partial + (size_t)unit * a.ctas * bs * a.panel;
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < a.ctas; ++q)
-      s += __ldcg(slots + (size_t)q * bs * a.panel + e);
     const int i = e / pw;
     a.y[((size_t)brow * bs + i) * a.k + p0 + (e - i * pw)] = s;
   }
-  if (threadIdx.x == 0) a.tickets[unit] = 0;  // for the next launch
 }
 
 template <int RPL, bool VEC>
 int launch_bsr(const BsrArgs& a, size_t bytes, cudaStream_t stream) {
-  const dim3 grid(a.nbrows * a.ctas, (a.k + a.panel - 1) / a.panel);
+  const dim3 grid(a.nbrows, (a.k + a.panel - 1) / a.panel);
   auto kernel = spmm_bsr_kernel<RPL, VEC>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -770,33 +738,30 @@ extern "C" int spmm_ell_launch(const void* values, const void* cols,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The cut comes from kernels/spmm.py bsr_partition: panel (1..64 columns
-// of X), lanes_c (lanes across the panel, a power of two, 2 columns each),
-// rpl (rows a lane owns: 1, 2, 4, 8 or 16), warps (1..8) and ctas (parts of
-// a block-row's blocks; partial and tickets are its scratch when above 1).
-// The stage layout follows from these here, as BsrPartition.smem_bytes
-// bounds it.
+// The cut comes from kernels/spmm.py bsr_partition: panel (columns of X,
+// at most k and 2 * lanes_c), lanes_c (lanes across the panel, a power of
+// two up to 32, 2 columns each), rpl (rows a lane owns: 1, 2, 4, 8 or 16)
+// and warps (1..8).  The stage layout is worked out here alone, and the CTA
+// takes as many of the warps as its stages fit in shared memory (at least
+// one).
 extern "C" int spmm_bsr_launch(const void* values, const void* cols,
                                const void* rowp, const void* x, void* y,
-                               void* partial, void* tickets, int nbrows,
-                               int bs, int k, int panel, int lanes_c,
-                               int rpl, int warps, int ctas, void* stream) {
+                               int nbrows, int bs, int k, int panel,
+                               int lanes_c, int rpl, int warps,
+                               void* stream) {
   int lc_log2 = 0;
   while (lc_log2 < 5 && (1 << lc_log2) < lanes_c) ++lc_log2;
   if (bs < 1 || bs > BSR_MAX || k < 1 || nbrows < 1 || panel < 1 ||
-      panel > BSR_MAX_PANEL || panel > k || (1 << lc_log2) != lanes_c ||
-      2 * lanes_c < panel || rpl * (32 >> lc_log2) < bs || warps < 1 ||
-      warps > BSR_MAX_WARPS || ctas < 1 ||
-      (ctas > 1 && (partial == nullptr || tickets == nullptr)))
+      panel > k || (1 << lc_log2) != lanes_c || 2 * lanes_c < panel ||
+      rpl * (32 >> lc_log2) < bs || warps < 1 || warps > BSR_MAX_WARPS)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = bs % 4 == 0 && k % 4 == 0 && panel % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(values) |
                     reinterpret_cast<uintptr_t>(x)) % 16 == 0;
   BsrArgs a{static_cast<const float*>(values), static_cast<const int*>(cols),
             static_cast<const int*>(rowp), static_cast<const float*>(x),
-            static_cast<float*>(y), static_cast<float*>(partial),
-            static_cast<int*>(tickets), nbrows, bs, k, panel, lc_log2,
-            warps, ctas, 0, 0, 0, 0};
+            static_cast<float*>(y), nbrows, bs, k, panel, lc_log2, warps,
+            0, 0, 0, 0};
   // row strides: a float4 read (vec) or a float read of the lanes' rows
   // lands on distinct banks (vs / 4 odd, or vs odd); X's rows hold the
   // panel (rounded up to the float2 a lane reads)
@@ -804,10 +769,11 @@ extern "C" int spmm_bsr_launch(const void* values, const void* cols,
   a.xs = vec ? panel : panel + (panel & 1);
   a.vals_floats = (bs * a.vs + 3) & ~3;
   a.stage_floats = a.vals_floats + ((bs * a.xs + 3) & ~3);
-  const size_t bytes =
-      sizeof(float) * (size_t)warps * BSR_STAGES * a.stage_floats;
-  if (bytes + 64 > SMEM_PER_CTA)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t ring = sizeof(float) * BSR_STAGES * a.stage_floats;
+  const size_t fit = SMEM_PER_CTA / ring;
+  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (fit < static_cast<size_t>(warps)) a.warps = static_cast<int>(fit);
+  const size_t bytes = ring * a.warps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return vec ? launch_bsr_rows<true>(a, rpl, bytes, s)
              : launch_bsr_rows<false>(a, rpl, bytes, s);

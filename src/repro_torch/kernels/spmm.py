@@ -7,8 +7,8 @@ multi-RHS panel X (n, k).
 file's header says what bounds them and how they are laid out.  They mask
 ragged rows and k themselves, so no operand is padded here.
 :func:`ell_partition` sizes the ELL kernel's row tiles, warps and chunks of
-X, and :func:`bsr_partition` the BSR kernel's panels, lanes, warps and
-CTAs a block-row, from the shape and the SM count.
+X, from the shape and the SM count, and :func:`bsr_partition` the BSR
+kernel's panels, lanes and warps, from the shape.
 
 On host tensors the wrappers compute the plain versions; on CUDA tensors
 they launch their kernel or raise.  They take f32 values and X and int32
@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import torch
 
@@ -169,9 +168,9 @@ def spmm_ell(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor
 spmm_ell.launches = 0
 
 
-#: The BSR kernel's ring of stages a warp, its largest panel of X's
-#: columns, its warps a CTA, and the outputs a lane may keep (csrc/spmm.cu).
-BSR_STAGES = 4
+#: The BSR kernel's widest panel of X's columns, the most warps it gives a
+#: block-row, and the outputs a lane may keep.  csrc/spmm.cu owns the
+#: stage layout and takes as many of the warps as fit shared memory.
 BSR_MAX_PANEL = 64
 BSR_MAX_WARPS = 8
 BSR_LANE_OUTPUTS = 32
@@ -179,83 +178,45 @@ BSR_LANE_OUTPUTS = 32
 
 @dataclasses.dataclass(frozen=True)
 class BsrPartition:
-    """How ``spmm_bsr_kernel`` cuts one call: units of (block-row, panel of
-    ``panel`` columns of X), each cut into ``ctas`` CTAs of ``warps`` warps;
-    the row's blocks are split evenly into ``ctas * warps`` contiguous
-    ranges, one a warp.  Lanes cover the (bs, panel) output tile as
+    """How ``spmm_bsr_kernel`` cuts one call: a CTA of up to ``warps``
+    warps a (block-row, panel of ``panel`` columns of X); the row's blocks
+    are split evenly into one contiguous range a warp, whose partials are
+    added in warp order.  Lanes cover the (bs, panel) output tile as
     ``32 // lanes_c`` rows x ``lanes_c`` pairs of columns, a lane owning
-    ``rpl`` rows x 2 columns.  Only these five reach the kernel."""
+    ``rpl`` rows x 2 columns."""
     panel: int
     lanes_c: int
     rpl: int
     warps: int
-    ctas: int
 
     def grid(self, nbrows: int, k: int) -> tuple[int, int]:
-        return nbrows * self.ctas, -(-k // self.panel)
-
-    def ranges(self, start: int, stop: int) -> list[tuple[int, int]]:
-        """The warps' ranges of a block-row's blocks ``[start, stop)``, in
-        the order their partials are added: CTA by CTA, warp by warp."""
-        nw = self.ctas * self.warps
-        n = stop - start
-        return [(start + n * g // nw, start + n * (g + 1) // nw)
-                for g in range(nw)]
-
-    @staticmethod
-    def stage_bytes(bs: int, panel: int) -> int:
-        """One stage at its largest (the kernel pads a block's rows to at
-        most bs + 4 floats and X's to panel + 1; each region rounded up to
-        4 floats)."""
-        up4 = lambda v: -(-v // 4) * 4  # noqa: E731
-        return 4 * (up4(bs * (bs + 4)) + up4(bs * (panel + 1)))
-
-    def smem_bytes(self, bs: int) -> int:
-        return self.warps * BSR_STAGES * self.stage_bytes(bs, self.panel)
+        return nbrows, -(-k // self.panel)
 
 
 def _pow2_at_least(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
 
 
-def bsr_partition(nbrows: int, nblocks: int, bs: int, k: int, sms: int
+@functools.lru_cache(maxsize=64)
+def bsr_partition(nbrows: int, nblocks: int, bs: int, k: int
                   ) -> BsrPartition:
     """The BSR kernel's cut of ``nblocks`` blocks of edge ``bs`` in
-    ``nbrows`` block-rows times X (n, k), on a card of ``sms`` SMs.
+    ``nbrows`` block-rows times X (n, k).
 
     The panel is k up to 64 columns, and no wider than keeps a lane at 32
     outputs (a power of two <= 1024 / bs: 64 at bs 8 and 16, 32 at bs 32,
     16 at bs 64); lanes pair up its columns, a power of two of them across,
     the rest of the 32 down the rows.  A block-row gets one warp per block
-    on average, up to 8 and as many as fit shared memory; where the units
-    (block-rows x panels) leave SMs idle and a warp would still walk more
-    blocks than its ring holds in flight, the row's blocks are also split
-    over CTAs (merged by the unit's last CTA)."""
-    if min(nbrows, nblocks, bs, k, sms) < 1 or bs > MAX_BSR_BLOCK:
+    on average, up to 8."""
+    if min(nbrows, nblocks, bs, k) < 1 or bs > MAX_BSR_BLOCK:
         raise ValueError(f"bsr_partition: nbrows {nbrows}, nblocks "
-                         f"{nblocks}, bs {bs}, k {k}, sms {sms}")
+                         f"{nblocks}, bs {bs}, k {k}")
     cap = 1 << ((BSR_LANE_OUTPUTS * 32) // bs).bit_length() - 1
     panel = min(k, BSR_MAX_PANEL, cap)
     lanes_c = _pow2_at_least(-(-panel // 2))
     rpl = _pow2_at_least(-(-bs // (32 // lanes_c)))
-    per_row = nblocks / nbrows
-    stage = BsrPartition.stage_bytes(bs, panel)
-    fit = (SMEM_PER_CTA - 64) // (BSR_STAGES * stage)
-    warps = max(1, min(BSR_MAX_WARPS, fit, math.ceil(per_row)))
-    units = nbrows * -(-k // panel)
-    ctas = 1
-    walk = BSR_STAGES - 1
-    if units < sms and per_row > warps * walk:
-        ctas = min(math.ceil(per_row / (warps * walk)), -(-sms // units))
-    return BsrPartition(panel, lanes_c, rpl, warps, ctas)
-
-
-@functools.lru_cache(maxsize=64)
-def _bsr_plan(nbrows: int, nblocks: int, bs: int, k: int,
-              device: torch.device) -> BsrPartition:
-    """The partition for one shape on one card, made once."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return bsr_partition(nbrows, nblocks, bs, k, sms)
+    warps = max(1, min(BSR_MAX_WARPS, -(-nblocks // nbrows)))
+    return BsrPartition(panel, lanes_c, rpl, warps)
 
 
 def recut_edge(bs: int) -> int:
@@ -359,19 +320,11 @@ def spmm_bsr(values: torch.Tensor, cols: torch.Tensor, rowp: torch.Tensor,
     if d != bs:
         values, cols, rowp, _ = bsr_recut(values, cols, rowp, bs, d)
         nblocks, nbrows, bs = values.shape[0], rowp.shape[0] - 1, d
-    part = _bsr_plan(nbrows, nblocks, bs, k, values.device)
-    stream = _lib.stream_of(values)
-    partial = tickets = None
-    if part.ctas > 1:
-        grid = part.grid(nbrows, k)
-        partial, tickets = _lib.split_scratch(
-            values.device, stream, grid[0] * grid[1] * bs * part.panel,
-            nbrows * grid[1])
+    part = bsr_partition(nbrows, nblocks, bs, k)
     code = _lib.lib().spmm_bsr_launch(
         values.data_ptr(), cols.data_ptr(), rowp.data_ptr(), x.data_ptr(),
-        y.data_ptr(), None if partial is None else partial.data_ptr(),
-        None if tickets is None else tickets.data_ptr(), nbrows, bs, k,
-        part.panel, part.lanes_c, part.rpl, part.warps, part.ctas, stream)
+        y.data_ptr(), nbrows, bs, k, part.panel, part.lanes_c, part.rpl,
+        part.warps, _lib.stream_of(values))
     _lib.check(code, "spmm_bsr")
     spmm_bsr.launches += 1
     return y

@@ -55,9 +55,27 @@ def _spmm_dia(a: DIA, x, **_) -> Dense:
     return wrap(dia_panel(a.diags, a.offsets, unwrap(wrap(x))))
 
 
+def _kernel_operands(a: BSR):
+    """``a``'s (values, cols, rowp) at the edge the kernel runs
+    (``kernels/spmm.py`` ``recut_edge``): an edge above 64 is re-cut once
+    per matrix and kept on it, so that a solver loop does not pay the
+    re-cut's few dozen small launches on every call; it is made anew where
+    one of the three tensors was replaced or changed in place."""
+    ops = (a.values.contiguous(), a.cols.contiguous(), a.rowp.contiguous())
+    d = spmm_k.recut_edge(a.block)
+    if d == a.block:
+        return ops
+    key = tuple((t.data_ptr(), t._version) for t in (a.values, a.cols,
+                                                     a.rowp))
+    cut = a.__dict__.get("_kernel_cut")
+    if cut is None or cut[0] != key:
+        cut = (key, spmm_k.bsr_recut(*ops, a.block, d)[:3])
+        object.__setattr__(a, "_kernel_cut", cut)     # frozen-safe cache
+    return cut[1]
+
+
 def _spmm_bsr(a: BSR, x, **_) -> Dense:
-    return wrap(spmm_k.spmm_bsr(a.values.contiguous(), a.cols.contiguous(),
-                                a.rowp.contiguous(),
+    return wrap(spmm_k.spmm_bsr(*_kernel_operands(a),
                                 unwrap(wrap(x)).contiguous()))
 
 

@@ -819,51 +819,54 @@ def test_spgemm_range_model_flags_a_tile_missing_from_the_plan():
 # numpy and on the host
 # ---------------------------------------------------------------------------
 
-def _bsr_split_model(vals, cols, rowp, x, part):
+def _bsr_warp_ranges(start, stop, warps):
+    """``csrc/spmm.cu`` spmm_bsr_kernel's ranges of a block-row's blocks
+    ``[start, stop)``: cut evenly over the CTA's warps, warp w taking
+    ``[start + len * w // warps, start + len * (w + 1) // warps)``."""
+    n = stop - start
+    return [(start + n * w // warps, start + n * (w + 1) // warps)
+            for w in range(warps)]
+
+
+def _bsr_split_model(vals, cols, rowp, x, panel, warps):
     """``csrc/spmm.cu`` spmm_bsr_kernel's cut: for each (block-row, panel)
-    unit, the row's blocks in ``part.ranges`` (one a warp), each warp's
-    partial summed over its range in p order, the warps' partials added in
-    warp order within a CTA and the CTAs' sums in CTA order.  Returns the
-    product (f32), how many times each block was taken in each panel, and
-    for each block-row the blocks in the order their products were
-    added."""
+    CTA, the row's blocks in :func:`_bsr_warp_ranges` (one a warp), each
+    warp's partial summed over its range in p order, the warps' partials
+    added in warp order.  Returns the product (f32), how many times each
+    block was taken in each panel, and for each block-row the blocks in the
+    order their products were added."""
     nbrows, bs = rowp.size - 1, vals.shape[1]
     k = x.shape[1]
-    npanels = -(-k // part.panel)
+    npanels = -(-k // panel)
     y = np.full((nbrows * bs, k), np.nan, np.float32)
     taken = np.zeros((vals.shape[0], npanels), np.int64)
     added = {}
     for i in range(nbrows):
-        ranges = part.ranges(int(rowp[i]), int(rowp[i + 1]))
+        ranges = _bsr_warp_ranges(int(rowp[i]), int(rowp[i + 1]), warps)
         for pi in range(npanels):
-            p0 = pi * part.panel
-            pw = min(part.panel, k - p0)
+            p0 = pi * panel
+            pw = min(panel, k - p0)
             total = np.zeros((bs, pw), np.float32)
             order = []
-            for cta in range(part.ctas):
-                cta_sum = np.zeros((bs, pw), np.float32)
-                for w in range(part.warps):
-                    lo, hi = ranges[cta * part.warps + w]
-                    acc = np.zeros((bs, pw), np.float32)
-                    for p in range(lo, hi):
-                        xs = x[cols[p] * bs:(cols[p] + 1) * bs, p0:p0 + pw]
-                        acc = (acc + vals[p] @ xs).astype(np.float32)
-                        taken[p, pi] += 1
-                        order.append(p)
-                    cta_sum = (cta_sum + acc).astype(np.float32)
-                total = (total + cta_sum).astype(np.float32)
+            for lo, hi in ranges:
+                acc = np.zeros((bs, pw), np.float32)
+                for p in range(lo, hi):
+                    xs = x[cols[p] * bs:(cols[p] + 1) * bs, p0:p0 + pw]
+                    acc = (acc + vals[p] @ xs).astype(np.float32)
+                    taken[p, pi] += 1
+                    order.append(p)
+                total = (total + acc).astype(np.float32)
             y[i * bs:(i + 1) * bs, p0:p0 + pw] = total
             added.setdefault(i, []).append(order)
     return y, taken, added
 
 
 def _bsr_case(name):
-    """(vals, cols, rowp, n columns, k values, the SMs) of a named shape:
-    the timed shape (the SpGEMM suite's clustered 0.2 operand, bs 8);
-    block-CG's (half-bandwidth 127 at n 512 in 32-blocks: 16 block-rows);
-    the SpMM suite's blocked class (n 1024, bs 8, 6 % of the blocks); a
-    ragged grid with empty block-rows at bs 12; few long block-rows (split
-    over CTAs)."""
+    """(vals, cols, rowp, n columns, k values) of a named shape: the timed
+    shape (the SpGEMM suite's clustered 0.2 operand, bs 8); block-CG's
+    (half-bandwidth 127 at n 512 in 32-blocks: 16 block-rows); the SpMM
+    suite's blocked class (n 1024, bs 8, 6 % of the blocks); a ragged grid
+    with empty block-rows at bs 12."""
     rng = np.random.default_rng(len(name))
     if name == "timed":
         occ, bs, ks = np.random.default_rng(1).random((256, 256)) < 0.2, 8, \
@@ -876,9 +879,6 @@ def _bsr_case(name):
     elif name == "ragged":
         occ, bs, ks = rng.random((9, 7)) < 0.4, 12, (1, 3, 65)
         occ[[0, 4, 8]] = False
-    elif name == "long rows":
-        occ, bs, ks = rng.random((4, 90)) < 0.8, 8, (8, 3)
-        occ[2] = False
     else:
         raise ValueError(name)
     from repro_torch.sparse import block_pattern
@@ -887,23 +887,27 @@ def _bsr_case(name):
     return vals, cols, rowp, occ.shape[1] * bs, ks
 
 
-BSR_CASES = ["timed", "block-CG", "blocked", "ragged", "long rows"]
+BSR_CASES = ["timed", "block-CG", "blocked", "ragged"]
 
 
 @pytest.mark.parametrize("name", BSR_CASES)
-def test_bsr_split_model_adds_every_block_once_in_order(name):
-    """Under bsr_partition's cut (132 SMs) every stored block is added
-    exactly once per panel, into its own block-row, and each block-row's
-    products are added in p order (warp ranges, then CTAs, in order): an
-    order fixed by the data alone.  The sums give the plain product; an
-    empty block-row gives zeros."""
+@pytest.mark.parametrize("warps", ["partition", 1, 3])
+def test_bsr_split_model_adds_every_block_once_in_order(name, warps):
+    """Under bsr_partition's cut every stored block is added exactly once
+    per panel, into its own block-row, and each block-row's products are
+    added in p order (the warp ranges in order): an order fixed by the data
+    alone.  The same holds at fewer warps, which the launcher takes where
+    the partition's do not fit shared memory.  The sums give the plain
+    product; an empty block-row gives zeros."""
     vals, cols, rowp, n, ks = _bsr_case(name)
     nbrows, bs = rowp.size - 1, vals.shape[1]
     rng = np.random.default_rng(3)
     for k in ks:
-        part = spmm_k.bsr_partition(nbrows, cols.size, bs, k, 132)
+        part = spmm_k.bsr_partition(nbrows, cols.size, bs, k)
         x = _randn(rng, (n, k))
-        y, taken, added = _bsr_split_model(vals, cols, rowp, x, part)
+        y, taken, added = _bsr_split_model(
+            vals, cols, rowp, x, part.panel,
+            part.warps if warps == "partition" else warps)
         np.testing.assert_array_equal(taken, 1)
         for i in range(nbrows):
             for order in added[i]:
@@ -913,21 +917,19 @@ def test_bsr_split_model_adds_every_block_once_in_order(name):
         empty = np.flatnonzero(np.diff(rowp) == 0)
         for i in empty:
             np.testing.assert_array_equal(y[i * bs:(i + 1) * bs], 0.0)
-        if name == "long rows":
-            assert part.ctas > 1
         if name in ("timed", "block-CG", "blocked"):
-            assert part.ctas == 1 and part.warps == 8
+            assert part.warps == spmm_k.BSR_MAX_WARPS
 
 
 @pytest.mark.parametrize("bs", [1, 3, 4, 8, 12, 16, 32, 33, 48, 64])
 @pytest.mark.parametrize("k", [1, 3, 8, 32, 64, 65, 200])
 def test_bsr_partition_fits_the_card(bs, k):
     """The cut covers the (bs, panel) tile with 32 lanes of at most 32
-    outputs each, fits one CTA's shared memory, takes k itself as the panel
-    up to 32 columns (at bs <= 32), and at k = 8 leaves no lane idle at the path's edges
-    (bs 8 and 32)."""
+    outputs each, takes k itself as the panel up to 32 columns (at bs <=
+    32), gives a block-row one warp a block up to 8, and at k = 8 leaves no
+    lane idle at the path's edges (bs 8 and 32)."""
     for nbrows, nblocks in ((256, 13052), (16, 124), (4, 360), (1, 1)):
-        part = spmm_k.bsr_partition(nbrows, nblocks, bs, k, 132)
+        part = spmm_k.bsr_partition(nbrows, nblocks, bs, k)
         lanes_r = 32 // part.lanes_c
         assert part.lanes_c * lanes_r == 32
         assert 1 <= part.panel <= min(k, spmm_k.BSR_MAX_PANEL)
@@ -935,14 +937,14 @@ def test_bsr_partition_fits_the_card(bs, k):
         assert part.lanes_c == 1 or part.lanes_c < part.panel  # no wider
         assert part.rpl in (1, 2, 4, 8, 16) and lanes_r * part.rpl >= bs
         assert 2 * part.rpl <= spmm_k.BSR_LANE_OUTPUTS
-        assert 1 <= part.warps <= spmm_k.BSR_MAX_WARPS and part.ctas >= 1
-        assert part.smem_bytes(bs) <= spmm_k.SMEM_PER_CTA - 64
+        assert part.warps == min(spmm_k.BSR_MAX_WARPS,
+                                 -(-nblocks // nbrows))
         if k <= 32 and bs <= 32:
             assert part.panel == k
         if k == 8 and bs in (8, 32):
             assert 2 * part.lanes_c == 8 and lanes_r * part.rpl == bs
         grid = part.grid(nbrows, k)
-        assert grid[0] == nbrows * part.ctas and grid[1] * part.panel >= k
+        assert grid[0] == nbrows and grid[1] * part.panel >= k
 
 
 @pytest.mark.parametrize("bs", [96, 128, 65])
@@ -1322,8 +1324,7 @@ def test_spmm_bsr_kernel_matches_plain(bs, k, card):
 def test_spmm_bsr_kernel_matches_plain_at_path_shapes(name, card):
     """The kernel at the blocked-sparse path's shapes (the timed shape at k
     64, block-CG's bs 32 at k 8, the SpMM suite's blocked class at k 8 and
-    64), ragged k with empty block-rows, and few long block-rows split over
-    CTAs."""
+    64), and ragged k with empty block-rows."""
     vals, cols, rowp, n, ks = _bsr_case(name)
     args = [torch.as_tensor(v, device=card) for v in (vals, cols, rowp)]
     rng = np.random.default_rng(5)
@@ -1338,10 +1339,10 @@ def test_spmm_bsr_kernel_matches_plain_at_path_shapes(name, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["timed", "long rows"])
+@pytest.mark.parametrize("name", ["timed", "block-CG"])
 def test_spmm_bsr_kernel_is_bitwise_run_to_run(name, card):
-    """The same bits from two calls: warp ranges and CTA parts are added in
-    a fixed order (the long rows take the ticket merge)."""
+    """The same bits from two calls: the warp ranges are added in a fixed
+    order."""
     vals, cols, rowp, n, ks = _bsr_case(name)
     args = [torch.as_tensor(v, device=card) for v in (vals, cols, rowp)]
     x = torch.as_tensor(_randn(np.random.default_rng(6), (n, ks[0])),
@@ -1349,6 +1350,29 @@ def test_spmm_bsr_kernel_is_bitwise_run_to_run(name, card):
     first = spmm_k.spmm_bsr(*args, x)
     for _ in range(3):
         assert torch.equal(spmm_k.spmm_bsr(*args, x), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [96, 128])
+def test_sparse_spmm_above_64_keeps_the_recut(block, card):
+    """sparse.spmm on a matrix pinned to an edge above 64 runs the kernel
+    on the re-cut it keeps on the matrix: one launch a call, the plain
+    product, the same bits on the next call."""
+    from repro_torch import sparse
+
+    rng = np.random.default_rng(block)
+    vals, cols, rowp = (torch.as_tensor(v, device=card) for v in
+                        _bsr_operand(rng, 6, 5, block, 0.4, empty_rows=(2,)))
+    m = sparse.BSR(vals, cols, rowp, (6 * block, 5 * block), block)
+    x = torch.as_tensor(_randn(rng, (5 * block, 8)), device=card)
+    before = spmm_k.spmm_bsr.launches
+    got = sparse.spmm(m, x).read()
+    assert spmm_k.spmm_bsr.launches == before + 1
+    torch.testing.assert_close(
+        torch.as_tensor(got), spmm_k.spmm_bsr_plain(vals, cols, rowp, x)
+        .cpu(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(sparse.spmm(m, x).read(), got)
+    assert spmm_k.spmm_bsr.launches == before + 2
 
 
 @pytest.mark.cuda

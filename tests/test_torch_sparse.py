@@ -253,6 +253,29 @@ class TestSpmm:
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(got, a @ x, rtol=1e-4, atol=1e-5)
 
+    @pytest.mark.parametrize("block", [96, 128])
+    def test_kernel_operands_recut_once_per_matrix(self, block):
+        """The CUDA variant's operands for an edge above 64: re-cut once
+        and kept on the matrix (the same tensors on the next call), made
+        anew after an in-place change, and the same product."""
+        import importlib
+
+        from repro_torch.kernels import spmm as spmm_k
+        mod = importlib.import_module("repro_torch.sparse.spmm")
+        a = _blocked(3 * block, block=block, nblocks=5, seed=block)
+        x = torch.as_tensor(_rhs(3 * block, 5, seed=block))
+        m = TS.matrix(a, format="bsr", block=block, device=CPU)
+        ops = mod._kernel_operands(m)
+        assert ops[0].shape[1] == spmm_k.recut_edge(block) < block
+        assert all(u is v for u, v in zip(mod._kernel_operands(m), ops))
+        np.testing.assert_allclose(spmm_k.spmm_bsr_plain(*ops, x).numpy(),
+                                   a @ x.numpy(), rtol=1e-4, atol=1e-4)
+        m.values.mul_(2.0)
+        again = mod._kernel_operands(m)
+        assert again[0] is not ops[0]
+        np.testing.assert_allclose(spmm_k.spmm_bsr_plain(*again, x).numpy(),
+                                   2 * a @ x.numpy(), rtol=1e-4, atol=1e-4)
+
     @pytest.mark.parametrize("name", sorted(CLASSES))
     def test_auto_selected_spmm_matches_jax(self, name):
         a = CLASSES[name][0]()
