@@ -12,8 +12,13 @@
    X[0, :] (NaN in the padded rows) and the same bits from two calls; both
    BSR kernels at block edges 1, 4, 8, 12, 16, 32 and 64 and at 96 (run on
    sub-blocks of 48), each bitwise from call to call; spgemm_bsr at the
-   suite's clustered 0.2 case at bs 32.
-3. Run the two paths of the port, each with data made from fixed seeds and
+   suite's clustered 0.2 case at bs 32.  The three attention backward
+   kernels (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq) through the autograd
+   wrapper against flash_attention_tiles_bwd_plain: causal tiles at the
+   training shape in bf16 and f32, head_dim 96 and 256, a ragged length,
+   a window, a bias layout and the dense grid; the same bits from two
+   backward passes.
+3. Run the paths of the port, each with data made from fixed seeds and
    validated as benchmarks/*.py does, and each with the launch counts set
    to 0 just before it and read just after; every kernel of a path must
    have launched during that path.
@@ -42,6 +47,16 @@
       the same tensors; and, at full width in f32 with 2 layers, the
       ContinuousEngine's greedy tokens equal the fixed Engine's per request
       (a differing token must sit at a top-2 logit margin <= 1e-3).
+   d. Training qwen3-1.7b at full width (28 layers, bf16 parameters, f32
+      AdamW moments, remat): Trainer.fit for 8 steps of 4 x 512 tokens of
+      the learnable next-token pattern at lr 3e-4, each step's loss,
+      grad_norm and time, tokens/s, peak memory and a profiled step; per
+      step the tiles forward launches 28 x 2 times and each backward
+      kernel 28 times.  Checks: (c) losses finite and the last below the
+      first; (d) at 2 layers in f32, every parameter's gradient on the
+      cuda plane against the torch plane; (e) at 2 layers, a save at step
+      3 and a crash at 5 through TrainingSupervisor, resumed in a fresh
+      state, bitwise equal to an uninterrupted run.
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
@@ -53,6 +68,7 @@
    summed over one run of phase 2b's path
    (also alone with --sparse-shapes, which a copy of this script in a
    checkout of an older commit runs to time that tree's kernels);
+   the backward kernels at the training shape beside SDPA's backward;
    print what ptxas said of the kernels' registers and spills; profile a
    short window of each engine's work (device time by kernel group, the
    device's idle share); print one JSON line of kernel records.
@@ -90,7 +106,8 @@ PTXAS_NAMES = ("flash_attention_lens_decode_kernel",
                "flash_attention_bf16_kernelILi256",
                "flash_attention_bf16_kernel",
                "flash_attention_tiles_bf16_kernelILi256",
-               "flash_attention_tiles_bf16_kernel", "matmul_kernel",
+               "flash_attention_tiles_bf16_kernel", "fa_bwd_dkdv_kernel",
+               "fa_bwd_dq_kernel", "fa_bwd_delta_kernel", "matmul_kernel",
                "spmm_ell_kernel", "spmm_bsr_kernel", "spgemm_bsr_kernel")
 #: Profiler sessions a trace-read measurement tries: a session now and then
 #: records no device event for a kernel that ran.
@@ -969,7 +986,9 @@ def device_breakdown(torch, fn) -> dict:
         if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
             continue
         name, low = e.key, e.key.lower()
-        if "flash_attention_lens_decode" in name:
+        if "fa_bwd_" in name:
+            g = "flash-attention backward"
+        elif "flash_attention_lens_decode" in name:
             g = "flash_attention_lens (decode)"
         elif "flash_attention_lens_prefix" in name:
             g = "flash_attention_lens (prefix)"
@@ -1259,6 +1278,358 @@ def time_attention_kernels(torch, kernels, cold_ms):
     return timed, prefix
 
 
+# -- the attention backward (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq) ----------
+
+BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")
+
+
+def bwd_tol(torch, dtype) -> tuple[float, float]:
+    """Gradient bars, relative and (times the plain gradient's largest
+    entry, at least 1) absolute.  f32: the kernels and the plain backward
+    sum in other orders, a few ulps apart.  bf16: both round f32 sums to
+    bf16 and a last-bit difference flips a rounding: two bf16 ulps
+    relative (2^-7), and 2e-3 absolute, as attn_tol for outputs of size
+    1."""
+    if dtype == torch.float32:
+        return 1e-5, 1e-5
+    return 2.0 ** -7, 2e-3
+
+
+def bwd_layout(kind: str, L: int):
+    """The layout a phase-1 backward case walks, and its forward call."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import (MaskSpec, causal_layout,
+                                                 compile_layout, grid_layout)
+
+    if kind == "grid":
+        lay = grid_layout(L, L, 128, 128, False)
+        return lay, lambda q, k, v, **kw: fa_k.flash_attention(
+            q, k, v, causal=False, row_extents=False, **kw)
+    if kind == "causal":
+        lay = causal_layout(L, L, 128, 128)
+    elif kind == "window":
+        lay = compile_layout(MaskSpec(causal=True, window=L // 4), L, L, 128,
+                             128)
+    else:   # "bias": global tokens, their PARTIAL tiles carry bias tiles
+        lay = compile_layout(MaskSpec(causal=True, window=L // 4,
+                                      global_tokens=(0, 1, L // 2)), L, L,
+                             128, 128)
+    return lay, lambda q, k, v, **kw: fa_k.flash_attention_tiles(
+        q, k, v, lay, **kw)
+
+
+def hold_backward_kernels(torch) -> dict:
+    """Phase 1 for the three backward kernels, through the autograd
+    wrapper, against flash_attention_tiles_bwd_plain on the same o, lse and
+    dO: causal tiles at the training shape (B 4, Hq/Hkv 16/8, L 512, d 128)
+    in bf16 and f32, d 96 (32/32) and d 256 (8/1), a ragged L of 777, a
+    windowed band, a bias layout and the dense grid; then the same bits
+    from two backward passes at the training shape in both dtypes.  Each
+    check prints its largest error beside its bar.  Returns each kernel's
+    largest error in bf16 at the training shape (D against its plain sum,
+    dK and dV for dkdv, dQ for dq)."""
+    from repro_torch.kernels import flash_attention as fa_k
+
+    b, hq, hkv, L, d = ATTN_SHAPE
+    cases = [("causal", torch.bfloat16, b, hq, hkv, L, d),
+             ("causal", torch.float32, b, hq, hkv, L, d),
+             ("causal", torch.bfloat16, 1, 32, 32, L, 96),
+             ("causal", torch.float32, 1, 32, 32, L, 96),
+             ("causal", torch.bfloat16, 1, 8, 1, L, 256),
+             ("causal", torch.float32, 1, 8, 1, L, 256),
+             ("causal", torch.bfloat16, 2, hq, hkv, 777, d),
+             ("window", torch.bfloat16, 2, hq, hkv, L, d),
+             ("bias", torch.bfloat16, 2, hq, hkv, L, d),
+             ("bias", torch.float32, 1, hq, hkv, L, d),
+             ("grid", torch.bfloat16, 2, hq, hkv, L, d),
+             ("grid", torch.float32, 1, hq, hkv, 300, d)]
+    errs = {}
+    wrappers = [getattr(fa_k, n) for n in BWD_KERNELS]
+    for kind, dtype, bsz, h, hk, n, hd in cases:
+        q, k, v = attn_inputs(torch, dtype, bsz, h, hk, n, n, hd, n + hd)
+        g = torch.Generator(device="cuda").manual_seed(hd)
+        do = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+        lay, call = bwd_layout(kind, n)
+        with torch.no_grad():
+            o, m, l = call(q, k, v, return_state=True)
+        lse = fa_k.softmax_lse(m, l)
+        want = fa_k.flash_attention_tiles_bwd_plain(q, k, v, o, lse, do, lay)
+        delta_want = (do.float() * o.float()).sum(-1)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = [w.launches for w in wrappers]
+        out = call(*leaves)
+        out.backward(do)
+        torch.cuda.synchronize()
+        if [w.launches - x for w, x in zip(wrappers, before)] != [1, 1, 1]:
+            raise AssertionError(f"backward {kind}: the three kernels did "
+                                 f"not launch once each")
+        if not torch.equal(out.detach(), o):
+            raise AssertionError(f"backward {kind}: the autograd forward's "
+                                 f"o differs from the forward's")
+        rtol, atol = bwd_tol(torch, dtype)
+        what = f"{kind} {str(dtype)[6:]} B={bsz} Hq/Hkv={h}/{hk} L={n} d={hd}"
+        found = {}
+        for grad, ref, name in zip((t.grad for t in leaves), want,
+                                   ("dq", "dk", "dv")):
+            scale = max(1.0, float(ref.float().abs().max()))
+            found[name] = max_err(torch, grad.float(), ref.float(), rtol,
+                                  atol * scale, f"backward {what} {name}")
+        found["delta"] = max_err(torch, fa_k.fa_bwd_delta(o, do), delta_want,
+                                 1e-5, 1e-5, f"backward {what} D")
+        log(f"backward {what}: max |err| dq {found['dq']:.3g} dk "
+            f"{found['dk']:.3g} dv {found['dv']:.3g} D {found['delta']:.3g} "
+            f"(bar rtol {rtol:.3g}, atol {atol:g} x max |grad|; D 1e-5)")
+        if (kind, dtype, hd, n) == ("causal", torch.bfloat16, d, L):
+            errs = {"fa_bwd_delta": found["delta"],
+                    "fa_bwd_dkdv": max(found["dk"], found["dv"]),
+                    "fa_bwd_dq": found["dq"]}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attn_inputs(torch, dtype, b, hq, hkv, L, L, d, 5)
+        do = torch.randn(q.shape, device="cuda").to(dtype)
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fa_k.flash_attention(*leaves, causal=True).backward(do)
+            runs.append([t.grad for t in leaves])
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise AssertionError(f"backward: two passes differ in {dtype}")
+    log("backward: dQ, dK, dV bitwise equal over two passes in bf16 and f32")
+    return errs
+
+
+def time_backward_kernels(torch, kernels, cold_ms) -> dict:
+    """Phase 3 for the backward kernels at the training shape, bf16, causal
+    tiles: each wrapper's time (cold L2); the plain version (the whole
+    plain backward for dkdv and dq, the plain sum for delta); the library
+    call, SDPA's backward (causal, GQA expanded; timed only, on dkdv and
+    dq's records); each kernel's bound (its own bytes once at the HBM
+    rate, its products at the bf16 tensor-core rate) and the bound of the
+    whole backward (q, k, v, o, dO, dQ, dK, dV, lse and D once, against
+    10 * B * Hq * live pairs * d flops).  Returns the call of each."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import causal_layout
+
+    b, hq, hkv, L, d = ATTN_SHAPE
+    q, k, v = attn_inputs(torch, torch.bfloat16, b, hq, hkv, L, L, d, 31)
+    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    lay = causal_layout(L, L, 128, 128)
+    scale = d ** -0.5
+    with torch.no_grad():
+        o, m, l = fa_k.flash_attention_tiles(q, k, v, lay, return_state=True)
+    lse = fa_k.softmax_lse(m, l)
+    delta = fa_k.fa_bwd_delta(o, do)
+    pairs = L * (L + 1) // 2
+    big, small = 2 * q.numel(), 2 * k.numel()      # bf16 bytes
+    rows = 4 * b * hq * L                          # one f32 per row
+    calls = {
+        "fa_bwd_delta": (lambda: fa_k.fa_bwd_delta(o, do),
+                         lambda: (do.float() * o.float()).sum(-1),
+                         2 * big + rows, 2.0 * b * hq * L * d),
+        "fa_bwd_dkdv": (lambda: fa_k.fa_bwd_dkdv(q, k, v, do, lse, delta,
+                                                 lay, scale),
+                        lambda: fa_k.flash_attention_tiles_bwd_plain(
+                            q, k, v, o, lse, do, lay),
+                        2 * big + 4 * small + 2 * rows,
+                        8.0 * b * hq * pairs * d),
+        "fa_bwd_dq": (lambda: fa_k.fa_bwd_dq(q, k, v, do, lse, delta, lay,
+                                             scale),
+                      lambda: fa_k.flash_attention_tiles_bwd_plain(
+                          q, k, v, o, lse, do, lay),
+                      3 * big + 2 * small + 2 * rows,
+                      6.0 * b * hq * pairs * d)}
+    qe, ke, ve = (t.detach().clone().requires_grad_() for t in
+                  (q, k.repeat_interleave(hq // hkv, 1),
+                   v.repeat_interleave(hq // hkv, 1)))
+    oe = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+    sdpa_bwd = cold_ms(lambda: torch.autograd.grad(oe, (qe, ke, ve), do,
+                                                   retain_graph=True), 50)
+    whole, _ = bound_ms(4 * big + 4 * small + 2 * rows,
+                        10.0 * b * hq * pairs * d, PEAK_BF16_FLOP_PER_S)
+    for name, (kern, plain, nbytes, flops) in calls.items():
+        rec = kernels[name]
+        rec["ms"] = cold_ms(kern, 50)
+        rec["plain_ms"] = cold_ms(plain, 3)
+        rec["library_ms"] = None if name == "fa_bwd_delta" else sdpa_bwd
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops,
+                                                    PEAK_BF16_FLOP_PER_S)
+        rec["backward_bound_ms"] = whole
+    rec = kernels["fa_bwd_dq"]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa_k.flash_attention_tiles(*leaves, lay)
+    rec["backward_ms"] = cold_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 50)
+    log(f"attention backward timed: bf16, causal tiles, B={b} Hq/Hkv="
+        f"{hq}/{hkv} L={L} d={d}: the three kernels through autograd "
+        f"{rec['backward_ms']:.4f} ms, SDPA backward {sdpa_bwd:.4f} ms, the "
+        f"whole backward's bound {whole:.4f} ms")
+    return {name: c[0] for name, c in calls.items()}
+
+
+# -- phase 2d: training qwen3-1.7b -------------------------------------------
+
+#: Trainer.fit: 8 steps of 4 x 512 tokens of the learnable next-token
+#: pattern (tests/test_train_integration.py::_learnable_data) at lr 3e-4.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 512, 3e-4
+
+
+def learnable_data(B: int, S: int, n_batches: int = 64):
+    """tests/test_train_integration.py's next-token pattern: token i+1 =
+    (token i + 1) % 64."""
+    class DS:
+        def batch(self, i):
+            rng = np.random.default_rng(i % n_batches)
+            start = rng.integers(0, 64, (B, 1), dtype=np.int32)
+            seq = (start + np.arange(S + 1, dtype=np.int32)[None, :]) % 64
+            return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    return DS()
+
+
+def run_train_path(torch, wrappers) -> dict:
+    """Phase 2d: qwen3-1.7b at full width (28 layers, bf16 parameters, f32
+    AdamW moments, remat) through Trainer.fit, with the launch counts reset
+    just before the measured steps and read just after (per step: the tiles
+    forward 28 x 2 with remat, each backward kernel 28 times); then checks
+    (c) losses finite and falling, (d) at 2 layers in
+    f32 every parameter's gradient on the cuda plane against the torch
+    plane, (e) at 2 layers a crash and resume through TrainingSupervisor
+    bitwise equal to an uninterrupted run.  Returns the path's numbers,
+    with a profile of one more step under ``profile`` (a closure, which
+    keeps the trained state until it is dropped)."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime import TrainingSupervisor
+    from repro_torch.train import create
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    cfg = get_config(ARCH)
+    data = learnable_data(TRAIN_BATCH, TRAIN_SEQ)
+    t = time.perf_counter()
+    trainer = Trainer(cfg, lr=TRAIN_LR, total_steps=TRAIN_STEPS, seed=0,
+                      device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    hist = trainer.fit(data, TRAIN_STEPS, log_every=1)["history"]
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["history"] = hist
+    times = [h["time_s"] for h in hist]
+    out["step_s"] = [b - a for a, b in zip([0.0] + times, times)]
+    steady = out["step_s"][1:]
+    out["tok_s"] = TRAIN_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
+    layers = cfg.num_layers
+    want = {"flash_attention_tiles": 2 * layers * TRAIN_STEPS,
+            **{k: layers * TRAIN_STEPS for k in BWD_KERNELS},
+            "flash_attention": 0, "flash_attention_lens": 0}
+    if out["launches"] != want:
+        raise AssertionError(f"training launches {out['launches']}, "
+                             f"expected {want}")
+
+    def one_step():
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in data.batch(TRAIN_STEPS).items()}
+        trainer.step_fn(trainer.state, batch)
+
+    # where the device time of one step goes; the caller runs it after the
+    # kernel timings, whose profiler traces lose events after a large trace
+    out["profile"] = lambda: device_breakdown(torch, one_step)
+
+    # (c) every loss finite, the last below the first
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(c) losses {losses}")
+
+    # (d) f32 at full width, 2 layers: cuda plane against the torch plane
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                param_dtype="float32")
+    lm32 = LM(cfg32)
+    p32 = lm32.init(0, device="cuda")
+    batch = data.batch(0)
+    before = wrappers["fa_bwd_dq"].launches
+    (_, _), g_cuda = value_and_grad(lm32.loss, p32, batch)
+    if wrappers["fa_bwd_dq"].launches != before + 2:
+        raise AssertionError("(d) the cuda plane's gradients did not run "
+                             "the backward kernels")
+    with registry.use_backend("torch"):
+        (_, _), g_torch = value_and_grad(lm32.loss, p32, batch)
+    out["d_rel"] = {
+        path: float((gc - gt).abs().max() / gt.abs().max().clamp_min(1e-30))
+        for (path, gc), (_, gt) in zip(tree_paths(g_cuda),
+                                       tree_paths(g_torch))}
+    worst = max(out["d_rel"].values())
+    if not worst <= D_REL_TOL:
+        raise AssertionError(f"(d) gradients cuda vs torch plane: "
+                             f"{out['d_rel']}")
+    del p32, g_cuda, g_torch
+    torch.cuda.empty_cache()
+
+    # the embedding's backward, twice on the same inputs: the same bits
+    emb = torch.randn(cfg.padded_vocab, cfg.d_model, device="cuda",
+                      dtype=torch.bfloat16, requires_grad=True)
+    tok = torch.as_tensor(batch["tokens"], device="cuda").long()
+    gy = torch.randn(*tok.shape, cfg.d_model, device="cuda",
+                     dtype=torch.bfloat16)
+    ge = [torch.autograd.grad(torch.nn.functional.embedding(tok, emb), emb,
+                              gy)[0] for _ in range(2)]
+    if not torch.equal(*ge):
+        raise AssertionError("the embedding's backward differs run to run")
+    del emb, ge
+
+    # (e) 2 layers: save at 3, crash at 5, resume in a fresh state, finish
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    lm2 = LM(cfg2)
+    trainer2 = Trainer(cfg2, lr=TRAIN_LR, total_steps=6, seed=0,
+                       device="cuda")
+    step_fn, opt = trainer2.step_fn, trainer2.opt
+    ref = trainer2.state
+    for i in range(6):
+        ref, _ = step_fn(ref, data.batch(i))
+    with tempfile.TemporaryDirectory() as d:
+        sup = TrainingSupervisor(Checkpointer(d),
+                                 create(lm2, opt, 0, device="cuda"),
+                                 save_every=3)
+        try:
+            sup.run(step_fn, data, 6, fail_at=5)
+            raise AssertionError("(e) the injected failure did not fire")
+        except RuntimeError as exc:
+            if "injected failure" not in str(exc):
+                raise
+        del sup
+        sup2 = TrainingSupervisor(Checkpointer(d),
+                                  create(lm2, opt, 1, device="cuda"),
+                                  save_every=3)
+        out["e_resumed_at"] = int(sup2.state.step)
+        final, _ = sup2.run(step_fn, data, 6)
+    pairs = list(zip(tree_leaves(final.params), tree_leaves(ref.params)))
+    out["e_equal"] = sum(torch.equal(a, b) for a, b in pairs)
+    out["e_leaves"] = len(pairs)
+    if out["e_resumed_at"] != 3 or out["e_equal"] != len(pairs):
+        raise AssertionError(f"(e) resumed at {out['e_resumed_at']}, "
+                             f"{out['e_equal']}/{len(pairs)} parameters "
+                             f"bitwise equal to the uninterrupted run")
+    del trainer2, ref, final
+    torch.cuda.empty_cache()
+    return out
+
+
+#: (d)'s bar: the largest |cuda - torch| of a parameter's gradient over
+#: that gradient's largest entry.  Both planes run f32 (TF32 off); only
+#: attention differs (serial FMA sums against BLAS), a few ulps an entry.
+D_REL_TOL = 1e-3
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1308,7 +1679,8 @@ def main() -> int:
     kernels = {k: {"name": k} for k in
                ("matmul", "spmv_ell", "spmv_dia", "fft_stage", "spmm_ell",
                 "spmm_bsr", "spgemm_bsr", "flash_attention",
-                "flash_attention_lens", "flash_attention_tiles")}
+                "flash_attention_lens", "flash_attention_tiles",
+                *BWD_KERNELS)}
 
     # -- inputs of the main path (fixed seeds, as benchmarks/*.py) ----------
     n_mm = 1024
@@ -1437,6 +1809,8 @@ def main() -> int:
         kernels[name]["max_abs_err"] = e
     for heads in HEAD_DIM_SHAPES:
         hold_attention_kernels(torch, heads)
+    for name, e in hold_backward_kernels(torch).items():
+        kernels[name]["max_abs_err"] = e
     torch.cuda.synchronize()
     log(f"phase 1: {len(kernels)} kernels agree with their plain versions")
 
@@ -1567,6 +1941,35 @@ def main() -> int:
     log(f"  (b) f32, 2 layers: {serve['b_equal']}/{len(SERVE_REQS)} requests "
         f"token-equal; margins at divergences {serve['b_margins']}")
 
+    # -- phase 2d: the training path, counted -------------------------------
+    train_wrappers = {**attn_wrappers,
+                      **{k: getattr(fa_k, k) for k in BWD_KERNELS}}
+    t_path = time.perf_counter()
+    train = run_train_path(torch, train_wrappers)
+    log(f"phase 2d: {ARCH} training path and its checks in "
+        f"{time.perf_counter() - t_path:.2f} s, kernel launches over "
+        f"{TRAIN_STEPS} steps: {train['launches']}")
+    launches.update({k: train["launches"][k] for k in BWD_KERNELS})
+    log(f"{ARCH} training (full width, bf16 parameters, f32 AdamW moments, "
+        f"remat; init {train['init_s']:.2f} s) on {smi[0]}: "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"lr {TRAIN_LR}")
+    for h, dt in zip(train["history"], train["step_s"]):
+        log(f"  step {h['step']}: loss {h['loss']:.4f}, grad_norm "
+            f"{h['grad_norm']:.4f}, {dt * 1e3:.1f} ms")
+    log(f"  {train['tok_s']:.1f} tokens/s over steps 2-{TRAIN_STEPS}; "
+        f"peak memory allocated {train['peak_gb']:.2f} GB")
+    named = {k: v for k, v in train["d_rel"].items()
+             if any(f"['{n}']" in k for n in ("wq", "wk", "wv", "q_norm",
+                                               "k_norm"))}
+    log(f"  (d) f32, 2 layers, gradients cuda vs torch plane, max |diff| / "
+        f"max |grad| (bar {D_REL_TOL}): worst "
+        f"{max(train['d_rel'].values()):.3g}; "
+        + ", ".join(f"{k} {v:.3g}" for k, v in named.items()))
+    log(f"  (e) 2 layers, save at 3, crash at 5: resumed at step "
+        f"{train['e_resumed_at']}, {train['e_equal']}/{train['e_leaves']} "
+        f"parameters bitwise equal to the uninterrupted run")
+
     # -- phase 3: times, cold L2 --------------------------------------------
     scrub = scrub_buffer(torch)
 
@@ -1651,6 +2054,7 @@ def main() -> int:
         kernels[name]["path_traced_launches"] = rec["launches"]
     timed_attn, lens_prefix = time_attention_kernels(torch, kernels,
                                                      cold_ms)
+    timed_bwd = time_backward_kernels(torch, kernels, cold_ms)
 
     routes = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
@@ -1675,13 +2079,17 @@ def main() -> int:
         "flash_attention_tiles": (
             "src/repro_torch/kernels/csrc/flash_attention_tiles.cu",
             "src/repro/kernels/flash_attention.py:275"),
+        **{k: ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               "none: port-only (src/repro/train/step.py:53 differentiates "
+               "with jax.value_and_grad through the XLA plane)")
+           for k in BWD_KERNELS},
     }
     timed = {"matmul": lambda: mm_k.matmul(a, b),
              "spmv_ell": lambda: spmv_k.spmv_ell(vals, cols, x),
              "spmv_dia": lambda: spmv_k.spmv_dia(diags, offs, xcg),
              "fft_stage": lambda: fft_k.fft_stages(re0, im0, tw_re, tw_im,
                                                   0, stages),
-             **timed_sparse, **timed_attn}
+             **timed_sparse, **timed_attn, **timed_bwd}
     # the kernels' symbols, where the record's name is not "<name>_kernel"
     symbols = {"fft_stage": "fft_stages_kernel",
                "flash_attention": "flash_attention_bf16_kernel",
@@ -1698,6 +2106,8 @@ def main() -> int:
     log(f"  Engine, {PROFILE_NEW} new tokens: {fmt_breakdown(fixed_prof)}")
     log(f"  ContinuousEngine, first {SERVE_SLOTS} requests with "
         f"{PROFILE_NEW} new tokens: {fmt_breakdown(cont_prof)}")
+    log(f"  training, one step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"{fmt_breakdown(train.pop('profile')())}")
     KEYS = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernel_ms")
     out = []

@@ -9,10 +9,16 @@ and numpy, never ``jax`` and nothing of ``repro``.
     numerics   the paper's four Euroben kernels, CG and block-CG
     sparse     the blocked-sparse plane: BSR, statistics, the format
                selector, SpMM and SpGEMM, and the attention mask compiler
-    configs    model configurations (qwen3-1.7b so far)
-    models     the LM: layers, GQA attention, the dense block
+    configs    model configurations (the four dense ones so far)
+    models     the LM: layers, GQA attention, the dense block, the loss
+    optim      AdamW, LR schedules, int8 gradient compression
+    train      the train state and the train / eval step factories
+    data       seeded token streams (synthetic, byte corpus), prefetch
+    checkpoint async checkpoints in the JAX package's on-disk layout
+    runtime    heartbeats, failure verdicts, the training supervisor
     serve      the fixed and continuous-batching engines, the paged cache
     launch     command-line entry points (``python -m
-               repro_torch.launch.serve``)
+               repro_torch.launch.train``, ``... .launch.serve``)
     interop    carries the JAX package's objects (as numpy) across
+    utils      parameter trees
 """

@@ -4,7 +4,7 @@ the JAX package).
 
 Every field is a static (hashable) property.  Only the fields the dense
 family reads are here; the other families' fields (MoE, SSM, hybrid,
-frontends, M-RoPE) come with their slices (ROADMAP queue 1 item 7).
+frontends, M-RoPE) come with their slices (ROADMAP queue 1 items 5-7).
 ``dtype`` / ``param_dtype`` keep the JAX package's names;
 :attr:`ModelConfig.act_dtype` and :attr:`ModelConfig.pdtype` are the
 ``torch.dtype`` s.
@@ -47,9 +47,17 @@ class ModelConfig:
     tie_embeddings: bool = False
     scale_embeddings: bool = False           # gemma: * sqrt(d_model)
 
-    # dtypes
+    # dtypes / execution
     dtype: str = "bfloat16"                  # activations
     param_dtype: str = "float32"             # storage
+    # recompute each block's activations in the backward
+    # (torch.utils.checkpoint around every block of models.transformer.
+    # stack_apply); it changes what is kept, never what is computed
+    remat: bool = True
+    # kept for field parity with the JAX package, where it picks lax.scan
+    # over an unrolled layer loop; the port always loops over its list of
+    # layers in Python, so it has no effect here
+    scan_layers: bool = True
     logit_softcap: float = 0.0
 
     # continuous-batching serve tier (DESIGN.md §13): KV-cache page size

@@ -4,7 +4,7 @@ Paper §3: ``ARBB_OPT_LEVEL`` selects O2 (one core, vectorised) or O3
 (multiple cores); the JAX package extends the ladder to O3 = one mesh and
 O4 = multi-pod.  This package runs O2 only: one card.  O3 and O4 raise
 ``NotImplementedError`` until the mesh-scope slice of the port (ROADMAP
-queue 1 item 11) lands.  ``ARBB_OPT_LEVEL`` is honoured as in the JAX
+queue 1 item 10) lands.  ``ARBB_OPT_LEVEL`` is honoured as in the JAX
 package, so asking for O3 there raises here too.
 """
 from __future__ import annotations
@@ -41,7 +41,7 @@ def _check(level: ExecLevel) -> ExecLevel:
     if level != ExecLevel.O2:
         raise NotImplementedError(
             f"ExecLevel {level.name} needs mesh scope, which the PyTorch "
-            f"port does not have yet (ROADMAP queue 1 item 11, the "
+            f"port does not have yet (ROADMAP queue 1 item 10, the "
             f"mesh-scope slice); only O2 runs")
     return level
 

@@ -35,7 +35,7 @@ Providers register lazily: ops are declared here by module path and imported
 on first dispatch, so upper layers depend only on this module.
 
 Not ported yet: the measured cost model, observability (``explain``, spans,
-counters) and mesh topology (ROADMAP queue 1 items 10 and 11).
+counters) and mesh topology (ROADMAP queue 1 items 8 and 10).
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ here, on the device chosen by the ``bind`` rule.  It reads the fields by
 name and imports neither ``jax`` nor ``repro``.
 
 :func:`carry_params` turns the JAX LM's parameter pytree (as numpy) into
-the port's LM parameters, so that both compute the same function.
+the port's LM parameters, so that both compute the same function;
+:func:`carry_train_state` carries a whole JAX ``TrainState`` (step,
+parameters and AdamW state), so that both take the same training steps.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.numerics.sparse import CSR, DIA, ELL, index_array
 from repro_torch.sparse.formats import BSR
 from repro_torch.sparse.stats import SparseStats
 
-__all__ = ["carry", "carry_params"]
+__all__ = ["carry", "carry_params", "carry_train_state"]
 
 
 def _carry_stats(src: Any) -> Optional[SparseStats]:
@@ -100,3 +102,43 @@ def carry_params(params: dict, cfg, *, device: Any = None) -> dict:
                                                          dtype, dev))
                      for i in range(cfg.num_layers)]
     return out
+
+
+def _dtype_of(x) -> torch.dtype:
+    """The torch dtype of a numpy array's (``bfloat16`` by name: numpy has
+    no such type of its own)."""
+    name = str(np.asarray(x).dtype)
+    return torch.bfloat16 if name == "bfloat16" else getattr(torch, name)
+
+
+def carry_train_state(state: Any, cfg, *, device: Any = None):
+    """The port's :class:`~repro_torch.train.TrainState` from the JAX
+    package's ``TrainState`` (fields ``step``, ``params`` and
+    ``opt_state`` = ``AdamState(count, mu, nu)``, read by name; leaves as
+    numpy arrays).  Parameters go through :func:`carry_params`; the
+    moments keep their own dtype (f32, or bf16 for ``moment_dtype``
+    bf16) and the counters are int32."""
+    from repro_torch.optim import AdamState
+    from repro_torch.train import TrainState
+
+    dev = resolve_device(device)
+    opt = state.opt_state
+
+    def moments(tree):
+        out = {k: _tree(v, lambda a: _leaf(a, _dtype_of(a), dev))
+               for k, v in tree.items() if k != "layers"}
+        out["layers"] = [_tree(tree["layers"],
+                               lambda a, i=i: _leaf(np.asarray(a)[i],
+                                                    _dtype_of(a), dev))
+                         for i in range(cfg.num_layers)]
+        return out
+
+    def count(x):
+        return torch.as_tensor(np.array(x, np.int32), device=dev)
+
+    return TrainState(
+        step=count(state.step), params=carry_params(state.params, cfg,
+                                                    device=dev),
+        opt_state=AdamState(count=count(opt.count), mu=moments(opt.mu),
+                            nu=moments(opt.nu)))
+

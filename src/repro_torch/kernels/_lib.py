@@ -42,13 +42,14 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("common.cu", "matmul.cu", "spmv.cu", "fft.cu", "spmm.cu",
            "spgemm.cu", "flash_attention.cu", "flash_attention_tiles.cu",
-           "flash_attention_lens.cu")
+           "flash_attention_lens.cu", "flash_attention_bwd.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C entry point -> argument types (pointers and the stream as c_void_p).
 _SIGNATURES = {
     "matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -71,6 +72,9 @@ _SIGNATURES = {
     "flash_attention_tiles_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _F, _I, _I, _P),
+    "fa_bwd_delta_launch": (_P, _P, _P, _L, _I, _I, _P),
+    "fa_bwd_dkdv_launch": (_P,) * 16 + (_I,) * 12 + (_F, _I, _P),
+    "fa_bwd_dq_launch": (_P,) * 12 + (_I,) * 12 + (_F, _I, _P),
 }
 
 

@@ -52,6 +52,20 @@ last Q tile and the last K tile are short.
 A row whose keys are all masked keeps ``m == NEG_INF``; its ``o`` and
 ``l`` are garbage (the kernels and the plain versions may disagree on
 them), and :func:`merge_states` weights such a state by exactly 0.
+
+The backward (port-only: the JAX package differentiates through its XLA
+plane).  Where grad mode is on and q, k or v requires grad,
+``flash_attention`` (both walks) and ``flash_attention_tiles`` go through
+one ``torch.autograd.Function`` (:class:`_Attention`): its forward runs
+the kernel with state and saves q, k, v, o and ``lse = m + log l``
+(:func:`softmax_lse`); its backward is :func:`flash_attention_tiles_bwd`
+over the same layout (the dense grid's is :func:`~repro_torch.sparse.
+maskcompiler.grid_layout`): three launches of csrc/flash_attention_bwd.cu
+on CUDA tensors (:func:`fa_bwd_delta`, :func:`fa_bwd_dkdv`,
+:func:`fa_bwd_dq`, each counting its launches), the plain
+:func:`flash_attention_tiles_bwd_plain` on host tensors.  A row with no
+live key gets no gradient.  ``flash_attention_lens`` (serving) has no
+backward and raises when asked for one.
 """
 from __future__ import annotations
 
@@ -68,6 +82,9 @@ from repro_torch.kernels.ref import NEG_INF, _expand_kv
 __all__ = ["NEG_INF", "merge_states", "flash_attention",
            "flash_attention_lens", "flash_attention_tiles",
            "flash_attention_plain", "flash_attention_tiles_plain",
+           "flash_attention_tiles_bwd", "flash_attention_tiles_bwd_plain",
+           "fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq", "softmax_lse",
+           "column_walk", "CardLayout",
            "LensPartition", "lens_partition", "lens_blocks", "HEAD_DIMS",
            "MAX_BLOCK_K"]
 
@@ -203,30 +220,94 @@ def flash_attention_tiles_plain(q, k, v, layout, *,
         for p in range(rowp[i], rowp[i + 1]):
             c = cols[p]
             keys = min(bk, lk - c * bk)
-            live = bias = None
-            if p >= mid[i]:
-                if layout.band is not None:
-                    causal, window, off = layout.band
-                    qpos = (i * bq + off
-                            + torch.arange(rows, device=q.device)[:, None])
-                    kpos = c * bk + torch.arange(keys,
-                                                 device=q.device)[None, :]
-                    live = torch.ones((rows, keys), dtype=torch.bool,
-                                      device=q.device)
-                    if causal:
-                        live = live & (qpos >= kpos)
-                    if window is not None:
-                        live = live & ((qpos - kpos) < window if causal
-                                       else (qpos - kpos).abs() < window)
-                else:
-                    bias = torch.as_tensor(
-                        layout.biases[prowp[i] + (p - mid[i])][:rows, :keys],
-                        device=q.device)
+            live, bias = _walk_mask(layout, i, p, c, rows, keys, mid, prowp,
+                                    q.device)
             carry = _fold(carry, qt, kk[:, :, c * bk:(c + 1) * bk],
                           vv[:, :, c * bk:(c + 1) * bk], scale, live=live,
                           bias=bias)
         outs.append(carry)
     return _finish(q, outs, return_state)
+
+
+def _walk_mask(layout, i, p, c, rows, keys, mid, prowp, device):
+    """``(live, bias)`` of entry ``p`` (K tile ``c``) of Q tile ``i``'s
+    walk, as the kernels mask it: none for a FULL tile; for a PARTIAL tile
+    the band compare or the stored bias tile."""
+    if p < mid[i]:
+        return None, None
+    bq, bk = layout.block_q, layout.block_k
+    if layout.band is None:
+        return None, torch.as_tensor(
+            layout.biases[prowp[i] + (p - mid[i])][:rows, :keys],
+            device=device)
+    causal, window, off = layout.band
+    qpos = i * bq + off + torch.arange(rows, device=device)[:, None]
+    kpos = c * bk + torch.arange(keys, device=device)[None, :]
+    live = torch.ones((rows, keys), dtype=torch.bool, device=device)
+    if causal:
+        live = live & (qpos >= kpos)
+    if window is not None:
+        live = live & ((qpos - kpos) < window if causal
+                       else (qpos - kpos).abs() < window)
+    return live, None
+
+
+def softmax_lse(m, l):
+    """The log-sum-exp ``m + log(l)`` of the forward's state (f32), and
+    ``-inf`` on rows with no live key (``m == NEG_INF``), whose
+    probabilities the backward takes as 0."""
+    return torch.where(m <= NEG_INF, torch.full_like(m, float("-inf")),
+                       m + torch.log(l))
+
+
+def flash_attention_tiles_bwd_plain(q, k, v, o, lse, do, layout,
+                                    scale: Optional[float] = None):
+    """The backward of the tiles walk in torch, tile by tile, as the
+    kernels run it: ``D = rowsum(dO * o)``; per walk entry ``P = exp(S -
+    lse)`` (0 on dead rows), ``dV += P^T dO``, ``dP = dO V^T``, ``dS = P *
+    (dP - D)``, ``dQ += dS K * scale``, ``dK += dS^T q * scale``, in f32;
+    the GQA group's heads are summed into their kv head.  Returns ``(dq,
+    dk, dv)`` in the inputs' dtypes."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    bq, bk = layout.block_q, layout.block_k
+    scale = scale if scale is not None else d ** -0.5
+    kk, vv = (t.float() for t in _expand_kv(k, v, hq))
+    qf, dof = q.float(), do.float()
+    delta = (dof * o.float()).sum(-1)
+    dead = torch.isneginf(lse)
+    lse0 = torch.where(dead, torch.zeros_like(lse), lse)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, hq, lk, d), device=q.device)
+    dv = torch.zeros_like(dk)
+    rowp, mid, prowp, cols = (layout.rowp.tolist(), layout.mid.tolist(),
+                              layout.prowp.tolist(), layout.cols.tolist())
+    for i in range(layout.nq):
+        rs = slice(i * bq, (i + 1) * bq)
+        qt, dot = qf[:, :, rs], dof[:, :, rs]
+        rows = qt.shape[2]
+        for p in range(rowp[i], rowp[i + 1]):
+            c = cols[p]
+            ks = slice(c * bk, (c + 1) * bk)
+            keys = min(bk, lk - c * bk)
+            live, bias = _walk_mask(layout, i, p, c, rows, keys, mid, prowp,
+                                    q.device)
+            s = torch.matmul(qt, kk[:, :, ks].transpose(-1, -2)) * scale
+            if live is not None:
+                s = torch.where(live, s, NEG_INF)
+            if bias is not None:
+                s = s + bias
+            pr = torch.exp(s - lse0[:, :, rs, None])
+            pr = torch.where(dead[:, :, rs, None], 0.0, pr)
+            dv[:, :, ks] += torch.matmul(pr.transpose(-1, -2), dot)
+            dp = torch.matmul(dot, vv[:, :, ks].transpose(-1, -2))
+            ds = pr * (dp - delta[:, :, rs, None])
+            dq[:, :, rs] += torch.matmul(ds, kk[:, :, ks]) * scale
+            dk[:, :, ks] += torch.matmul(ds.transpose(-1, -2), qt) * scale
+    group = hq // hkv
+    dk = dk.view(b, hkv, group, lk, d).sum(2)
+    dv = dv.view(b, hkv, group, lk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +424,11 @@ def flash_attention_lens(q, k, v, kv_len, *, causal: bool = False,
     to run.  ``block_k`` fixes the tiles the online softmax folds;
     ``block_q`` only the plain version's Q tiles."""
     scale = scale if scale is not None else q.shape[3] ** -0.5
+    if _wants_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention_lens has no backward (it serves decode and "
+            "chunk prefixes); call it under torch.no_grad() or on tensors "
+            "that do not require grad")
     kv_len = kv_len.to(torch.int32)
     if _lib.on_host(q, k, v, kv_len):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
@@ -418,6 +504,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return flash_attention_tiles(
             q, k, v, causal_layout(lq, lk, block_q, block_k), scale=scale,
             return_state=return_state)
+    fwd = functools.partial(_grid_forward, causal=causal, scale=scale,
+                            block_q=block_q, block_k=block_k)
+    if _wants_grad(q, k, v):
+        from repro_torch.sparse.maskcompiler import grid_layout
+        out = _Attention.apply(
+            q, k, v, grid_layout(lq, lk, block_q, block_k, causal), scale,
+            functools.partial(fwd, return_state=True))
+        return out if return_state else out[0]
+    return fwd(q, k, v, return_state=return_state)
+
+
+flash_attention.launches = 0
+
+
+def _grid_forward(q, k, v, *, causal, scale, block_q, block_k,
+                  return_state):
+    """The dense grid without autograd: the plain version on host tensors,
+    else one launch of the dense kernel."""
     if _lib.on_host(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_q=block_q, block_k=block_k,
@@ -428,13 +532,27 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out
 
 
-flash_attention.launches = 0
-
-#: (id(layout), device) -> (layout, rowp, mid, prowp, cols, biases, order)
-#: on the card, the most recently used :data:`LAYOUTS_ON_CARD` of them.
-#: Holding the layout keeps its id from being reused while the entry lives.
+#: (id(layout), device) -> (layout, its arrays on the card), the most
+#: recently used :data:`LAYOUTS_ON_CARD` of them.  Holding the layout keeps
+#: its id from being reused while the entry lives.
 _LAYOUT_ON_CARD: collections.OrderedDict = collections.OrderedDict()
 LAYOUTS_ON_CARD = 256
+
+
+class CardLayout(NamedTuple):
+    """A layout's arrays on the card: the forward's walk (``rowp``,
+    ``mid``, ``prowp``, ``cols``, ``biases``, ``order``) and its transpose,
+    which the dK/dV kernel walks (``colp``, ``colq``, ``colt``: see
+    :func:`column_walk`)."""
+    rowp: torch.Tensor
+    mid: torch.Tensor
+    prowp: torch.Tensor
+    cols: torch.Tensor
+    biases: torch.Tensor
+    order: torch.Tensor
+    colp: torch.Tensor
+    colq: torch.Tensor
+    colt: torch.Tensor
 
 
 def _walk_order(layout) -> np.ndarray:
@@ -444,32 +562,49 @@ def _walk_order(layout) -> np.ndarray:
                       kind="stable").astype(np.int32)
 
 
-def _layout_tensors(layout, device):
+def column_walk(layout) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The layout transposed: K tile ``c``'s entries are ``t`` in
+    ``colp[c] .. colp[c+1]``, each the Q tile ``colq[t]`` that sees it and
+    that tile's walk index ``colt[t]`` (so FULL iff ``colt[t] <
+    mid[colq[t]]``), ascending in Q tile.  int32 arrays."""
+    rowp = np.asarray(layout.rowp)
+    cols = np.asarray(layout.cols, np.int64)
+    qtile = np.repeat(np.arange(layout.nq), np.diff(rowp))
+    colt = np.lexsort((qtile, cols))
+    colp = np.zeros(layout.nk + 1, np.int64)
+    np.cumsum(np.bincount(cols, minlength=layout.nk), out=colp[1:])
+    return (colp.astype(np.int32), qtile[colt].astype(np.int32),
+            colt.astype(np.int32))
+
+
+def _layout_tensors(layout, device) -> CardLayout:
     key = (id(layout), device)
     hit = _LAYOUT_ON_CARD.get(key)
     if hit is None:
-        hit = (layout,) + tuple(
+        hit = (layout, CardLayout(*(
             torch.as_tensor(a, device=device) for a in
             (layout.rowp, layout.mid, layout.prowp, layout.cols,
-             layout.biases, _walk_order(layout)))
+             layout.biases, _walk_order(layout), *column_walk(layout)))))
         _LAYOUT_ON_CARD[key] = hit
         if len(_LAYOUT_ON_CARD) > LAYOUTS_ON_CARD:
             _LAYOUT_ON_CARD.popitem(last=False)
     else:
         _LAYOUT_ON_CARD.move_to_end(key)
-    return hit[1:]
+    return hit[1]
 
 
-def flash_attention_tiles(q, k, v, layout, *, scale: Optional[float] = None,
-                          return_state: bool = False):
-    """Tile-skipping flash attention over a compiled mask layout: each Q
-    tile walks only its live K tiles, full tiles first.  An empty layout
-    returns zeros (and ``m = NEG_INF``, ``l = 0``) without a launch."""
+def _band_args(layout) -> tuple[int, int, int, int]:
+    """(band, causal, window, offset) as the kernels take them."""
+    causal, window, off = layout.band if layout.band is not None \
+        else (False, None, 0)
+    return (int(layout.band is not None), int(causal),
+            -1 if window is None else int(window), int(off))
+
+
+def _tiles_forward(q, k, v, layout, scale, return_state):
+    """The tiles walk without autograd: the plain version on host tensors,
+    else one launch of the tiles kernel."""
     b, hq, lq, d = q.shape
-    if layout.shape != (lq, k.shape[2]):
-        raise ValueError(f"flash_attention_tiles: layout {layout.shape} "
-                         f"does not match ({lq}, {k.shape[2]})")
-    scale = scale if scale is not None else d ** -0.5
     if layout.ntiles == 0:
         o = torch.zeros_like(q)
         if return_state:
@@ -485,24 +620,182 @@ def flash_attention_tiles(q, k, v, layout, *, scale: Optional[float] = None,
     if bk > MAX_BLOCK_K:
         raise ValueError(f"flash_attention_tiles: block_k {bk} is above "
                          f"{MAX_BLOCK_K}")
-    rowp, mid, prowp, cols, biases, order = _layout_tensors(layout,
-                                                            q.device)
+    lay = _layout_tensors(layout, q.device)
     o, m, l = _outputs(q, return_state)
-    causal, window, off = layout.band if layout.band is not None \
-        else (False, None, 0)
     code = _lib.lib().flash_attention_tiles_launch(
-        rowp.data_ptr(), mid.data_ptr(), prowp.data_ptr(), cols.data_ptr(),
-        biases.data_ptr(), order.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(),
+        lay.rowp.data_ptr(), lay.mid.data_ptr(), lay.prowp.data_ptr(),
+        lay.cols.data_ptr(), lay.biases.data_ptr(), lay.order.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), m.data_ptr() if return_state else None,
         l.data_ptr() if return_state else None,
-        b, hq, k.shape[1], lq, k.shape[2], d, bq, bk,
-        int(layout.band is not None), int(causal),
-        -1 if window is None else int(window), int(off), float(scale),
-        int(return_state), _DTYPE_CODE[q.dtype], _lib.stream_of(q))
+        b, hq, k.shape[1], lq, k.shape[2], d, bq, bk, *_band_args(layout),
+        float(scale), int(return_state), _DTYPE_CODE[q.dtype],
+        _lib.stream_of(q))
     _lib.check(code, "flash_attention_tiles")
     flash_attention_tiles.launches += 1
     return (o, m, l) if return_state else o
 
 
+def flash_attention_tiles(q, k, v, layout, *, scale: Optional[float] = None,
+                          return_state: bool = False):
+    """Tile-skipping flash attention over a compiled mask layout: each Q
+    tile walks only its live K tiles, full tiles first.  An empty layout
+    returns zeros (and ``m = NEG_INF``, ``l = 0``) without a launch.
+
+    Differentiable: where grad mode is on and q, k or v requires grad, the
+    call goes through :class:`_Attention`, whose backward is
+    :func:`flash_attention_tiles_bwd` over the same layout.  The state
+    ``(m, l)`` carries no gradient (a backward through it raises)."""
+    lq = q.shape[2]
+    if layout.shape != (lq, k.shape[2]):
+        raise ValueError(f"flash_attention_tiles: layout {layout.shape} "
+                         f"does not match ({lq}, {k.shape[2]})")
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    if _wants_grad(q, k, v):
+        out = _Attention.apply(q, k, v, layout, scale, functools.partial(
+            _tiles_forward, layout=layout, scale=scale, return_state=True))
+        return out if return_state else out[0]
+    return _tiles_forward(q, k, v, layout, scale, return_state)
+
+
 flash_attention_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the backward: three kernels over the forward's layout
+# ---------------------------------------------------------------------------
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention over a layout with a hand-written backward.  ``fwd(q, k,
+    v)`` runs the forward without autograd and returns ``(o, m, l)``; the
+    backward is :func:`flash_attention_tiles_bwd` over ``layout`` with
+    ``lse`` from the forward's state, saved with q, k, v and o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, scale, fwd):
+        o, m, l = fwd(q, k, v)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, o, softmax_lse(m, l))
+        ctx.layout, ctx.scale = layout, scale
+        return o, m, l
+
+    @staticmethod
+    def backward(ctx, do, dm, dl):
+        if dm is not None or dl is not None:
+            raise NotImplementedError(
+                "flash attention: the state (m, l) has no backward; "
+                "differentiate through o only")
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            return None, None, None, None, None, None
+        dq, dk, dv = flash_attention_tiles_bwd(q, k, v, o, lse, do,
+                                               ctx.layout, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def fa_bwd_delta(o, do):
+    """``D = rowsum(dO * o)`` in f32, (B, Hq, Lq): one launch of
+    ``fa_bwd_delta_kernel`` on CUDA tensors, the plain sum on host ones."""
+    if _lib.on_host(o, do):
+        return (do.float() * o.float()).sum(-1)
+    o, do = o.contiguous(), do.contiguous()
+    _lib.require_cuda("fa_bwd_delta", o, do)
+    _lib.require_dtypes("fa_bwd_delta", (o, do), (),
+                        allowed=tuple(_DTYPE_CODE))
+    if o.shape != do.shape or o.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"fa_bwd_delta: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}")
+    delta = torch.empty(o.shape[:-1], device=o.device)
+    if delta.numel() == 0:
+        return delta
+    code = _lib.lib().fa_bwd_delta_launch(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), delta.numel(),
+        o.shape[-1], _DTYPE_CODE[o.dtype], _lib.stream_of(o))
+    _lib.check(code, "fa_bwd_delta")
+    fa_bwd_delta.launches += 1
+    return delta
+
+
+fa_bwd_delta.launches = 0
+
+
+def _grad_args(what, q, k, v, do, lse, delta, layout):
+    """Checks shared by the two gradient kernels; returns the layout on the
+    card and the launch's shape arguments."""
+    _check(what, q, k, v)
+    _lib.require_cuda(what, q, do, lse, delta)
+    if do.shape != q.shape or do.dtype != q.dtype \
+            or lse.shape != q.shape[:3] or delta.shape != q.shape[:3] \
+            or lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(f"{what}: do {tuple(do.shape)} {do.dtype}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype}, delta "
+                         f"{tuple(delta.shape)} {delta.dtype}")
+    if layout.block_k > MAX_BLOCK_K:
+        raise ValueError(f"{what}: block_k {layout.block_k} is above "
+                         f"{MAX_BLOCK_K}")
+    b, hq, lq, d = q.shape
+    dims = (b, hq, k.shape[1], lq, k.shape[2], d, layout.block_q,
+            layout.block_k, *_band_args(layout))
+    return _layout_tensors(layout, q.device), dims
+
+
+def fa_bwd_dkdv(q, k, v, do, lse, delta, layout, scale):
+    """dK and dV over ``layout``'s columns: one launch of
+    ``fa_bwd_dkdv_kernel`` (CUDA tensors only; contiguous inputs)."""
+    lay, dims = _grad_args("fa_bwd_dkdv", q, k, v, do, lse, delta, layout)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    code = _lib.lib().fa_bwd_dkdv_launch(
+        lay.rowp.data_ptr(), lay.mid.data_ptr(), lay.prowp.data_ptr(),
+        lay.cols.data_ptr(), lay.biases.data_ptr(), lay.colp.data_ptr(),
+        lay.colq.data_ptr(), lay.colt.data_ptr(), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims, float(scale),
+        _DTYPE_CODE[q.dtype], _lib.stream_of(q))
+    _lib.check(code, "fa_bwd_dkdv")
+    fa_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+fa_bwd_dkdv.launches = 0
+
+
+def fa_bwd_dq(q, k, v, do, lse, delta, layout, scale):
+    """dQ over ``layout``'s rows: one launch of ``fa_bwd_dq_kernel`` (CUDA
+    tensors only; contiguous inputs)."""
+    lay, dims = _grad_args("fa_bwd_dq", q, k, v, do, lse, delta, layout)
+    dq = torch.empty_like(q)
+    code = _lib.lib().fa_bwd_dq_launch(
+        lay.rowp.data_ptr(), lay.mid.data_ptr(), lay.prowp.data_ptr(),
+        lay.cols.data_ptr(), lay.biases.data_ptr(), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), *dims, float(scale),
+        _DTYPE_CODE[q.dtype], _lib.stream_of(q))
+    _lib.check(code, "fa_bwd_dq")
+    fa_bwd_dq.launches += 1
+    return dq
+
+
+fa_bwd_dq.launches = 0
+
+
+def flash_attention_tiles_bwd(q, k, v, o, lse, do, layout, *,
+                              scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of attention over ``layout`` given the forward's
+    ``o`` and ``lse`` (:func:`softmax_lse`) and the output gradient ``do``.
+    On host tensors the plain version; on CUDA tensors three launches
+    (:func:`fa_bwd_delta`, :func:`fa_bwd_dkdv`, :func:`fa_bwd_dq`), or
+    none for an empty layout, whose gradients are 0."""
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    if layout.ntiles == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if _lib.on_host(q, k, v, o, lse, do):
+        return flash_attention_tiles_bwd_plain(q, k, v, o, lse, do, layout,
+                                               scale=scale)
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    delta = fa_bwd_delta(o, do)
+    dk, dv = fa_bwd_dkdv(q, k, v, do, lse, delta, layout, scale)
+    return fa_bwd_dq(q, k, v, do, lse, delta, layout, scale), dk, dv

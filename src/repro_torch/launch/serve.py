@@ -1,53 +1,32 @@
 """Serving from the command line: init a model with seeded random weights
-and run batched generation through the fixed engine (counterpart of
-``repro.launch.serve``).
+(or load them from a checkpoint) and run batched generation through the
+fixed engine (counterpart of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --scale 1.0 --batch 4 --prompt-len 512 --new-tokens 32
 
 It runs on the card unless ``--device cpu`` is given.  ``--scale`` below 1
-shrinks the architecture with :func:`reduce_config` (the dense branch of
-``repro.launch.train.reduce_config``).  Loading checkpoints and the
+shrinks the architecture with :func:`reduce_config`.  ``--ckpt-dir`` loads
+the parameters of the newest checkpoint there (written by either package's
+``Checkpointer``; the scale must match the one it was trained at).  The
 execution levels of the JAX version are not ported.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import sys
 import time
 
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig
 from repro_torch.core.containers import resolve_device
+from repro_torch.launch.train import reduce_config
 from repro_torch.models.lm import LM
 from repro_torch.serve import Engine, SamplingParams
 
-__all__ = ["reduce_config", "main"]
-
-
-def reduce_config(cfg: ModelConfig, scale: float) -> ModelConfig:
-    """Shrink an assigned architecture into a CPU-runnable sibling (same
-    block structure, fewer/narrower layers)."""
-    def s(x, lo=1, mult=1):
-        v = max(lo, int(round(x * scale)))
-        return -(-v // mult) * mult
-
-    d_model = s(cfg.d_model, 32, 16)
-    heads = max(2, int(round(cfg.num_heads * scale)))
-    kvh = max(1, min(cfg.num_kv_heads, heads))
-    while heads % kvh:
-        kvh -= 1
-    return dataclasses.replace(
-        cfg, name=f"{cfg.name}-x{scale}",
-        num_layers=max(2, int(round(cfg.num_layers * scale))),
-        d_model=d_model, vocab_size=min(cfg.vocab_size, 2048),
-        num_heads=heads, num_kv_heads=kvh,
-        head_dim=max(8, d_model // heads // 2 * 2),
-        d_ff=s(cfg.d_ff, 64, 16) if cfg.d_ff else 0,
-        dtype="float32", param_dtype="float32")
+__all__ = ["main"]
 
 
 def main(argv=None) -> int:
@@ -60,6 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-len", type=int, default=None)
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
@@ -70,7 +50,16 @@ def main(argv=None) -> int:
         cfg = reduce_config(cfg, args.scale)
     dev = resolve_device(args.device)
     lm = LM(cfg)
-    params = lm.init(args.seed, device=dev)
+    if args.ckpt_dir:
+        from repro_torch.optim import adamw
+        from repro_torch.optim.schedules import constant
+        from repro_torch.train.state import create
+        ckpt = Checkpointer(args.ckpt_dir)
+        state = create(lm, adamw(constant(1e-4)), args.seed, device=dev)
+        params = ckpt.restore(state).params
+        print(f"loaded checkpoint step {ckpt.latest_step()}")
+    else:
+        params = lm.init(args.seed, device=dev)
     sp = SamplingParams(greedy=args.temperature == 0.0,
                         temperature=max(args.temperature, 1e-6))
     max_len = args.max_len or (args.prompt_len + args.new_tokens + 8)

@@ -4,7 +4,7 @@
 Parameters are plain dicts of tensors, as the JAX package keeps pytrees.
 dtype policy: parameters are stored in ``cfg.pdtype``, activations in
 ``cfg.act_dtype``; norm variance, rope trig and the MLP activation run in
-f32.  M-RoPE (qwen2-vl) is not ported yet (ROADMAP queue 1 item 7).
+f32.  M-RoPE (qwen2-vl) is not ported yet (ROADMAP queue 1 item 7, the VLM family).
 """
 from __future__ import annotations
 

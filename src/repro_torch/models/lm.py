@@ -2,7 +2,9 @@
 ``repro.models.lm``, chip scope).
 
     init               seeded random weights on the card (or the CPU)
-    forward            full-sequence logits
+    forward            full-sequence logits (through ``stack_apply``, with
+                       remat when ``cfg.remat``)
+    loss               token-mean cross entropy of a batch (training)
     prefill            prompt -> last logits + a fixed-size K/V cache
     decode_step        one token against that cache (the fixed engine)
     decode_step_paged  one token per slot against the paged cache
@@ -17,14 +19,16 @@ int32 and ``lens`` (B,) int32.  Decode steps update caches in place (the
 JAX package returns updated copies) and return the same tensors.
 
 The other families (moe, ssm, hybrid, vlm, audio) raise NotImplementedError
-until their slices port them (ROADMAP queue 1 item 7).
+until their slices port them (ROADMAP queue 1 items 5-7).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.containers import resolve_device
@@ -35,7 +39,21 @@ from repro_torch.models.layers import (dense_init, linear, mlp, rms_norm,
 
 Params = dict[str, Any]
 
-__all__ = ["LM"]
+__all__ = ["LM", "cross_entropy_loss"]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -1
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-mean CE in f32; returns (loss, n_tokens)."""
+    logits = logits.float()
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    n = torch.clamp(torch.sum(mask), min=1)
+    return torch.sum(nll) / n, n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +65,7 @@ class LM:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(ROADMAP queue 1 item 7 ports the other families)")
+                f"(ROADMAP queue 1 items 5-7 port the other families)")
 
     # ------------------------------------------------------------------
     # init
@@ -76,7 +94,10 @@ class LM:
     # ------------------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embed"][tokens.long()].to(cfg.act_dtype)
+        # F.embedding: its backward adds the rows' gradients in a fixed
+        # order on the card (a sort, then segment sums), so training steps
+        # give the same bits from run to run
+        x = F.embedding(tokens.long(), params["embed"]).to(cfg.act_dtype)
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.act_dtype,
                                  device=x.device)
@@ -110,12 +131,23 @@ class LM:
         x = self._embed(params, tokens)
         B, S, _ = x.shape
         cos, sin = self._rope_tables(B, S, x.device)
-        for lp in params["layers"]:
-            x = tf.dense_block(x, lp, self.cfg, cos, sin)
+        x = tf.stack_apply(x, params["layers"], functools.partial(
+            tf.dense_block, cfg=self.cfg, cos=cos, sin=sin), self.cfg)
         x = rms_norm(x, params["final_norm"])
         aux = {"aux_lb": torch.zeros((), device=x.device),
                "aux_z": torch.zeros((), device=x.device)}
         return self._logits(params, x), aux
+
+    def loss(self, params: Params, batch: dict):
+        """``(loss, metrics)`` of a batch ``{"tokens", "labels"}`` (B, S)
+        int (tensors, or host arrays moved to the parameters' device):
+        token-mean cross entropy of the next-token logits, in f32."""
+        dev = params["embed"].device
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        labels = torch.as_tensor(batch["labels"], device=dev)
+        logits, _ = self.forward(params, tokens)
+        loss, n = cross_entropy_loss(logits, labels)
+        return loss, {"loss": loss, "tokens": n}
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 max_len: Optional[int] = None):

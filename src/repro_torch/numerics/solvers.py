@@ -17,7 +17,7 @@ iteration (see ``repro_torch.core.control.arbb_while``).
 SpMM dispatch per iteration (a CUDA kernel on BSR and ELL operands on the
 card) and k x k rank-revealing Gram solves.
 
-Not ported yet: the mesh-scoped solves (ROADMAP queue 1 item 11).
+Not ported yet: the mesh-scoped solves (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 

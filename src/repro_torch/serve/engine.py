@@ -16,7 +16,7 @@ life of the engine (what a captured CUDA graph needs; the JAX engine's
 single jit cache entry plays that part there).
 
 Not ported: heartbeats, spans and metrics (``obs``,
-``runtime.fault_tolerance``; ROADMAP queue 1 items 10 and 11) and the
+``runtime.fault_tolerance``; ROADMAP queue 1 items 8 and 10) and the
 ring-sharded pool (mesh scope).
 """
 from __future__ import annotations

@@ -19,7 +19,7 @@ for all four layouts.  Every constructed BSR carries its
 equality).
 
 Not ported: the JAX container's ``out_sharding`` field, which only a
-mesh-scoped SpGEMM sets (ROADMAP queue 1 item 11).
+mesh-scoped SpGEMM sets (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 

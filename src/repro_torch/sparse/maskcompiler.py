@@ -52,7 +52,8 @@ import numpy as np
 from repro_torch.sparse.stats import SparseStats, sparse_stats
 
 __all__ = ["MaskSpec", "TileLayout", "dense_mask", "compile_layout",
-           "causal_layout", "dense_masked_layout", "FULL", "PARTIAL", "DEAD"]
+           "causal_layout", "grid_layout", "dense_masked_layout", "FULL",
+           "PARTIAL", "DEAD"]
 
 #: Compiled layouts each compiler keeps (one per prompt length on the serve
 #: path; older ones are recompiled if they come back).
@@ -255,9 +256,15 @@ def _tiles(spec: MaskSpec, lq: int, lk: int, block_q: int, block_k: int):
     """The reference mask cut into (nq, block_q, nk, block_k) tiles, padded
     with dead positions past (Lq, Lk), and each tile's live (any position
     live) and full (every position inside (Lq, Lk) live) flags."""
+    return _tiles_of(dense_mask(spec, lq, lk), block_q, block_k)
+
+
+def _tiles_of(mask: np.ndarray, block_q: int, block_k: int):
+    """:func:`_tiles` of a bool (Lq, Lk) mask."""
+    lq, lk = mask.shape
     nq, nk = -(-lq // block_q), -(-lk // block_k)
     m = np.zeros((nq * block_q, nk * block_k), bool)
-    m[:lq, :lk] = dense_mask(spec, lq, lk)
+    m[:lq, :lk] = mask
     inside = np.zeros_like(m)
     inside[:lq, :lk] = True
     tiles = m.reshape(nq, block_q, nk, block_k)
@@ -327,6 +334,23 @@ def causal_layout(lq: int, lk: int, block_q: int, block_k: int) -> TileLayout:
     what the dense flash kernel's causal path and the ring's diagonal
     half-blocks walk instead of launching every above-diagonal K step."""
     return compile_layout(MaskSpec(causal=True), lq, lk, block_q, block_k)
+
+
+@functools.lru_cache(maxsize=LAYOUT_CACHE)
+def grid_layout(lq: int, lk: int, block_q: int, block_k: int,
+                causal: bool) -> TileLayout:
+    """The dense grid's walk as a layout, which its backward walks: every
+    tile FULL when not causal; when causal, the tiles holding a live key of
+    ``qpos >= kpos`` (no tail offset, as the dense kernels mask), the
+    diagonal ones PARTIAL under the band (True, None, 0)."""
+    if min(lq, lk, block_q, block_k) < 1:
+        raise ValueError(f"({lq}, {lk}) at ({block_q}, {block_k}) tiles")
+    mask = (np.tril(np.ones((lq, lk), bool)) if causal
+            else np.ones((lq, lk), bool))
+    tiles, t_any, t_all = _tiles_of(mask, block_q, block_k)
+    return _pack(tiles, t_all, t_any & ~t_all, (lq, lk), block_q, block_k,
+                 band=(bool(causal), None, 0), biased=False,
+                 stats=sparse_stats(t_any.astype(np.float32)))
 
 
 @functools.lru_cache(maxsize=LAYOUT_CACHE)

@@ -21,7 +21,7 @@ at the :data:`BLOCK_CANDIDATES` edges (8/16/32) and picks the largest
 candidate that keeps the occupied tiles at least half full.  Unlike the
 JAX package it does not persist the winner: that cache is
 ``repro.core.blocking``, which the port takes up with measured dispatch
-(ROADMAP queue 1 item 10).  Probing is cheap host-side statistics.
+(ROADMAP queue 1 item 8).  Probing is cheap host-side statistics.
 """
 from __future__ import annotations
 

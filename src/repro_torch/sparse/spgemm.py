@@ -28,7 +28,7 @@ array (CSR goes through the direct CSR->BSR path; ELL/DIA/dense densify on
 the host).
 
 Not ported: ``mesh_spgemm`` and the output sharding it attaches (ROADMAP
-queue 1 item 11).
+queue 1 item 10).
 """
 from __future__ import annotations
 

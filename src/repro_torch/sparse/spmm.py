@@ -25,7 +25,7 @@ This module also closes the solver seam: ``solver_spmv`` gains a low-cost
 (2-D), plus the BSR single-vector lift, so ``cg_solve`` works on blocked
 matrices too.
 
-Not ported: ``mesh_spmm`` (ROADMAP queue 1 item 11).
+Not ported: ``mesh_spmm`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 

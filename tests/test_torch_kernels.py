@@ -1956,3 +1956,167 @@ def test_cuda_plane_on_host_attention_operands_raises():
             ops.flash_attention(q, k, k)
     with pytest.raises(RuntimeError, match="host"):
         ops.flash_attention_state(q, k, k, variant="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the attention backward kernels (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq)
+# ---------------------------------------------------------------------------
+
+def _bwd_layout(kind, L, bq=128, bk=128):
+    """The layout a backward case walks: ``kind`` names the forward call."""
+    if kind == "causal":
+        return causal_layout(L, L, bq, bk)
+    if kind == "window":
+        return compile_layout(MaskSpec(causal=True, window=L // 3 + 1), L, L,
+                              bq, bk)
+    if kind == "globals":
+        return compile_layout(MaskSpec(causal=True, window=L // 4 + 1,
+                                       global_tokens=(0, 1, L // 2)), L, L,
+                              bq, bk)
+    if kind == "deadrow":
+        # a causal pattern of 64-row blocks with block rows 2-4 dead: Q
+        # tile 1 (rows 128-255) walks nothing, and rows 256-319 are dead
+        # inside Q tile 2's bias tiles
+        blocks = np.tril(np.ones((L // 64, L // 64), bool))
+        blocks[2:5] = False
+        return compile_layout(MaskSpec.from_block_mask(blocks, 64), L, L, bq,
+                              bk)
+    from repro_torch.sparse.maskcompiler import grid_layout
+    return grid_layout(L, L, bq, bk, kind == "grid_causal")
+
+
+def _bwd_call(kind, q, k, v, layout):
+    if kind.startswith("grid"):
+        return fa_k.flash_attention(q, k, v, causal=kind == "grid_causal",
+                                    row_extents=False,
+                                    block_q=layout.block_q,
+                                    block_k=layout.block_k)
+    return fa_k.flash_attention_tiles(q, k, v, layout)
+
+
+#: Gradient bars: f32 1e-5 (the kernels and the plain version sum in other
+#: orders, a few ulps apart); bf16 2^-7 relative (two bf16 ulps: both round
+#: f32 sums to bf16 and a last-bit difference flips a rounding), and in
+#: either dtype an absolute part of the bar times the gradient's largest
+#: entry (2e-3 in bf16, as chip_smoke.py's attn_tol for outputs of size 1).
+BWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 2e-3)}
+
+
+def _close_grad(got, want, dtype, what):
+    rtol, atol = BWD_TOL[dtype]
+    want = want.float()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=atol * scale,
+                               msg=lambda m: f"{what}: {m}")
+
+
+def _bwd_run(kind, dtype, b, hq, hkv, L, d, card, bq=128, bk=128):
+    """(got, want): the wrapper's gradients through autograd on the card,
+    and the plain backward's on the same o, lse and dO."""
+    q, k, v = _attn_inputs(card, dtype, b=b, hq=hq, hkv=hkv, lq=L, lk=L, d=d,
+                           seed=L + d)
+    lay = _bwd_layout(kind, L, bq, bk)
+    g = torch.Generator(device=card).manual_seed(d)
+    do = torch.randn(q.shape, device=card, generator=g).to(dtype)
+    with torch.no_grad():
+        if kind.startswith("grid"):
+            o, m, l = fa_k.flash_attention(
+                q, k, v, causal=kind == "grid_causal", row_extents=False,
+                block_q=bq, block_k=bk, return_state=True)
+        else:
+            o, m, l = fa_k.flash_attention_tiles(q, k, v, lay,
+                                                 return_state=True)
+    lse = fa_k.softmax_lse(m, l)
+    want = fa_k.flash_attention_tiles_bwd_plain(q, k, v, o, lse, do, lay)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = [w.launches for w in (fa_k.fa_bwd_delta, fa_k.fa_bwd_dkdv,
+                                   fa_k.fa_bwd_dq)]
+    out = _bwd_call(kind, *leaves, lay)
+    assert torch.equal(out.detach(), o)
+    out.backward(do)
+    after = [w.launches for w in (fa_k.fa_bwd_delta, fa_k.fa_bwd_dkdv,
+                                  fa_k.fa_bwd_dq)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    torch.cuda.synchronize()
+    return [t.grad for t in leaves], want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,b,hq,hkv,L,d", [
+    ("causal", 4, 16, 8, 512, 128), ("causal", 1, 32, 32, 256, 96),
+    ("causal", 1, 8, 1, 256, 256), ("causal", 2, 4, 2, 777, 64),
+    ("causal", 1, 8, 4, 200, 32), ("window", 2, 8, 1, 512, 64),
+    ("globals", 1, 4, 2, 384, 128), ("grid", 1, 4, 2, 300, 64),
+    ("grid_causal", 1, 4, 4, 257, 128), ("deadrow", 1, 4, 2, 384, 64)])
+def test_attention_backward_kernels_match_plain(kind, b, hq, hkv, L, d,
+                                                dtype, card):
+    """dQ, dK, dV through the autograd wrapper (three launches) against the
+    plain backward on the same o, lse and dO: causal tiles at the training
+    shape, head_dim 32/64/96/128/256, GQA groups 1, 2 and 8, a ragged
+    length, a window (the band path), global tokens (the bias path), the
+    dense grid causal and not, and a layout with dead rows (their dQ is 0,
+    and nothing is NaN)."""
+    got, want = _bwd_run(kind, dtype, b, hq, hkv, L, d, card)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g).all(), what
+        _close_grad(g, w, dtype, f"{kind} {dtype} d={d} {what}")
+    if kind == "deadrow":
+        assert not got[0][:, :, 128:320].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bq,bk", [(64, 32), (128, 16), (32, 128)])
+def test_attention_backward_kernels_at_other_blocks(bq, bk, dtype, card):
+    """Blocks that are not the default: the K sub-tiles and Q sub-tiles of
+    the kernels cut tiles of 16 to 128."""
+    got, want = _bwd_run("causal", dtype, 1, 4, 2, 200, 64, card, bq, bk)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        _close_grad(g, w, dtype, f"bq={bq} bk={bk} {dtype} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernels_are_bitwise_run_to_run(dtype, card):
+    """No atomics: dK and dV sum the GQA group's heads in a fixed order, so
+    two backward passes on the same inputs give the same bits."""
+    q, k, v = _attn_inputs(card, dtype, b=2, hq=16, hkv=8, lq=512, lk=512,
+                           d=128, seed=5)
+    do = torch.randn(q.shape, device=card).to(dtype)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa_k.flash_attention(*leaves, causal=True).backward(do)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiles_forward_is_bitwise_run_to_run(dtype, card):
+    """Remat recomputes the forward inside backward: the tiles kernel must
+    give the same o, m and l from run to run, or the saved lse would not
+    match the recomputed o."""
+    q, k, v = _attn_inputs(card, dtype, b=4, hq=16, hkv=8, lq=512, lk=512,
+                           d=128, seed=9)
+    lay = causal_layout(512, 512, 128, 128)
+    first = fa_k.flash_attention_tiles(q, k, v, lay, return_state=True)
+    for _ in range(3):
+        again = fa_k.flash_attention_tiles(q, k, v, lay, return_state=True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lens_kernel_with_grad_raises(card):
+    """flash_attention_lens has no backward: an input that requires grad
+    raises instead of returning an output with no gradient."""
+    q, k, v = _attn_inputs(card, torch.float32, lq=1, lk=64)
+    kv_len = torch.tensor([10, 64], dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fa_k.flash_attention_lens(q.requires_grad_(), k, v, kv_len)
+    with torch.no_grad():
+        fa_k.flash_attention_lens(q, k, v, kv_len)

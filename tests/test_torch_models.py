@@ -1,9 +1,10 @@
 """The port's LM (repro_torch.models: layers, attention, the dense block and
 the LM facade) against the JAX package's (repro.models) on carried
 parameters (repro_torch.interop.carry_params), on the same numpy inputs, at
-1e-5 in f32.  Two configs: the serve tests' small config
-(tests/test_serve.py) and qwen3-1.7b cut to a CPU size that keeps qk_norm,
-GQA, tied embeddings, rope_theta and a padded vocabulary.
+1e-5 in f32.  Five configs: the serve tests' small config
+(tests/test_serve.py), qwen3-1.7b cut to a CPU size that keeps qk_norm,
+GQA, tied embeddings, rope_theta and a padded vocabulary, and gemma-2b,
+minicpm-2b and phi3-mini-3.8b cut by each package's reduce_config.
 
 The JAX side runs on its default CPU plane (the plain jnp oracles); the
 port's host tensors select the torch plane.
@@ -48,10 +49,29 @@ def _qwen3_small(base):
         dtype="float32", param_dtype="float32", serve_page_size=8)
 
 
+#: The four dense configs of both packages.
+DENSE = ("qwen3-1.7b", "gemma-2b", "minicpm-2b", "phi3-mini-3.8b")
+
+
+def _reduced(name):
+    """A dense config cut to a CPU size by each package's reduce_config
+    (gemma keeps GeGLU, MQA and embedding scaling; phi3 and minicpm full
+    multi-head attention; minicpm a vocabulary that needs padding)."""
+    from repro.launch.train import reduce_config as j_reduce
+    from repro_torch.launch.train import reduce_config as t_reduce
+    return (dataclasses.replace(j_reduce(j_get_config(name), 0.05),
+                                serve_page_size=8),
+            dataclasses.replace(t_reduce(get_config(name), 0.05),
+                                serve_page_size=8))
+
+
 CONFIGS = {
     "stest": (JCfg(**SERVE_KW, remat=False), TCfg(**SERVE_KW)),
     "qwen3": (_qwen3_small(j_get_config("qwen3-1.7b")),
               _qwen3_small(get_config("qwen3-1.7b"))),
+    "gemma": _reduced("gemma-2b"),
+    "minicpm": _reduced("minicpm-2b"),
+    "phi3": _reduced("phi3-mini-3.8b"),
 }
 
 
@@ -83,22 +103,27 @@ def _tokens(cfg, shape, seed):
 # ---------------------------------------------------------------------------
 
 def test_config_fields_match_jax():
-    j, t = j_get_config("qwen3-1.7b"), get_config("qwen3-1.7b")
-    for f in dataclasses.fields(TCfg):
-        assert getattr(t, f.name) == getattr(j, f.name), f.name
-    assert t.padded_vocab == j.padded_vocab == 152064
-    assert t.act_dtype == torch.bfloat16 and t.pdtype == torch.bfloat16
-    assert t.param_count() == j.param_count()
+    """Every field of the four dense configs, remat and scan_layers
+    included."""
+    for name in DENSE:
+        j, t = j_get_config(name), get_config(name)
+        for f in dataclasses.fields(TCfg):
+            assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
+        assert t.padded_vocab == j.padded_vocab
+        assert t.act_dtype == torch.bfloat16 and t.pdtype == torch.bfloat16
+        assert t.param_count() == j.param_count(), name
+    assert get_config("qwen3-1.7b").padded_vocab == 152064
 
 
 @pytest.mark.parametrize("scale", [0.05, 0.1, 0.5])
 def test_reduce_config_matches_jax(scale):
     from repro.launch.train import reduce_config as j_reduce
-    from repro_torch.launch.serve import reduce_config as t_reduce
-    j = j_reduce(j_get_config("qwen3-1.7b"), scale)
-    t = t_reduce(get_config("qwen3-1.7b"), scale)
-    for f in dataclasses.fields(TCfg):
-        assert getattr(t, f.name) == getattr(j, f.name), f.name
+    from repro_torch.launch.train import reduce_config as t_reduce
+    for name in DENSE:
+        j = j_reduce(j_get_config(name), scale)
+        t = t_reduce(get_config(name), scale)
+        for f in dataclasses.fields(TCfg):
+            assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
 
 
 def test_layers_match_jax():
