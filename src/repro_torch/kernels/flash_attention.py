@@ -490,7 +490,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     :func:`flash_attention_tiles` (K tiles bounded per Q tile by compiled
     row extents); ``row_extents=False`` keeps the dense grid.  ``kv_len``
     routes to :func:`flash_attention_lens`.  Blocks clamp to the lengths;
-    where they do not divide them the last tile is short."""
+    where they do not divide them the last tile is short.  Both walks are
+    differentiable (the module docstring says how); ``kv_len`` is not."""
     lq, lk = q.shape[2], k.shape[2]
     block_q, block_k = min(block_q, lq), min(block_k, lk)
     scale = scale if scale is not None else q.shape[3] ** -0.5
