@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sparse-shapes   # the sparse kernels' A/B hook
+    python3 chip_smoke.py --backward-shapes # the backward kernels' A/B hook
 
 1. Print the card's name and power limit, and build the CUDA kernels from
    src/repro_torch/kernels/csrc with nvcc (timed).
@@ -16,8 +17,9 @@
    kernels (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq) through the autograd
    wrapper against flash_attention_tiles_bwd_plain: causal tiles at the
    training shape in bf16 and f32, head_dim 96 and 256, a ragged length,
-   a window, a bias layout and the dense grid; the same bits from two
-   backward passes.
+   a window, a bias layout and the dense grid; in bf16 every layout kind
+   (also dead rows) at every head_dim; the same bits from two backward
+   passes.
 3. Run the paths of the port, each with data made from fixed seeds and
    validated as benchmarks/*.py does, and each with the launch counts set
    to 0 just before it and read just after; every kernel of a path must
@@ -68,7 +70,9 @@
    summed over one run of phase 2b's path
    (also alone with --sparse-shapes, which a copy of this script in a
    checkout of an older commit runs to time that tree's kernels);
-   the backward kernels at the training shape beside SDPA's backward;
+   the backward kernels at the training shape beside SDPA's backward
+   pinned to one backend (also alone with --backward-shapes, the same
+   A/B hook for them);
    print what ptxas said of the kernels' registers and spills; profile a
    short window of each engine's work (device time by kernel group, the
    device's idle share); print one JSON line of kernel records.
@@ -106,8 +110,11 @@ PTXAS_NAMES = ("flash_attention_lens_decode_kernel",
                "flash_attention_bf16_kernelILi256",
                "flash_attention_bf16_kernel",
                "flash_attention_tiles_bf16_kernelILi256",
-               "flash_attention_tiles_bf16_kernel", "fa_bwd_dkdv_kernel",
-               "fa_bwd_dq_kernel", "fa_bwd_delta_kernel", "matmul_kernel",
+               "flash_attention_tiles_bf16_kernel",
+               "fa_bwd_dkdv_wgmma_kernelILi256", "fa_bwd_dkdv_wgmma_kernel",
+               "fa_bwd_dq_wgmma_kernelILi256", "fa_bwd_dq_wgmma_kernel",
+               "fa_bwd_dkdv_kernel", "fa_bwd_dq_kernel",
+               "fa_bwd_delta_kernel", "matmul_kernel",
                "spmm_ell_kernel", "spmm_bsr_kernel", "spgemm_bsr_kernel")
 #: Profiler sessions a trace-read measurement tries: a session now and then
 #: records no device event for a kernel that ran.
@@ -1281,6 +1288,13 @@ def time_attention_kernels(torch, kernels, cold_ms):
 # -- the attention backward (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq) ----------
 
 BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")
+#: The backend SDPA's backward is pinned to where it is timed as the
+#: backward kernels' library call, so that the column means one thing from
+#: run to run (tests/test_torch_kernels.py pins the same one).
+SDPA_BACKEND = "FLASH_ATTENTION"
+#: What the backward kernels' symbols hold (both dtypes' kernels).
+BWD_SYMBOLS = {"fa_bwd_delta": "fa_bwd_delta_kernel",
+               "fa_bwd_dkdv": "fa_bwd_dkdv_", "fa_bwd_dq": "fa_bwd_dq_"}
 
 
 def bwd_tol(torch, dtype) -> tuple[float, float]:
@@ -1296,7 +1310,11 @@ def bwd_tol(torch, dtype) -> tuple[float, float]:
 
 
 def bwd_layout(kind: str, L: int):
-    """The layout a phase-1 backward case walks, and its forward call."""
+    """The layout a phase-1 backward case walks, and its forward call:
+    "grid" the dense grid; causal tiles; a causal window; "bias" global
+    tokens (their PARTIAL tiles carry bias tiles); "deadrow" a causal
+    pattern of 64-row blocks with block rows 2-4 dead (a dead Q tile at L
+    >= 384, and dead rows inside a live one's bias tiles)."""
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.sparse.maskcompiler import (MaskSpec, causal_layout,
                                                  compile_layout, grid_layout)
@@ -1310,10 +1328,15 @@ def bwd_layout(kind: str, L: int):
     elif kind == "window":
         lay = compile_layout(MaskSpec(causal=True, window=L // 4), L, L, 128,
                              128)
-    else:   # "bias": global tokens, their PARTIAL tiles carry bias tiles
+    elif kind == "bias":
         lay = compile_layout(MaskSpec(causal=True, window=L // 4,
                                       global_tokens=(0, 1, L // 2)), L, L,
                              128, 128)
+    else:   # "deadrow"
+        blocks = np.tril(np.ones((L // 64, L // 64), bool))
+        blocks[2:5] = False
+        lay = compile_layout(MaskSpec.from_block_mask(blocks, 64), L, L, 128,
+                             128)
     return lay, lambda q, k, v, **kw: fa_k.flash_attention_tiles(
         q, k, v, lay, **kw)
 
@@ -1323,11 +1346,13 @@ def hold_backward_kernels(torch) -> dict:
     wrapper, against flash_attention_tiles_bwd_plain on the same o, lse and
     dO: causal tiles at the training shape (B 4, Hq/Hkv 16/8, L 512, d 128)
     in bf16 and f32, d 96 (32/32) and d 256 (8/1), a ragged L of 777, a
-    windowed band, a bias layout and the dense grid; then the same bits
-    from two backward passes at the training shape in both dtypes.  Each
-    check prints its largest error beside its bar.  Returns each kernel's
-    largest error in bf16 at the training shape (D against its plain sum,
-    dK and dV for dkdv, dQ for dq)."""
+    windowed band, a bias layout and the dense grid; in bf16 (the wgmma
+    kernels) every layout kind at every head_dim (B 1, Hq 8, L 384, GQA
+    groups 1, 2 and 8 in turn); then the same bits from two backward
+    passes at the training shape in both dtypes.  Each check prints its
+    largest error beside its bar.  Returns each kernel's largest error in
+    bf16 at the training shape (D against its plain sum, dK and dV for
+    dkdv, dQ for dq)."""
     from repro_torch.kernels import flash_attention as fa_k
 
     b, hq, hkv, L, d = ATTN_SHAPE
@@ -1343,6 +1368,10 @@ def hold_backward_kernels(torch) -> dict:
              ("bias", torch.float32, 1, hq, hkv, L, d),
              ("grid", torch.bfloat16, 2, hq, hkv, L, d),
              ("grid", torch.float32, 1, hq, hkv, 300, d)]
+    kinds = ("causal", "window", "bias", "grid", "deadrow")
+    cases += [(kind, torch.bfloat16, 1, 8, (8, 4, 1)[n % 3], 384, hd)
+              for n, (kind, hd) in enumerate(
+                  (kind, hd) for kind in kinds for hd in fa_k.HEAD_DIMS)]
     errs = {}
     wrappers = [getattr(fa_k, n) for n in BWD_KERNELS]
     for kind, dtype, bsz, h, hk, n, hd in cases:
@@ -1401,12 +1430,16 @@ def time_backward_kernels(torch, kernels, cold_ms) -> dict:
     """Phase 3 for the backward kernels at the training shape, bf16, causal
     tiles: each wrapper's time (cold L2); the plain version (the whole
     plain backward for dkdv and dq, the plain sum for delta); the library
-    call, SDPA's backward (causal, GQA expanded; timed only, on dkdv and
-    dq's records); each kernel's bound (its own bytes once at the HBM
-    rate, its products at the bf16 tensor-core rate) and the bound of the
-    whole backward (q, k, v, o, dO, dQ, dK, dV, lse and D once, against
-    10 * B * Hq * live pairs * d flops).  Returns the call of each."""
+    call, SDPA's backward (causal, GQA expanded, pinned to SDPA_BACKEND,
+    whose name goes beside it, and cuDNN's under ``library_cudnn_ms``;
+    timed only, on dkdv and dq's records); each kernel's bound (its own
+    bytes once at the HBM rate, its products at the bf16 tensor-core rate)
+    and the bound of the whole backward (q, k, v, o, dO, dQ, dK, dV, lse
+    and D once, against 10 * B * Hq * live pairs * d flops).  Returns the
+    call of each."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.sparse.maskcompiler import causal_layout
 
@@ -1441,16 +1474,24 @@ def time_backward_kernels(torch, kernels, cold_ms) -> dict:
     qe, ke, ve = (t.detach().clone().requires_grad_() for t in
                   (q, k.repeat_interleave(hq // hkv, 1),
                    v.repeat_interleave(hq // hkv, 1)))
-    oe = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
-    sdpa_bwd = cold_ms(lambda: torch.autograd.grad(oe, (qe, ke, ve), do,
-                                                   retain_graph=True), 50)
+    sdpa_bwd = {}
+    for backend in (SDPA_BACKEND, "CUDNN_ATTENTION"):
+        with sdpa_kernel(getattr(SDPBackend, backend)):
+            oe = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+            sdpa_bwd[backend] = cold_ms(lambda: torch.autograd.grad(
+                oe, (qe, ke, ve), do, retain_graph=True), 50)
     whole, _ = bound_ms(4 * big + 4 * small + 2 * rows,
                         10.0 * b * hq * pairs * d, PEAK_BF16_FLOP_PER_S)
     for name, (kern, plain, nbytes, flops) in calls.items():
         rec = kernels[name]
         rec["ms"] = cold_ms(kern, 50)
         rec["plain_ms"] = cold_ms(plain, 3)
-        rec["library_ms"] = None if name == "fa_bwd_delta" else sdpa_bwd
+        if name == "fa_bwd_delta":
+            rec["library_ms"] = None
+        else:
+            rec["library_ms"] = sdpa_bwd[SDPA_BACKEND]
+            rec["library_backend"] = SDPA_BACKEND
+            rec["library_cudnn_ms"] = sdpa_bwd["CUDNN_ATTENTION"]
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops,
                                                     PEAK_BF16_FLOP_PER_S)
         rec["backward_bound_ms"] = whole
@@ -1461,9 +1502,38 @@ def time_backward_kernels(torch, kernels, cold_ms) -> dict:
         out, leaves, do, retain_graph=True), 50)
     log(f"attention backward timed: bf16, causal tiles, B={b} Hq/Hkv="
         f"{hq}/{hkv} L={L} d={d}: the three kernels through autograd "
-        f"{rec['backward_ms']:.4f} ms, SDPA backward {sdpa_bwd:.4f} ms, the "
-        f"whole backward's bound {whole:.4f} ms")
+        f"{rec['backward_ms']:.4f} ms, SDPA backward "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in sdpa_bwd.items())
+        + f", the whole backward's bound {whole:.4f} ms")
     return {name: c[0] for name, c in calls.items()}
+
+
+def time_backward_only(torch) -> int:
+    """``--backward-shapes``: build, print the card, ptxas's report of the
+    backward kernels, and their times at the training shape as phase 3
+    takes them (``kernel_ms`` too), as one JSON line.  A copy of this
+    script in a checkout of an older commit runs it to time that tree's
+    kernels."""
+    from repro_torch.kernels import _lib
+
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    _lib.lib()
+    for name, r in _lib.ptxas_report(PTXAS_NAMES).items():
+        if name.startswith("fa_bwd_"):
+            log(f"ptxas {name}: {r['instantiations']} instantiations, at "
+                f"most {r['registers']} registers, {r['spill_stores']} / "
+                f"{r['spill_loads']} bytes of spill stores / loads")
+    scrub = scrub_buffer(torch)
+    kernels = {k: {"name": k} for k in BWD_KERNELS}
+    timed = time_backward_kernels(
+        torch, kernels, lambda fn, iters: time_ms(torch, fn, iters, scrub))
+    for name, fn in timed.items():
+        kernels[name]["kernel_ms"] = kernel_ms(torch, fn, 20,
+                                               BWD_SYMBOLS[name], scrub)
+    print(json.dumps(kernels))
+    return 0
 
 
 # -- phase 2d: training qwen3-1.7b -------------------------------------------
@@ -1651,6 +1721,8 @@ def main() -> int:
         print(json.dumps(time_sparse_shapes(torch, scrub_buffer(torch),
                                             inp)))
         return 0
+    if sys.argv[1:] == ["--backward-shapes"]:
+        return time_backward_only(torch)
 
     import repro_torch.core as C
     from repro_torch.kernels import _lib, ops
@@ -2091,7 +2163,7 @@ def main() -> int:
                                                   0, stages),
              **timed_sparse, **timed_attn, **timed_bwd}
     # the kernels' symbols, where the record's name is not "<name>_kernel"
-    symbols = {"fft_stage": "fft_stages_kernel",
+    symbols = {"fft_stage": "fft_stages_kernel", **BWD_SYMBOLS,
                "flash_attention": "flash_attention_bf16_kernel",
                "flash_attention_lens": "flash_attention_lens_decode_kernel",
                "flash_attention_tiles": "flash_attention_tiles_"}

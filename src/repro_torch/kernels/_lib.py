@@ -73,8 +73,8 @@ _SIGNATURES = {
                                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _F, _I, _I, _P),
     "fa_bwd_delta_launch": (_P, _P, _P, _L, _I, _I, _P),
-    "fa_bwd_dkdv_launch": (_P,) * 16 + (_I,) * 12 + (_F, _I, _P),
-    "fa_bwd_dq_launch": (_P,) * 12 + (_I,) * 12 + (_F, _I, _P),
+    "fa_bwd_dkdv_launch": (_P,) * 17 + (_I,) * 12 + (_F, _I, _P),
+    "fa_bwd_dq_launch": (_P,) * 13 + (_I,) * 12 + (_F, _I, _P),
 }
 
 

@@ -266,7 +266,10 @@ def flash_attention_tiles_bwd_plain(q, k, v, o, lse, do, layout,
     kernels run it: ``D = rowsum(dO * o)``; per walk entry ``P = exp(S -
     lse)`` (0 on dead rows), ``dV += P^T dO``, ``dP = dO V^T``, ``dS = P *
     (dP - D)``, ``dQ += dS K * scale``, ``dK += dS^T q * scale``, in f32;
-    the GQA group's heads are summed into their kv head.  Returns ``(dq,
+    P and dS are rounded to the inputs' dtype before the dV, dK and dQ
+    products, as the bf16 kernels hand them to the tensor cores (``_fold``
+    rounds P before P V the same way; in f32 a no-op).  The GQA group's
+    heads are summed into their kv head.  Returns ``(dq,
     dk, dv)`` in the inputs' dtypes."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
@@ -299,9 +302,10 @@ def flash_attention_tiles_bwd_plain(q, k, v, o, lse, do, layout,
                 s = s + bias
             pr = torch.exp(s - lse0[:, :, rs, None])
             pr = torch.where(dead[:, :, rs, None], 0.0, pr)
-            dv[:, :, ks] += torch.matmul(pr.transpose(-1, -2), dot)
+            dv[:, :, ks] += torch.matmul(
+                pr.to(q.dtype).float().transpose(-1, -2), dot)
             dp = torch.matmul(dot, vv[:, :, ks].transpose(-1, -2))
-            ds = pr * (dp - delta[:, :, rs, None])
+            ds = (pr * (dp - delta[:, :, rs, None])).to(q.dtype).float()
             dq[:, :, rs] += torch.matmul(ds, kk[:, :, ks]) * scale
             dk[:, :, ks] += torch.matmul(ds.transpose(-1, -2), qt) * scale
     group = hq // hkv
@@ -544,7 +548,7 @@ class CardLayout(NamedTuple):
     """A layout's arrays on the card: the forward's walk (``rowp``,
     ``mid``, ``prowp``, ``cols``, ``biases``, ``order``) and its transpose,
     which the dK/dV kernel walks (``colp``, ``colq``, ``colt``: see
-    :func:`column_walk`)."""
+    :func:`column_walk`; ``corder``: :func:`_column_order`)."""
     rowp: torch.Tensor
     mid: torch.Tensor
     prowp: torch.Tensor
@@ -554,13 +558,21 @@ class CardLayout(NamedTuple):
     colp: torch.Tensor
     colq: torch.Tensor
     colt: torch.Tensor
+    corder: torch.Tensor
 
 
 def _walk_order(layout) -> np.ndarray:
-    """The Q tiles by descending walk length (stable): the bf16 kernel
-    starts the CTAs of the longest walks first."""
+    """The Q tiles by descending walk length (stable): the bf16 kernels
+    (the forward and dQ) start the CTAs of the longest walks first."""
     return np.argsort(-np.diff(np.asarray(layout.rowp)),
                       kind="stable").astype(np.int32)
+
+
+def _column_order(colp: np.ndarray) -> np.ndarray:
+    """The K tiles by descending column length (stable), from
+    :func:`column_walk`'s ``colp``: the bf16 dK/dV kernel starts the CTAs
+    of the longest columns first."""
+    return np.argsort(-np.diff(colp), kind="stable").astype(np.int32)
 
 
 def column_walk(layout) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -582,10 +594,12 @@ def _layout_tensors(layout, device) -> CardLayout:
     key = (id(layout), device)
     hit = _LAYOUT_ON_CARD.get(key)
     if hit is None:
+        walk = column_walk(layout)
         hit = (layout, CardLayout(*(
             torch.as_tensor(a, device=device) for a in
             (layout.rowp, layout.mid, layout.prowp, layout.cols,
-             layout.biases, _walk_order(layout), *column_walk(layout)))))
+             layout.biases, _walk_order(layout), *walk,
+             _column_order(walk[0])))))
         _LAYOUT_ON_CARD[key] = hit
         if len(_LAYOUT_ON_CARD) > LAYOUTS_ON_CARD:
             _LAYOUT_ON_CARD.popitem(last=False)
@@ -725,8 +739,10 @@ fa_bwd_delta.launches = 0
 
 
 def _grad_args(what, q, k, v, do, lse, delta, layout):
-    """Checks shared by the two gradient kernels; returns the layout on the
-    card and the launch's shape arguments."""
+    """Checks shared by the two gradient kernels; returns q, k, v and do
+    16-byte aligned (the bf16 kernels copy 16-byte chunks; a misaligned
+    one is copied into a fresh tensor, which the caching allocator
+    aligns), the layout on the card and the launch's shape arguments."""
     _check(what, q, k, v)
     _lib.require_cuda(what, q, do, lse, delta)
     if do.shape != q.shape or do.dtype != q.dtype \
@@ -741,21 +757,25 @@ def _grad_args(what, q, k, v, do, lse, delta, layout):
     b, hq, lq, d = q.shape
     dims = (b, hq, k.shape[1], lq, k.shape[2], d, layout.block_q,
             layout.block_k, *_band_args(layout))
-    return _layout_tensors(layout, q.device), dims
+    q, k, v, do = (t.clone() if t.data_ptr() % 16 else t
+                   for t in (q, k, v, do))
+    return (q, k, v, do), _layout_tensors(layout, q.device), dims
 
 
 def fa_bwd_dkdv(q, k, v, do, lse, delta, layout, scale):
     """dK and dV over ``layout``'s columns: one launch of
-    ``fa_bwd_dkdv_kernel`` (CUDA tensors only; contiguous inputs)."""
-    lay, dims = _grad_args("fa_bwd_dkdv", q, k, v, do, lse, delta, layout)
+    ``fa_bwd_dkdv_wgmma_kernel`` (bf16) or ``fa_bwd_dkdv_kernel`` (f32)
+    (CUDA tensors only; contiguous inputs)."""
+    (q, k, v, do), lay, dims = _grad_args("fa_bwd_dkdv", q, k, v, do, lse,
+                                          delta, layout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = _lib.lib().fa_bwd_dkdv_launch(
         lay.rowp.data_ptr(), lay.mid.data_ptr(), lay.prowp.data_ptr(),
         lay.cols.data_ptr(), lay.biases.data_ptr(), lay.colp.data_ptr(),
-        lay.colq.data_ptr(), lay.colt.data_ptr(), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims, float(scale),
-        _DTYPE_CODE[q.dtype], _lib.stream_of(q))
+        lay.colq.data_ptr(), lay.colt.data_ptr(), lay.corder.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dims, float(scale), _DTYPE_CODE[q.dtype], _lib.stream_of(q))
     _lib.check(code, "fa_bwd_dkdv")
     fa_bwd_dkdv.launches += 1
     return dk, dv
@@ -765,16 +785,18 @@ fa_bwd_dkdv.launches = 0
 
 
 def fa_bwd_dq(q, k, v, do, lse, delta, layout, scale):
-    """dQ over ``layout``'s rows: one launch of ``fa_bwd_dq_kernel`` (CUDA
-    tensors only; contiguous inputs)."""
-    lay, dims = _grad_args("fa_bwd_dq", q, k, v, do, lse, delta, layout)
+    """dQ over ``layout``'s rows: one launch of ``fa_bwd_dq_wgmma_kernel``
+    (bf16) or ``fa_bwd_dq_kernel`` (f32) (CUDA tensors only; contiguous
+    inputs)."""
+    (q, k, v, do), lay, dims = _grad_args("fa_bwd_dq", q, k, v, do, lse,
+                                          delta, layout)
     dq = torch.empty_like(q)
     code = _lib.lib().fa_bwd_dq_launch(
         lay.rowp.data_ptr(), lay.mid.data_ptr(), lay.prowp.data_ptr(),
-        lay.cols.data_ptr(), lay.biases.data_ptr(), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), *dims, float(scale),
-        _DTYPE_CODE[q.dtype], _lib.stream_of(q))
+        lay.cols.data_ptr(), lay.biases.data_ptr(), lay.order.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+        float(scale), _DTYPE_CODE[q.dtype], _lib.stream_of(q))
     _lib.check(code, "fa_bwd_dq")
     fa_bwd_dq.launches += 1
     return dq

@@ -147,6 +147,44 @@ def test_bwd_plain_matches_jax(kind):
     _close_all([g.numpy() for g in got], want)
 
 
+#: bf16 bar for the plain backward against jax.vjp in f32 on the same
+#: bf16-valued inputs, relative and (times the gradient's largest entry)
+#: absolute: the plain backward rounds P and dS to bf16 before the dV, dK
+#: and dQ products (as the bf16 kernels do; 2^-9 relative each), its o to
+#: bf16 (so D = rowsum(dO * o) moves by as much) and the gradients to
+#: bf16; dS = P * (dP - D) cancels, so the error is absolute, about 2^-8 of
+#: the largest entry here.  The bar leaves a factor of 3 over that.
+BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -6)
+
+
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("kind", ["causal", "globals"])
+def test_bwd_plain_bf16_matches_jax(kind, D):
+    """flash_attention_tiles_bwd_plain in bf16 (on the forward's bf16 o and
+    its lse) against jax.vjp of the JAX oracle in f32, on inputs rounded to
+    bf16, within BF16_TOL."""
+    L = 64
+    q, k, v, do = (torch.as_tensor(a).to(torch.bfloat16) for a in
+                   _inputs(H=4, HK=2, LQ=L, D=D, seed=11))
+    if kind == "causal":
+        lay = tmc.causal_layout(L, L, 16, 16)
+        fn = lambda a, b, c: jref.attention_ref(a, b, c, causal=True)
+    else:
+        js, ts = _spec_pair(kind, L, L)
+        lay = tmc.compile_layout(ts, L, L, 16, 16)
+        mask = jnp.asarray(jmc.dense_mask(js, L, L))
+        fn = lambda a, b, c: jref.attention_masked_ref(a, b, c, mask)
+    want, _ = _jax_grads(fn, *(t.float().numpy() for t in (q, k, v, do)))
+    o, m, l = fa.flash_attention_tiles(q, k, v, lay, return_state=True)
+    got = fa.flash_attention_tiles_bwd_plain(q, k, v, o, fa.softmax_lse(m, l),
+                                             do, lay)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            g.float().numpy(), w, rtol=BF16_TOL["rtol"],
+            atol=BF16_TOL["atol"] * float(np.abs(w).max()), err_msg=what)
+
+
 def test_empty_layout_has_zero_grads():
     """A layout with no live tile: o = 0, and every gradient is 0."""
     pat = np.zeros((4, 4), bool)
@@ -209,6 +247,24 @@ def test_column_walk_transposes_the_layout(kind):
         assert all(rowp[colq[t]] <= colt[t] < rowp[colq[t] + 1] for t in ts)
         assert list(colq[colp[c]:colp[c + 1]]) == \
             sorted(colq[colp[c]:colp[c + 1]])
+
+
+@pytest.mark.parametrize("kind", ["causal", "globals", "deadrows"])
+def test_column_order_puts_the_longest_columns_first(kind):
+    """The bf16 dK/dV kernel's CTA order: every K tile once, by descending
+    column length, ties in ascending order."""
+    L = 64
+    if kind == "causal":
+        lay = tmc.causal_layout(L, 48, 16, 8)
+    else:
+        lay = tmc.compile_layout(_spec_pair(kind, L, L)[1], L, L, 16, 8)
+    colp = fa.column_walk(lay)[0]
+    order = fa._column_order(colp)
+    assert order.dtype == np.int32 and sorted(order) == list(range(lay.nk))
+    lengths = np.diff(colp)[order]
+    assert all(a >= b for a, b in zip(lengths, lengths[1:]))
+    for a, b in zip(order, order[1:]):
+        assert np.diff(colp)[a] > np.diff(colp)[b] or a < b
 
 
 @pytest.mark.parametrize("causal", [True, False])
