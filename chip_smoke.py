@@ -19,7 +19,8 @@
    training shape in bf16 and f32, head_dim 96 and 256, a ragged length,
    a window, a bias layout and the dense grid; in bf16 every layout kind
    (also dead rows) at every head_dim; the same bits from two backward
-   passes.
+   passes.  The lens and tiles kernels also at the MoE configs' heads
+   (32/4 and 56/8, d 128) at the serve paths' shapes.
 3. Run the paths of the port, each with data made from fixed seeds and
    validated as benchmarks/*.py does, and each with the launch counts set
    to 0 just before it and read just after; every kernel of a path must
@@ -59,6 +60,19 @@
       cuda plane against the torch plane; (e) at 2 layers, a save at step
       3 and a crash at 5 through TrainingSupervisor, resumed in a fresh
       state, bitwise equal to an uninterrupted run.
+   e. Serving the MoE family (run after step 4, once the card is free of
+      the earlier phases' models): qwen3-moe-30b-a3b at full width and
+      full depth (48 layers, 128 experts, top-8, 30.5 B parameters in
+      bf16 with f32 routers) through the Engine and the ContinuousEngine
+      at phase c's sizes (the tiles, tiles-state and both lens kernels),
+      its decode step beside the time to read its weights once, peak
+      memory and a profile with the MoE ops in a group of their own; then
+      arctic-480b at full width with 2 of its 35 layers (56/8 heads)
+      through both engines.  Checks: (a-moe) at 2 layers in f32 the
+      prefill logits and every token's top-k expert sets in every layer,
+      cuda plane against the torch plane; (f) two ContinuousEngine runs
+      give the same tokens bitwise; the share of top-k sets that agree
+      between the planes at full depth in bf16 is printed, not held.
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
@@ -84,7 +98,9 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -166,10 +182,12 @@ def kernel_ms(torch, fn, iters: int, kernel: str, scrub, launches: int = 1):
     """Device time per call of ``fn`` spent in CUDA kernels whose name holds
     ``kernel``, from a torch.profiler trace, with a cold L2 as in
     :func:`time_ms`.  Each of ``fn``'s calls launches such kernels
-    ``launches`` times; a trace counts only if it holds iters x launches
-    kernel events with device time (a session now and then drops some, and
-    the mean over what is left would read low).  None if no trace of
-    TRACE_TRIES is whole.  Unlike :func:`time_ms`, this leaves out the gaps
+    ``launches`` times.  A trace may lose events: with torch 2.11 on an
+    H100 one call's worth in every trace (19 of 20), more now and then.
+    So a trace counts if it holds the events of all ``iters`` calls or of
+    all but one, and the time is their sum over the calls they cover
+    (dividing by ``iters`` would read low).  None if no trace of
+    TRACE_TRIES counts.  Unlike :func:`time_ms`, this leaves out the gaps
     in which the device waits for the host to launch."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -186,11 +204,12 @@ def kernel_ms(torch, fn, iters: int, kernel: str, scrub, launches: int = 1):
         evs = [e for e in prof.key_averages()
                if kernel in e.key and e.device_time_total > 0]
         count = sum(e.count for e in evs)
-        if count == iters * launches:
-            return sum(e.device_time_total for e in evs) / iters / 1e3
+        calls, rest = divmod(count, launches)
+        if not rest and iters - 1 <= calls <= iters:
+            return sum(e.device_time_total for e in evs) / calls / 1e3
         seen.append(count)
     log(f"kernel_ms {kernel}: traces held {seen} events, not "
-        f"{iters * launches}; no time kept")
+        f"{iters * launches} or one call's fewer; no time kept")
     return None
 
 
@@ -964,18 +983,147 @@ def hold_attention_kernels(torch, heads) -> dict:
     return {name: max(e) for name, e in errs.items()}
 
 
+#: The MoE configs' heads at d 128: qwen3-moe-30b-a3b's 32/4 (GQA group 8)
+#: and arctic-480b's 56/8 (group 7, which the lens row blocks of 4, 16, 64
+#: and 128 rows do not divide).
+MOE_HEADS = ((32, 4, 128), (56, 8, 128))
+
+
+def hold_moe_heads(torch, heads) -> None:
+    """Phase 1 for rows 9 and 10 at an MoE config's heads (Hq, Hkv, d), in
+    f32 and bf16: lens at the ContinuousEngine's decode (4 slots, capacity
+    SERVE_MAX_LEN, kv_len 0 to full) and at a chunk's prefix (128 rows
+    against SERVE_MAX_LEN, 1000 live), o, m and l on rows with a live key;
+    tiles over causal_layout with state at the Engine's prefill (4 x 512)
+    and at a chunk's own keys (1 x 128)."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import causal_layout
+
+    hq, hkv, d = heads
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = attn_tol(torch, dtype)
+        for bsz, lq in ((SERVE_SLOTS, 1), (1, SERVE_CHUNK)):
+            lk = SERVE_MAX_LEN
+            q, k, v = attn_inputs(torch, dtype, bsz, hq, hkv, lq, lk, d,
+                                  hq + lq)
+            kv_len = torch.tensor([0, lk, 517, 1][:bsz] if bsz > 1
+                                  else [1000], dtype=torch.int32,
+                                  device="cuda")
+            got = fa_k.flash_attention_lens(q, k, v, kv_len,
+                                            return_state=True)
+            want = fa_k.flash_attention_plain(q, k, v, causal=False,
+                                              kv_len=kv_len,
+                                              return_state=True)
+            live = kv_len > 0
+            if not torch.all(got[1][~live] == fa_k.NEG_INF):
+                raise AssertionError("flash_attention_lens: a row with no "
+                                     "live key has m != NEG_INF")
+            what = f"flash_attention_lens {dtype} {hq}/{hkv} B={bsz} Lq={lq}"
+            max_err(torch, got[0][live].float(), want[0][live].float(), rtol,
+                    atol, what)
+            torch.testing.assert_close(got[1][live], want[1][live],
+                                       rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got[2][live], want[2][live],
+                                       rtol=1e-5, atol=1e-5 * lk)
+        for bsz, n in ((FIXED_BATCH, FIXED_PROMPT), (1, SERVE_CHUNK)):
+            q, k, v = attn_inputs(torch, dtype, bsz, hq, hkv, n, n, d, hq + n)
+            lay = causal_layout(n, n, 128, 128)
+            got = fa_k.flash_attention_tiles(q, k, v, lay, return_state=True)
+            want = fa_k.flash_attention_tiles_plain(q, k, v, lay,
+                                                    return_state=True)
+            max_err(torch, got[0].float(), want[0].float(), rtol, atol,
+                    f"flash_attention_tiles {dtype} {hq}/{hkv} B={bsz} L={n}")
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got[2], want[2], rtol=1e-5,
+                                       atol=1e-5 * n)
+    torch.cuda.synchronize()
+
+
 def serve_requests(vocab: int):
     rng = np.random.default_rng(13)
     return [(rng.integers(0, vocab, size=n).astype(np.int32), m)
             for n, m in SERVE_REQS]
 
 
-def device_breakdown(torch, fn) -> dict:
+MATMUL_GROUP = "matmul (cuBLAS)"
+
+
+def kernel_group(name: str) -> str:
+    """The group a CUDA kernel's device time is counted under, by name."""
+    low = name.lower()
+    if "fa_bwd_" in name:
+        return "flash-attention backward"
+    if "flash_attention_lens_decode" in name:
+        return "flash_attention_lens (decode)"
+    if "flash_attention_lens_prefix" in name:
+        return "flash_attention_lens (prefix)"
+    if "flash_attention_tiles_" in name:
+        return "flash_attention_tiles"
+    if "flash_attention_kernel" in name:
+        return "flash_attention"
+    if any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
+                              "cublas", "splitk")):
+        return MATMUL_GROUP
+    if any(t in low for t in ("index", "gather", "scatter")):
+        return "gather/scatter"
+    if "copy" in low or "cat" in low:
+        return "copies"
+    return "elementwise/reduce"
+
+
+#: The profiler range every moe_apply runs under in device_breakdown(...,
+#: moe=True).
+MOE_RANGE = "moe"
+
+
+@contextlib.contextmanager
+def moe_ranges(torch):
+    """Run every ``repro_torch.models.moe.moe_apply`` call under a profiler
+    range named :data:`MOE_RANGE` (the transformer calls it through the
+    module attribute), so that a trace can tell its kernels apart."""
+    from repro_torch.models import moe as moe_mod
+
+    orig = moe_mod.moe_apply
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(MOE_RANGE):
+            return orig(*args, **kwargs)
+
+    moe_mod.moe_apply = ranged
+    try:
+        yield
+    finally:
+        moe_mod.moe_apply = orig
+
+
+def moe_kernel_s(prof) -> dict:
+    """Device seconds of the kernels launched under the :data:`MOE_RANGE`
+    ranges of a trace with CPU activity, by :func:`kernel_group` (the
+    profiler hangs each kernel on the CPU op that launched it)."""
+    out: dict = {}
+
+    def walk(ev):
+        for k in ev.kernels:
+            g = kernel_group(k.name)
+            out[g] = out.get(g, 0.0) + k.duration / 1e6
+        for ch in ev.cpu_children:
+            walk(ch)
+
+    for ev in prof.events():
+        if ev.name == MOE_RANGE:
+            walk(ev)
+    return out
+
+
+def device_breakdown(torch, fn, moe: bool = False) -> dict:
     """Run ``fn`` once unprofiled (host clock, synchronised), then once
     under torch.profiler (CUDA activity only, which keeps its host cost
     low), and sum the device time of the run's CUDA kernels by group.  The
     busy share is that sum over the unprofiled wall time; one stream, so
-    kernels do not overlap."""
+    kernels do not overlap.  With ``moe`` the profiled run also records CPU
+    activity and runs moe_apply under :func:`moe_ranges`: the kernels the
+    MoE layers launch (router, dispatch, combine) move to a group ``moe``,
+    except their expert products, which stay under cuBLAS."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -984,41 +1132,38 @@ def device_breakdown(torch, fn) -> dict:
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
+    with moe_ranges(torch) if moe else contextlib.nullcontext(), \
+            profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     groups: dict = {}
     top = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+    averages = prof.key_averages()
+    for e in averages:
+        # the ranges' own device spans are not kernels
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0 \
+                or e.key == MOE_RANGE:
             continue
-        name, low = e.key, e.key.lower()
-        if "fa_bwd_" in name:
-            g = "flash-attention backward"
-        elif "flash_attention_lens_decode" in name:
-            g = "flash_attention_lens (decode)"
-        elif "flash_attention_lens_prefix" in name:
-            g = "flash_attention_lens (prefix)"
-        elif "flash_attention_tiles_" in name:
-            g = "flash_attention_tiles"
-        elif "flash_attention_kernel" in name:
-            g = "flash_attention"
-        elif any(t in low for t in ("gemm", "gemv", "cutlass", "xmma",
-                                    "nvjet", "cublas", "splitk")):
-            g = "matmul (cuBLAS)"
-        elif any(t in low for t in ("index", "gather", "scatter")):
-            g = "gather/scatter"
-        elif "copy" in low or "cat" in low:
-            g = "copies"
-        else:
-            g = "elementwise/reduce"
+        g = kernel_group(e.key)
         t_s = e.device_time_total / 1e6
         groups[g] = groups.get(g, 0.0) + t_s
-        top.append((t_s, name[:70]))
+        top.append((t_s, e.key[:70]))
+    host_top = []
+    if moe:
+        groups[MOE_RANGE] = 0.0
+        for g, t_s in moe_kernel_s(prof).items():
+            if g != MATMUL_GROUP and g in groups:
+                groups[g] -= t_s
+                groups[MOE_RANGE] += t_s
+        host_top = sorted(((e.self_cpu_time_total / 1e6, e.count, e.key)
+                           for e in averages
+                           if e.device_type == DeviceType.CPU),
+                          reverse=True)[:8]
     busy = sum(groups.values())
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall,
             "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top": sorted(top, reverse=True)[:6]}
+            "top": sorted(top, reverse=True)[:6], "host_top": host_top}
 
 
 def fmt_breakdown(b: dict) -> str:
@@ -1027,9 +1172,13 @@ def fmt_breakdown(b: dict) -> str:
     parts = ", ".join(f"{g} {t * 1e3:.1f} ms ({t / b['busy_s']:.0%})"
                       for g, t in b["groups"].items())
     top = "; ".join(f"{n} {t * 1e3:.1f} ms" for t, n in b["top"])
+    host = "; ".join(f"{n} {t * 1e3:.1f} ms ({c} calls)"
+                     for t, c, n in b.get("host_top", ()))
     return (f"wall {b['wall_s'] * 1e3:.1f} ms, device busy "
             f"{b['busy_s'] * 1e3:.1f} ms, idle share {b['idle_share']:.0%}: "
-            f"{parts}\n    top kernels: {top}")
+            f"{parts}\n    top kernels: {top}"
+            + (f"\n    host ops by self time (profiled run): {host}"
+               if host else ""))
 
 
 def run_serve_path(torch, wrappers) -> dict:
@@ -1700,6 +1849,266 @@ def run_train_path(torch, wrappers) -> dict:
 D_REL_TOL = 1e-3
 
 
+# -- phase 2e: serving the MoE family ----------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+#: arctic-480b at full width, cut to 2 of its 35 layers (476.8 B parameters
+#: do not fit one card; 2 layers are 27.7 B, 55.4 GB in bf16):
+#: Engine.generate on 2 prompts of 256 tokens, 8 new, and the
+#: ContinuousEngine on the same 2 requests (2 slots, chunks of 128).
+ARCTIC_ARCH, ARCTIC_LAYERS = "arctic-480b", 2
+ARCTIC_BATCH, ARCTIC_PROMPT, ARCTIC_NEW = 2, 256, 8
+#: (a-moe)'s bar: the largest |cuda - torch| of the f32 prefill logits over
+#: their largest entry (both planes f32, TF32 off; only attention differs).
+A_MOE_REL_TOL = 1e-3
+
+
+def free_card(torch) -> tuple[float, float]:
+    """Collect garbage and empty the caching allocator; (free, allocated)
+    GB on the card after it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (torch.cuda.mem_get_info()[0] / 1e9,
+            torch.cuda.memory_allocated() / 1e9)
+
+
+def run_moe_path(torch, wrappers) -> dict:
+    """Phase 2e: the MoE family.  (a-moe) qwen3-moe-30b-a3b at full width
+    in f32 with 2 layers: the prefill logits and every token's top-k expert
+    sets in every layer, cuda plane against the torch plane.  Then
+    qwen3-moe-30b-a3b at full width and full depth (48 layers, 128
+    experts, top-8; bf16, router f32, seeded random weights) through the
+    Engine (4 x 512 prompt tokens, 32 new) and the ContinuousEngine (phase
+    2c's 8 requests, 4 slots, chunks of 128, capacity 1152, pages of 64),
+    the launch counts reset just before each engine's measured run and
+    read just after; (f) a second ContinuousEngine run gives the same
+    tokens bitwise; the share of (token, layer) top-k sets that agree
+    between the planes in bf16 at full depth (printed, not held); a
+    profile of each engine with the MoE ops in a group of their own.
+    Then arctic-480b at full width with 2 layers through both engines (56/8
+    heads).  Returns the phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import ContinuousEngine, Engine, SamplingParams
+    from repro_torch.utils.tree import tree_leaves
+
+    tiles_kernels = wrappers["flash_attention_tiles"].kernels
+    lens_kernels = wrappers["flash_attention_lens"].kernels
+    counters = (tiles_kernels, lens_kernels)
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        for d in counters:
+            for kind in d:
+                d[kind] = 0
+
+    def read():
+        return {"tiles": tiles_kernels["o"],
+                "tiles_state": tiles_kernels["state"],
+                "lens_decode": lens_kernels["decode"],
+                "lens_prefix": lens_kernels["prefix"],
+                "flash_attention": wrappers["flash_attention"].launches}
+
+    def need(what, counts, kinds):
+        missing = [k for k in kinds if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{what}: kernels not launched: {missing} "
+                                 f"({counts})")
+
+    out = {}
+    out["free_gb"], out["allocated_gb"] = free_card(torch)
+    cfg = get_config(MOE_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (FIXED_BATCH, FIXED_PROMPT),
+                            generator=g, device="cuda")
+    greedy = SamplingParams(greedy=True)
+
+    def prefill_routes(lm, params, plane):
+        """Prefill logits and each layer's sorted top-k sets (t, k)."""
+        ctx = registry.use_backend(plane) if plane else \
+            contextlib.nullcontext()
+        with ctx, moe_mod.record_routing() as routes:
+            logits, _ = lm.prefill(params, prompts)
+        return logits, [torch.sort(r.reshape(-1, r.shape[-1]), -1).values
+                        for r in routes]
+
+    def agreeing(ra, rb):
+        return sum(int((a == b).all(-1).sum()) for a, b in zip(ra, rb)), \
+            sum(a.shape[0] for a in ra)
+
+    clock = {"start": time.perf_counter()}
+
+    def lap(name):
+        clock[name] = time.perf_counter() - clock.pop("start")
+        clock["start"] = time.perf_counter()
+
+    # (a-moe) f32 at full width, 2 layers
+    lm32 = LM(dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                  param_dtype="float32"))
+    p32 = lm32.init(0, device="cuda")
+    lc, rc = prefill_routes(lm32, p32, None)
+    lt, rt = prefill_routes(lm32, p32, "torch")
+    out["a_rel"] = float((lc - lt).abs().max() / lt.abs().max())
+    out["a_sets"] = agreeing(rc, rt)
+    if not out["a_rel"] <= A_MOE_REL_TOL or \
+            out["a_sets"][0] != out["a_sets"][1] or len(rc) != 2:
+        raise AssertionError(f"(a-moe) f32 prefill: logits rel diff "
+                             f"{out['a_rel']}, top-k sets agree "
+                             f"{out['a_sets']}")
+    del lm32, p32, lc, lt, rc, rt
+    free_card(torch)
+    lap("a-moe")
+
+    # qwen3-moe-30b-a3b, full width and depth, bf16
+    lm = LM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = lm.init(0, device="cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    leaves = tree_leaves(params)
+    out["params"] = sum(x.numel() for x in leaves)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    out["param_gb"] = nbytes / 1e9
+    # a decode step reads every weight once but the embedding's rows
+    emb = params["embed"]
+    out["step_bound_ms"] = (nbytes - emb.numel() * emb.element_size()) \
+        / PEAK_BYTES_PER_S * 1e3
+    router = params["layers"][0]["moe"]["router"]
+    if router.dtype != torch.float32 or \
+            params["layers"][0]["moe"]["wo"].dtype != torch.bfloat16:
+        raise AssertionError("qwen3-moe: router must be f32, experts bf16")
+
+    eng = Engine(lm, params, max_len=FIXED_PROMPT + FIXED_NEW,
+                 sampling=greedy)
+    eng.generate(prompts[:, :64], max_new_tokens=2)        # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = eng.generate(prompts, max_new_tokens=1)
+    torch.cuda.synchronize()
+    out["fixed_ttft_s"] = time.perf_counter() - t
+    reset()
+    t = time.perf_counter()
+    toks = eng.generate(prompts, max_new_tokens=FIXED_NEW)
+    torch.cuda.synchronize()
+    out["fixed_s"] = time.perf_counter() - t
+    out["fixed_launches"] = read()
+    need("qwen3-moe Engine", out["fixed_launches"], ("tiles",))
+    out["fixed_step_s"] = (out["fixed_s"] - out["fixed_ttft_s"]) / (
+        FIXED_NEW - 1)
+    out["fixed_tok_s"] = FIXED_BATCH * FIXED_NEW / out["fixed_s"]
+    if toks.shape != (FIXED_BATCH, FIXED_NEW) or not torch.equal(
+            toks[:, :1], first) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"qwen3-moe Engine.generate: bad tokens "
+                             f"{toks.shape}")
+    lap("init and Engine")
+
+    reqs = serve_requests(cfg.vocab_size)
+
+    def continuous():
+        return ContinuousEngine(lm, params, num_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN,
+                                chunk_size=SERVE_CHUNK, sampling=greedy)
+
+    ce = continuous()
+    torch.cuda.synchronize()
+    reset()
+    t = time.perf_counter()
+    got, stats = ce.serve(reqs, collect_stats=True)
+    torch.cuda.synchronize()
+    out["cont_s"] = time.perf_counter() - t
+    out["cont_launches"] = read()
+    need("qwen3-moe ContinuousEngine", out["cont_launches"],
+         ("tiles_state", "lens_decode", "lens_prefix"))
+    if [len(x) for x in got] != [m for _, m in reqs]:
+        raise AssertionError(f"qwen3-moe ContinuousEngine.serve: lengths "
+                             f"{[len(x) for x in got]}")
+    out["cont_tok_s"] = sum(len(x) for x in got) / out["cont_s"]
+    out["cont_ttft_s"] = float(np.mean(stats.first_token_times))
+    out["cont_iters"] = len(stats.iter_times)
+    out["cont_iter_s"] = out["cont_s"] / out["cont_iters"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    lap("ContinuousEngine")
+
+    # (f) a second run of the same requests: the same tokens, bitwise
+    again = continuous().serve(reqs)
+    out["f_equal"] = sum(a.tolist() == b.tolist() for a, b in zip(got,
+                                                                   again))
+    if out["f_equal"] != len(reqs):
+        raise AssertionError(f"(f) two ContinuousEngine runs: "
+                             f"{out['f_equal']}/{len(reqs)} requests equal")
+    lap("(f)")
+
+    # bf16 at full depth: how often the planes route a token alike
+    _, rc = prefill_routes(lm, params, None)
+    _, rt = prefill_routes(lm, params, "torch")
+    out["route_share"] = agreeing(rc, rt)
+    out["route_share_by_layer"] = [agreeing([a], [b])[0] / a.shape[0]
+                                   for a, b in zip(rc, rt)]
+    del rc, rt
+    lap("routing share")
+
+    # the MoE group needs CPU activity in the trace, whose processing is
+    # slow: the Engine's short window only
+    sub = [(p, PROFILE_NEW) for p, _ in reqs[:SERVE_SLOTS]]
+    out["profile_fixed"] = device_breakdown(torch, lambda: eng.generate(
+        prompts, max_new_tokens=PROFILE_NEW), moe=True)
+    out["profile_cont"] = device_breakdown(
+        torch, lambda: continuous().serve(sub))
+    del lm, params, leaves, router, emb, eng, ce, got, again, first, toks
+    out["free_gb_after"], _ = free_card(torch)
+    lap("profiles")
+
+    # arctic-480b, full width, 2 layers, both engines
+    acfg = dataclasses.replace(get_config(ARCTIC_ARCH),
+                               num_layers=ARCTIC_LAYERS)
+    alm = LM(acfg)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ap = alm.init(0, device="cuda")
+    torch.cuda.synchronize()
+    out["arctic_init_s"] = time.perf_counter() - t
+    out["arctic_params"] = sum(x.numel() for x in tree_leaves(ap))
+    aprompts = torch.randint(0, acfg.vocab_size,
+                             (ARCTIC_BATCH, ARCTIC_PROMPT), generator=g,
+                             device="cuda")
+    reset()
+    t = time.perf_counter()
+    atoks = Engine(alm, ap, max_len=ARCTIC_PROMPT + ARCTIC_NEW,
+                   sampling=greedy).generate(aprompts,
+                                             max_new_tokens=ARCTIC_NEW)
+    areqs = [(aprompts[i].cpu().numpy().astype(np.int32), ARCTIC_NEW)
+             for i in range(ARCTIC_BATCH)]
+    agot = ContinuousEngine(alm, ap, num_slots=ARCTIC_BATCH,
+                            max_len=ARCTIC_PROMPT + SERVE_CHUNK,
+                            chunk_size=SERVE_CHUNK,
+                            sampling=greedy).serve(areqs)
+    torch.cuda.synchronize()
+    out["arctic_s"] = time.perf_counter() - t
+    out["arctic_launches"] = read()
+    need("arctic-480b", out["arctic_launches"],
+         ("tiles", "tiles_state", "lens_decode", "lens_prefix"))
+    alog, _ = alm.prefill(ap, aprompts)
+    if atoks.shape != (ARCTIC_BATCH, ARCTIC_NEW) or \
+            [len(x) for x in agot] != [ARCTIC_NEW] * ARCTIC_BATCH or \
+            not bool(torch.isfinite(alog).all()):
+        raise AssertionError(f"arctic-480b: tokens {tuple(atoks.shape)}, "
+                             f"{[len(x) for x in agot]}, finite logits "
+                             f"{bool(torch.isfinite(alog).all())}")
+    out["arctic_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del alm, ap, alog, atoks, agot
+    free_card(torch)
+    lap("arctic-480b")
+    clock.pop("start")
+    out["seconds"] = clock
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1881,6 +2290,8 @@ def main() -> int:
         kernels[name]["max_abs_err"] = e
     for heads in HEAD_DIM_SHAPES:
         hold_attention_kernels(torch, heads)
+    for heads in MOE_HEADS:
+        hold_moe_heads(torch, heads)
     for name, e in hold_backward_kernels(torch).items():
         kernels[name]["max_abs_err"] = e
     torch.cuda.synchronize()
@@ -2173,13 +2584,74 @@ def main() -> int:
             kernels[name].get("launches_per_call", 1))
     kernels["flash_attention_lens"]["prefix_kernel_ms"] = kernel_ms(
         torch, lens_prefix, 20, "flash_attention_lens_prefix_kernel", scrub)
-    fixed_prof, cont_prof = serve["profile"]()
+    fixed_prof, cont_prof = serve.pop("profile")()
     log(f"{ARCH} device time by kernel group on {smi[0]}:")
     log(f"  Engine, {PROFILE_NEW} new tokens: {fmt_breakdown(fixed_prof)}")
     log(f"  ContinuousEngine, first {SERVE_SLOTS} requests with "
         f"{PROFILE_NEW} new tokens: {fmt_breakdown(cont_prof)}")
     log(f"  training, one step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
         f"{fmt_breakdown(train.pop('profile')())}")
+
+    # -- phase 2e: the MoE serve path, counted ------------------------------
+    # after phase 3, whose profiles keep phase 2c's and 2d's models: the
+    # card must hold qwen3-moe-30b-a3b's 61 GB of weights alone
+    del timed, timed_attn, timed_bwd, timed_sparse, lens_prefix, scrub
+    del sparse_in, A, B, Z, XS, BCG, a, b, ab, ab16, ar, br, zd, tangled
+    del re0, im0, vals, x, lib_as, lib_cg, xcg, tri, xtri, y_cg, xsm
+    t_path = time.perf_counter()
+    moe = run_moe_path(torch, attn_wrappers)
+    log(f"phase 2e: {MOE_ARCH} and {ARCTIC_ARCH} serve paths and their "
+        f"checks in {time.perf_counter() - t_path:.2f} s; free on the card "
+        f"before it {moe['free_gb']:.2f} GB ({moe['allocated_gb']:.2f} GB "
+        f"still allocated); kernel launches: Engine "
+        f"{moe['fixed_launches']}, ContinuousEngine "
+        f"{moe['cont_launches']}, {ARCTIC_ARCH} (both engines) "
+        f"{moe['arctic_launches']}")
+    for name, kinds in (("flash_attention_lens", ("lens_decode",
+                                                  "lens_prefix")),
+                        ("flash_attention_tiles", ("tiles", "tiles_state"))):
+        launches[name] += sum(moe[run][k] for k in kinds
+                              for run in ("fixed_launches", "cont_launches",
+                                          "arctic_launches"))
+    log(f"{MOE_ARCH} ({moe['params']} parameters, "
+        f"{moe['param_gb']:.2f} GB: bf16, routers f32; init "
+        f"{moe['init_s']:.2f} s; peak memory allocated "
+        f"{moe['peak_gb']:.2f} GB) on {smi[0]}:")
+    log(f"  Engine: {FIXED_BATCH} x {FIXED_PROMPT} prompt tokens, "
+        f"{FIXED_NEW} new: {moe['fixed_tok_s']:.1f} tok/s, time to first "
+        f"token {moe['fixed_ttft_s'] * 1e3:.1f} ms, "
+        f"{moe['fixed_step_s'] * 1e3:.2f} ms per decode step (bound "
+        f"{moe['step_bound_ms']:.2f} ms: every weight but the embedding "
+        f"read once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    log(f"  ContinuousEngine: {len(SERVE_REQS)} requests, {SERVE_SLOTS} "
+        f"slots, chunk {SERVE_CHUNK}: {moe['cont_tok_s']:.1f} tok/s, "
+        f"mean time to first token {moe['cont_ttft_s'] * 1e3:.1f} ms, "
+        f"{moe['cont_iters']} iterations of "
+        f"{moe['cont_iter_s'] * 1e3:.2f} ms")
+    log(f"  (a-moe) f32, 2 layers: prefill logits max |cuda - torch| / max "
+        f"|torch| {moe['a_rel']:.3g} (bar {A_MOE_REL_TOL}); top-k sets "
+        f"agree on {moe['a_sets'][0]}/{moe['a_sets'][1]} (token, layer) "
+        f"pairs")
+    log(f"  (f) two ContinuousEngine runs: {moe['f_equal']}/"
+        f"{len(SERVE_REQS)} requests bitwise equal")
+    agree, pairs = moe["route_share"]
+    by_layer = moe["route_share_by_layer"]
+    log(f"  bf16, 48 layers, cuda vs torch plane (printed, not held): top-k "
+        f"sets agree on {agree}/{pairs} (token, layer) pairs "
+        f"({agree / pairs:.4f}); by layer "
+        + " ".join(f"{x:.3f}" for x in by_layer))
+    log(f"  device time by kernel group, Engine, {PROFILE_NEW} new tokens: "
+        f"{fmt_breakdown(moe['profile_fixed'])}")
+    log(f"  ContinuousEngine, first {SERVE_SLOTS} requests with "
+        f"{PROFILE_NEW} new tokens: {fmt_breakdown(moe['profile_cont'])}")
+    log(f"{ARCTIC_ARCH} at {ARCTIC_LAYERS} layers ({moe['arctic_params']} "
+        f"parameters, init {moe['arctic_init_s']:.2f} s, peak memory "
+        f"allocated {moe['arctic_peak_gb']:.2f} GB): Engine on "
+        f"{ARCTIC_BATCH} x {ARCTIC_PROMPT} tokens, {ARCTIC_NEW} new, and "
+        f"the ContinuousEngine on the same requests in "
+        f"{moe['arctic_s']:.2f} s; logits finite")
+    log("  phase 2e's wall time by step: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in moe["seconds"].items()))
     KEYS = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernel_ms")
     out = []

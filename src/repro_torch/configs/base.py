@@ -1,10 +1,10 @@
-"""ModelConfig: the architecture schema of the dense family + registry
-(counterpart of ``repro.configs.base``, a copy: the port imports nothing of
-the JAX package).
+"""ModelConfig: the architecture schema of the dense and MoE families +
+registry (counterpart of ``repro.configs.base``, a copy: the port imports
+nothing of the JAX package).
 
 Every field is a static (hashable) property.  Only the fields the dense
-family reads are here; the other families' fields (MoE, SSM, hybrid,
-frontends, M-RoPE) come with their slices (ROADMAP queue 1 items 5-7).
+and MoE families read are here; the other families' fields (SSM, hybrid,
+frontends, M-RoPE) come with their slices (ROADMAP queue 1 items 6-7).
 ``dtype`` / ``param_dtype`` keep the JAX package's names;
 :attr:`ModelConfig.act_dtype` and :attr:`ModelConfig.pdtype` are the
 ``torch.dtype`` s.
@@ -21,7 +21,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs", "REGISTRY"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense (the only family ported yet)
+    family: str                      # dense | moe (the families ported)
     num_layers: int
     d_model: int
     vocab_size: int
@@ -46,6 +46,17 @@ class ModelConfig:
     # embeddings
     tie_embeddings: bool = False
     scale_embeddings: bool = False           # gemma: * sqrt(d_model)
+
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    dense_residual: bool = False             # arctic: parallel dense MLP
+    capacity_factor: float = 1.25
+    # kept for field parity with the JAX package, where it picks the
+    # expert-parallel dispatch's sharding constraints over a mesh ("a2a" or
+    # "gather"); at chip scope nothing is sharded, so it has no effect here
+    moe_dispatch: str = "a2a"
 
     # dtypes / execution
     dtype: str = "bfloat16"                  # activations
@@ -94,10 +105,17 @@ class ModelConfig:
         return getattr(torch, self.param_dtype)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family."""
+        """Analytic parameter count of the dense and MoE families."""
         d, v = self.d_model, self.vocab_size
-        per = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim * d \
-            + self.num_heads * self.head_dim * d + 3 * d * self.d_ff
+        attn = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim * d \
+            + self.num_heads * self.head_dim * d
+        if self.family == "moe":
+            moe = self.num_experts * 3 * d * self.moe_d_ff \
+                + d * self.num_experts
+            dense = 3 * d * self.d_ff if self.dense_residual else 0
+            per = attn + moe + dense
+        else:
+            per = attn + 3 * d * self.d_ff
         return v * d * (1 if self.tie_embeddings else 2) \
             + self.num_layers * per
 

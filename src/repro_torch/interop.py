@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.containers import Dense, resolve_device, to_device
+from repro_torch.models.moe import ROUTER_DTYPE
 from repro_torch.numerics.sparse import CSR, DIA, ELL, index_array
 from repro_torch.sparse.formats import BSR
 from repro_torch.sparse.stats import SparseStats
@@ -80,27 +81,35 @@ def _leaf(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, np.float32), device=device).to(dtype)
 
 
-def _tree(x, fn):
+def _tree(x, fn, path=()):
+    """``fn(leaf, path)`` over a dict tree; ``path`` is the leaf's keys."""
     if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    return fn(x)
+        return {k: _tree(v, fn, path + (k,)) for k, v in x.items()}
+    return fn(x, path)
+
+
+def _param_dtype(path: tuple, cfg) -> torch.dtype:
+    """A carried parameter's dtype: ``cfg.pdtype``, except an MoE router
+    (``[...]["moe"]["router"]``), which stays in ``ROUTER_DTYPE`` (f32)
+    whatever ``param_dtype`` is, as the JAX package keeps it."""
+    return ROUTER_DTYPE if path[-2:] == ("moe", "router") else cfg.pdtype
 
 
 def carry_params(params: dict, cfg, *, device: Any = None) -> dict:
     """The port's LM parameters from the JAX LM's pytree ``params`` (leaves
     as numpy arrays or anything ``numpy.asarray`` reads), in ``cfg.pdtype``
-    on the device chosen by the ``bind`` rule.  Layer-stacked
-    ``(num_layers, ...)`` leaves of ``params["layers"]`` become a list of
-    per-layer dicts; every weight keeps its layout (``linear`` weights are
-    (in, out) in both packages)."""
+    (an MoE router in f32) on the device chosen by the ``bind`` rule.
+    Layer-stacked ``(num_layers, ...)`` leaves of ``params["layers"]``
+    become a list of per-layer dicts; every weight keeps its layout
+    (``linear`` weights are (in, out) in both packages)."""
     dev = resolve_device(device)
-    dtype = cfg.pdtype
-    out = {k: _tree(v, lambda a: _leaf(a, dtype, dev))
+    out = {k: _tree(v, lambda a, path: _leaf(a, _param_dtype(path, cfg),
+                                             dev), (k,))
            for k, v in params.items() if k != "layers"}
     stacked = params["layers"]
-    out["layers"] = [_tree(stacked, lambda a, i=i: _leaf(np.asarray(a)[i],
-                                                         dtype, dev))
-                     for i in range(cfg.num_layers)]
+    out["layers"] = [_tree(stacked, lambda a, path, i=i: _leaf(
+        np.asarray(a)[i], _param_dtype(path, cfg), dev))
+        for i in range(cfg.num_layers)]
     return out
 
 
@@ -115,9 +124,9 @@ def carry_train_state(state: Any, cfg, *, device: Any = None):
     """The port's :class:`~repro_torch.train.TrainState` from the JAX
     package's ``TrainState`` (fields ``step``, ``params`` and
     ``opt_state`` = ``AdamState(count, mu, nu)``, read by name; leaves as
-    numpy arrays).  Parameters go through :func:`carry_params`; the
-    moments keep their own dtype (f32, or bf16 for ``moment_dtype``
-    bf16) and the counters are int32."""
+    numpy arrays).  Parameters go through :func:`carry_params` (so an MoE
+    router stays f32); the moments keep their own dtype (f32, or bf16 for
+    ``moment_dtype`` bf16) and the counters are int32."""
     from repro_torch.optim import AdamState
     from repro_torch.train import TrainState
 
@@ -125,11 +134,11 @@ def carry_train_state(state: Any, cfg, *, device: Any = None):
     opt = state.opt_state
 
     def moments(tree):
-        out = {k: _tree(v, lambda a: _leaf(a, _dtype_of(a), dev))
+        out = {k: _tree(v, lambda a, _: _leaf(a, _dtype_of(a), dev))
                for k, v in tree.items() if k != "layers"}
         out["layers"] = [_tree(tree["layers"],
-                               lambda a, i=i: _leaf(np.asarray(a)[i],
-                                                    _dtype_of(a), dev))
+                               lambda a, _, i=i: _leaf(np.asarray(a)[i],
+                                                       _dtype_of(a), dev))
                          for i in range(cfg.num_layers)]
         return out
 

@@ -144,9 +144,9 @@ __global__ void __launch_bounds__(tc::THREADS_MAX, 1)
   const size_t bhk = (size_t)b * a.hkv + hk;
   const DenseWalk<CAUSAL> walk{(kend + a.block_k - 1) / a.block_k,
                                a.block_k};
-  const tc::FoldOut dst{a.o + bh * a.lq * D,
-                        STATE ? a.m + bh * a.lq : nullptr,
-                        STATE ? a.l + bh * a.lq : nullptr};
+  tc::FoldOut dst{a.o + bh * a.lq * D, STATE ? a.m + bh * a.lq : nullptr,
+                  STATE ? a.l + bh * a.lq : nullptr};
+  dst.zero_dead = true;
   tc::fold_rows<D, STATE>(a.q + bh * a.lq * D, a.k + bhk * a.lk * D,
                           a.v + bhk * a.lk * D, dst, q0, qend, a.lk,
                           a.block_k, a.scale, walk);

@@ -229,8 +229,11 @@ __device__ __forceinline__ void fold_tile(const T* __restrict__ kg,
   __syncthreads();
 }
 
-// o = acc / max(l, 1e-30) in q's type, and the state (m, l) when m_out is
-// given, for the warp's rows below nrows.  o points at row q0 of (b, h).
+// o = acc / max(l, 1e-30) in q's type, 0 on a row with no live key (m ==
+// NEG_INF, where acc / l would be the mean of the walked V rows: the walks
+// that flush through here are differentiable, and their backward gives
+// such rows no probability), and the state (m, l) when m_out is given, for
+// the warp's rows below nrows.  o points at row q0 of (b, h).
 template <typename T, int D>
 __device__ __forceinline__ void flush(const State<D>& st, int q0, int nrows,
                                       T* __restrict__ o, float* m_out,
@@ -243,10 +246,11 @@ __device__ __forceinline__ void flush(const State<D>& st, int q0, int nrows,
     const int row = q0 + warp * RPW + r;
     if (row >= nrows) continue;
     const float denom = fmaxf(st.l[r], 1e-30f);
+    const bool dead = st.m[r] <= NEG_INF;
 #pragma unroll
     for (int u = 0; u < CPL; ++u)
       o[(size_t)row * D + lane + 32 * u] =
-          from_f<T>(__fdiv_rn(st.acc[r][u], denom));
+          from_f<T>(dead ? 0.f : __fdiv_rn(st.acc[r][u], denom));
     if (m_out != nullptr && lane == 0) {
       m_out[row] = st.m[r];
       l_out[row] = st.l[r];

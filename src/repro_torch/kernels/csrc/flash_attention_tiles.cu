@@ -17,7 +17,9 @@
 // of one Q tile of one (b, h) and walks the tile's list.  The last Q tile
 // and the last K tile are short when the blocks do not divide the lengths;
 // a short K tile is folded with its own key count.  Rows whose Q tile has
-// no live K tile output 0 with m = NEG_INF and l = 0.  The kernel is chosen
+// no live K tile output 0 with m = NEG_INF and l = 0, and so does a row
+// whose entries are all masked in the tiles it walks (m = NEG_INF, l > 0):
+// its backward gives it no probability.  The kernel is chosen
 // by dtype: f32 keeps the FMA fold, bf16 runs on the tensor cores.
 //
 // f32.  One CTA owns fa::ROWS rows (a Q tile of block_q rows is cut into
@@ -221,9 +223,9 @@ __global__ void __launch_bounds__(tc::THREADS_MAX, 1)
       BAND ? nullptr
            : a.biases + (size_t)a.prowp[i] * a.block_q * a.block_k,
       i * a.block_q, a.block_q};
-  const tc::FoldOut dst{a.o + bh * a.lq * D,
-                        STATE ? a.m + bh * a.lq : nullptr,
-                        STATE ? a.l + bh * a.lq : nullptr};
+  tc::FoldOut dst{a.o + bh * a.lq * D, STATE ? a.m + bh * a.lq : nullptr,
+                  STATE ? a.l + bh * a.lq : nullptr};
+  dst.zero_dead = true;
   tc::fold_rows<D, STATE>(a.q + bh * a.lq * D, a.k + bhk * a.lk * D,
                           a.v + bhk * a.lk * D, dst, q0, qend, a.lk,
                           a.block_k, a.scale, walk);

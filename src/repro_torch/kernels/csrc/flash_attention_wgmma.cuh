@@ -386,6 +386,10 @@ struct FoldOut {
   float* acc = nullptr;
   float* acc_m = nullptr;
   float* acc_l = nullptr;
+  // o = 0 on a row with no live key (m == NEG_INF), where acc / l would
+  // be the mean of the walked V rows: the differentiable walks (the dense
+  // grid and tiles) set it, so that o agrees with their backward
+  bool zero_dead = false;
 };
 
 // One CTA's fold over a walk.  blockDim.x is 128 x (1 or 2): warpgroup w
@@ -579,8 +583,9 @@ __device__ __forceinline__ void fold_rows(const bf16* __restrict__ q,
     if constexpr (NS == 1) issue(t + 1, true);  // pending: K, V(t + 1)
   }
 
-  // o = acc / max(l, 1e-30), rounded once, and the state (m, l) when
-  // asked; or the unnormalised f32 partial
+  // o = acc / max(l, 1e-30), rounded once (0 on a dead row when
+  // dst.zero_dead), and the state (m, l) when asked; or the unnormalised
+  // f32 partial
   if (!live) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -599,12 +604,15 @@ __device__ __forceinline__ void fold_rows(const bf16* __restrict__ q,
       continue;
     }
     const float denom = fmaxf(l_r[r], 1e-30f);
+    const bool zero = dst.zero_dead && m_r[r] <= fa::NEG_INF;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst.out + (size_t)row * D + 8 * j +
                                          2 * tq) =
-          __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * r], denom),
-                                __fdiv_rn(o[4 * j + 2 * r + 1], denom));
+          zero ? __floats2bfloat162_rn(0.f, 0.f)
+               : __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * r], denom),
+                                       __fdiv_rn(o[4 * j + 2 * r + 1],
+                                                 denom));
     if (STATE && tq == 0) {
       dst.m_out[row] = m_r[r];
       dst.l_out[row] = l_r[r];

@@ -29,7 +29,8 @@ Three wrappers, each counting its launches:
                            :class:`~repro_torch.sparse.maskcompiler.TileLayout`
                            (csrc/flash_attention_tiles.cu: f32 the FMA
                            fold, bf16 the tensor-core fold); replaces
-                           ``:275`` and ``:290``.
+                           ``:275`` and ``:290``; ``.kernels`` counts the
+                           launches with and without state.
 
 The two dense folds are each shared by two kernels, so over
 ``causal_layout`` the tiles walk is bitwise equal to the dense causal grid
@@ -49,9 +50,14 @@ launches its kernel or raises.  The kernels take f32 or bf16, head_dim in
 :data:`MAX_BLOCK_K` keys.  The blocks need not divide the lengths: the
 last Q tile and the last K tile are short.
 
-A row whose keys are all masked keeps ``m == NEG_INF``; its ``o`` and
-``l`` are garbage (the kernels and the plain versions may disagree on
-them), and :func:`merge_states` weights such a state by exactly 0.
+A row whose keys are all masked keeps ``m == NEG_INF``, and
+:func:`merge_states` weights such a state by exactly 0.  The two
+differentiable walks, the dense grid and tiles, write ``o = 0`` on such a
+row (the reference oracle's "fully-masked rows output exactly 0"), in the
+kernels and in the plain versions alike, so that ``o`` is the function
+whose derivative their backward computes; its ``l`` is garbage.  On the
+lens walk both ``o`` and ``l`` of such a row are garbage (the kernels and
+the plain version may disagree on them).
 
 The backward (port-only: the JAX package differentiates through its XLA
 plane).  Where grad mode is on and q, k or v requires grad,
@@ -64,8 +70,8 @@ maskcompiler.grid_layout`): three launches of csrc/flash_attention_bwd.cu
 on CUDA tensors (:func:`fa_bwd_delta`, :func:`fa_bwd_dkdv`,
 :func:`fa_bwd_dq`, each counting its launches), the plain
 :func:`flash_attention_tiles_bwd_plain` on host tensors.  A row with no
-live key gets no gradient.  ``flash_attention_lens`` (serving) has no
-backward and raises when asked for one.
+live key gets no gradient, as its output is 0.  ``flash_attention_lens``
+(serving) has no backward and raises when asked for one.
 """
 from __future__ import annotations
 
@@ -152,12 +158,17 @@ def _init_carry(q, rows: int):
             torch.zeros((b, h, rows, d), device=q.device))
 
 
-def _finish(q, outs, return_state):
-    """Concatenate per-Q-tile carries into ``o`` (and ``m``, ``l``)."""
+def _finish(q, outs, return_state, zero_dead=True):
+    """Concatenate per-Q-tile carries into ``o`` (and ``m``, ``l``); with
+    ``zero_dead``, ``o = 0`` on rows with no live key (``m == NEG_INF``),
+    where ``acc / l`` is the mean of the walked V rows."""
     m = torch.cat([c[0] for c in outs], dim=2)
     l = torch.cat([c[1] for c in outs], dim=2)
     acc = torch.cat([c[2] for c in outs], dim=2)
-    o = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    o = acc / l.clamp_min(1e-30)[..., None]
+    if zero_dead:
+        o = torch.where((m <= NEG_INF)[..., None], 0.0, o)
+    o = o.to(q.dtype)
     return (o, m, l) if return_state else o
 
 
@@ -167,7 +178,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           return_state: bool = False):
     """The dense grid of the Pallas kernel in torch: every (Q tile, K tile)
     step the Pallas grid runs (above-diagonal tiles skipped when causal),
-    masked by ``qpos >= kpos`` and ``kpos < kv_len[b]``."""
+    masked by ``qpos >= kpos`` and ``kpos < kv_len[b]``.  Without
+    ``kv_len`` (the dense grid) a row with no live key gets ``o = 0``;
+    with it (the lens walk's plain version) its ``o`` is left as folded."""
     b, hq, lq, d = q.shape
     lk = k.shape[2]
     bq, bk = min(block_q, lq), min(block_k, lk)
@@ -194,7 +207,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
             carry = _fold(carry, qt, kk[:, :, k0:k0 + bk],
                           vv[:, :, k0:k0 + bk], scale, live=live)
         outs.append(carry)
-    return _finish(q, outs, return_state)
+    return _finish(q, outs, return_state, zero_dead=kv_len is None)
 
 
 def flash_attention_tiles_plain(q, k, v, layout, *,
@@ -648,6 +661,7 @@ def _tiles_forward(q, k, v, layout, scale, return_state):
         _lib.stream_of(q))
     _lib.check(code, "flash_attention_tiles")
     flash_attention_tiles.launches += 1
+    flash_attention_tiles.kernels["state" if return_state else "o"] += 1
     return (o, m, l) if return_state else o
 
 
@@ -674,6 +688,9 @@ def flash_attention_tiles(q, k, v, layout, *, scale: Optional[float] = None,
 
 
 flash_attention_tiles.launches = 0
+#: Launches by variant ("o", and "state" for the kernels that also write
+#: m and l), beside the wrapper's count.
+flash_attention_tiles.kernels = {"o": 0, "state": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ fixed engine (counterpart of ``repro.launch.serve``).
         --scale 1.0 --batch 4 --prompt-len 512 --new-tokens 32
 
 It runs on the card unless ``--device cpu`` is given.  ``--scale`` below 1
-shrinks the architecture with :func:`reduce_config`.  ``--ckpt-dir`` loads
+shrinks the architecture with :func:`reduce_config`; a config whose
+parameters do not fit the card (arctic-480b: 476.8 B) raises unless it is
+shrunk.  ``--arch qwen3-moe-30b-a3b --scale 1.0`` serves the whole MoE
+model (61 GB in bf16) on one 80 GB card.  ``--ckpt-dir`` loads
 the parameters of the newest checkpoint there (written by either package's
 ``Checkpointer``; the scale must match the one it was trained at).  The
 execution levels of the JAX version are not ported.
@@ -49,6 +52,14 @@ def main(argv=None) -> int:
     if args.scale != 1.0:
         cfg = reduce_config(cfg, args.scale)
     dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        need = cfg.param_count() * torch.empty((), dtype=cfg.pdtype
+                                               ).element_size()
+        have = torch.cuda.get_device_properties(dev).total_memory
+        if need > have:
+            ap.error(f"{cfg.name}: {need / 1e9:.1f} GB of parameters do not "
+                     f"fit the card's {have / 1e9:.1f} GB; pass --scale "
+                     f"below 1")
     lm = LM(cfg)
     if args.ckpt_dir:
         from repro_torch.optim import adamw

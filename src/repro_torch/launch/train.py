@@ -39,9 +39,11 @@ clock = time.perf_counter
 def reduce_config(cfg: ModelConfig, scale: float, *,
                   seq_len: int = 256) -> ModelConfig:
     """Shrink an assigned architecture into a CPU-runnable sibling (same
-    family, same block structure, fewer/narrower layers): the dense branch
-    of the JAX package's ``reduce_config``.  ``seq_len`` sizes the JAX
-    package's frontends, which the dense family has none of."""
+    family, same block structure, fewer/narrower layers): the dense and MoE
+    branches of the JAX package's ``reduce_config`` (MoE: at most 8 experts
+    and top-2, ``moe_d_ff`` scaled, capacity factor 4, ``d_ff`` only with a
+    dense residual).  ``seq_len`` sizes the JAX package's frontends, which
+    these families have none of."""
     def s(x, lo=1, mult=1):
         v = max(lo, int(round(x * scale)))
         return -(-v // mult) * mult
@@ -51,15 +53,21 @@ def reduce_config(cfg: ModelConfig, scale: float, *,
     kvh = max(1, min(cfg.num_kv_heads, heads))
     while heads % kvh:
         kvh -= 1
+    kw: dict = dict(d_ff=s(cfg.d_ff, 64, 16) if cfg.d_ff else 0)
+    if cfg.family == "moe":
+        kw.update(num_experts=min(cfg.num_experts, 8),
+                  experts_per_token=min(cfg.experts_per_token, 2),
+                  moe_d_ff=s(cfg.moe_d_ff, 32, 8),
+                  d_ff=s(cfg.d_ff, 64, 16) if cfg.dense_residual else 0,
+                  capacity_factor=4.0)
     return dataclasses.replace(
         cfg, name=f"{cfg.name}-x{scale}",
         num_layers=max(2, int(round(cfg.num_layers * scale))),
         d_model=d_model, vocab_size=min(cfg.vocab_size, 2048),
         num_heads=heads, num_kv_heads=kvh,
         head_dim=max(8, d_model // heads // 2 * 2),
-        d_ff=s(cfg.d_ff, 64, 16) if cfg.d_ff else 0,
         dtype="float32", param_dtype="float32",
-        remat=False, scan_layers=True)
+        remat=False, scan_layers=True, **kw)
 
 
 class Trainer:

@@ -1,2 +1,2 @@
 """repro_torch.models — the LM facade and its layers (counterpart of
-``repro.models``; dense family so far)."""
+``repro.models``; the dense and MoE families so far)."""

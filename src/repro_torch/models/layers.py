@@ -8,6 +8,7 @@ f32.  M-RoPE (qwen2-vl) is not ported yet (ROADMAP queue 1 item 7, the VLM famil
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -19,15 +20,32 @@ __all__ = ["rms_norm", "rms_norm_init", "rope", "apply_rope", "mlp",
 Params = dict[str, Any]
 
 
+#: A leaf of more elements than this is drawn slice by slice along its
+#: first dim, so that init holds one slice in f32 beside the result, not
+#: the whole leaf (an arctic-480b expert leaf is 4.5 G elements, 17.8 GB in
+#: f32).  Every leaf of the other configs is drawn whole.
+DRAW_WHOLE_ELEMENTS = 1 << 30
+
+
 def dense_init(gen: torch.Generator, shape, scale: float | None = None,
                dtype=torch.float32, device=None) -> torch.Tensor:
     """Truncated-normal (+-2 sigma) fan-in init, drawn in f32 from ``gen``
     on ``device`` (the generator's device), then cast to ``dtype``."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
-    w = torch.empty(shape, dtype=torch.float32, device=device or gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * scale).to(dtype)
+    dev = device or gen.device
+
+    def draw(s):
+        w = torch.empty(s, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return w.mul_(scale).to(dtype)
+
+    if math.prod(shape) <= DRAW_WHOLE_ELEMENTS:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
 
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

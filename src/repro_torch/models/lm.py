@@ -1,4 +1,4 @@
-"""LM: the architecture facade for serving, dense family (counterpart of
+"""LM: the architecture facade, dense and MoE families (counterpart of
 ``repro.models.lm``, chip scope).
 
     init               seeded random weights on the card (or the CPU)
@@ -18,8 +18,15 @@ that its layer-stacked leaves become a list of per-layer dicts
 int32 and ``lens`` (B,) int32.  Decode steps update caches in place (the
 JAX package returns updated copies) and return the same tensors.
 
-The other families (moe, ssm, hybrid, vlm, audio) raise NotImplementedError
-until their slices port them (ROADMAP queue 1 items 5-7).
+The MoE family routes every token through ``models.moe.moe_apply``: at
+``cfg.capacity_factor`` in ``forward``, ``loss`` and ``prefill``, at
+:data:`DECODE_CAPACITY_FACTOR` in the decode steps and chunked prefill, as
+the JAX package does.  Nothing is masked before the router: an inactive
+decode slot's token and a chunk's padding are routed and take capacity
+like any other, so capacity couples the requests of a batch.
+
+The other families (ssm, hybrid, vlm, audio) raise NotImplementedError
+until their slices port them (ROADMAP queue 1 items 6-7).
 """
 from __future__ import annotations
 
@@ -39,7 +46,11 @@ from repro_torch.models.layers import (dense_init, linear, mlp, rms_norm,
 
 Params = dict[str, Any]
 
-__all__ = ["LM", "cross_entropy_loss"]
+__all__ = ["LM", "cross_entropy_loss", "DECODE_CAPACITY_FACTOR"]
+
+#: The MoE capacity factor of the decode steps and chunked prefill (the JAX
+#: package's ``_moe_decode``): few tokens a step, so a roomy buffer.
+DECODE_CAPACITY_FACTOR = 4.0
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -62,10 +73,10 @@ class LM:
 
     def _check_family(self) -> None:
         cfg = self.cfg
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(ROADMAP queue 1 items 5-7 port the other families)")
+                f"(ROADMAP queue 1 items 6-7 port the other families)")
 
     # ------------------------------------------------------------------
     # init
@@ -85,8 +96,9 @@ class LM:
         if not cfg.tie_embeddings:
             p["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                                       dtype=cfg.pdtype)
-        p["layers"] = tf.stack_init(gen, cfg, tf.dense_block_init,
-                                    cfg.num_layers)
+        block_init = tf.moe_block_init if cfg.family == "moe" \
+            else tf.dense_block_init
+        p["layers"] = tf.stack_init(gen, cfg, block_init, cfg.num_layers)
         return p
 
     # ------------------------------------------------------------------
@@ -131,23 +143,30 @@ class LM:
         x = self._embed(params, tokens)
         B, S, _ = x.shape
         cos, sin = self._rope_tables(B, S, x.device)
-        x = tf.stack_apply(x, params["layers"], functools.partial(
-            tf.dense_block, cfg=self.cfg, cos=cos, sin=sin), self.cfg)
+        block = tf.moe_block if self.cfg.family == "moe" else tf.dense_block
+        x, aux = tf.stack_apply(x, params["layers"], functools.partial(
+            block, cfg=self.cfg, cos=cos, sin=sin), self.cfg)
         x = rms_norm(x, params["final_norm"])
-        aux = {"aux_lb": torch.zeros((), device=x.device),
-               "aux_z": torch.zeros((), device=x.device)}
         return self._logits(params, x), aux
 
     def loss(self, params: Params, batch: dict):
         """``(loss, metrics)`` of a batch ``{"tokens", "labels"}`` (B, S)
         int (tensors, or host arrays moved to the parameters' device):
-        token-mean cross entropy of the next-token logits, in f32."""
+        token-mean cross entropy of the next-token logits, in f32.  The MoE
+        family adds ``0.01 * aux_lb / L + 1e-3 * aux_z / L`` over its L
+        layers and reports ``metrics["aux_lb"]``."""
+        cfg = self.cfg
         dev = params["embed"].device
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)
-        logits, _ = self.forward(params, tokens)
+        logits, aux = self.forward(params, tokens)
         loss, n = cross_entropy_loss(logits, labels)
-        return loss, {"loss": loss, "tokens": n}
+        metrics = {"loss": loss, "tokens": n}
+        if cfg.family == "moe":
+            loss = loss + 0.01 * aux["aux_lb"] / cfg.num_layers \
+                + 1e-3 * aux["aux_z"] / cfg.num_layers
+            metrics["aux_lb"] = aux["aux_lb"]
+        return loss, metrics
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 max_len: Optional[int] = None):
@@ -162,8 +181,10 @@ class LM:
         shape = (cfg.num_layers, B, cfg.num_kv_heads, max_len, cfg.head_dim)
         ck = torch.zeros(shape, dtype=cfg.act_dtype, device=x.device)
         cv = torch.zeros(shape, dtype=cfg.act_dtype, device=x.device)
+        block_kv = tf.moe_block_kv if cfg.family == "moe" \
+            else tf.dense_block_kv
         for i, lp in enumerate(params["layers"]):
-            x, (k, v) = tf.dense_block_kv(x, lp, cfg, cos, sin)
+            x, (k, v) = block_kv(x, lp, cfg, cos, sin)
             ck[i, :, :, :S] = k
             cv[i, :, :, :S] = v
         x = rms_norm(x, params["final_norm"])
@@ -201,8 +222,7 @@ class LM:
             a, _, _ = attn_mod.attention_decode(
                 rms_norm(x, lp["attn_norm"]), lp["attn"], cfg,
                 cache["k"][i], cache["v"][i], cur, cos, sin)
-            x = x + a
-            x = x + mlp(rms_norm(x, lp["mlp_norm"]), lp["mlp"], cfg.mlp_kind)
+            x = self._step_ffn(x + a, lp)
         x = rms_norm(x, params["final_norm"])
         logits = self._logits(params, x)[:, 0, :]
         return logits, dict(cache, cur_len=cur + 1)
@@ -217,15 +237,23 @@ class LM:
                              "masks")
         self._check_family()
 
+    def _step_ffn(self, h, lp):
+        """The FFN half of a layer in the decode steps and chunked prefill,
+        on the residual ``h``: the MLP, or the MoE at
+        :data:`DECODE_CAPACITY_FACTOR` (every row routed, padding and
+        inactive slots too)."""
+        cfg = self.cfg
+        if cfg.family == "moe":
+            return h + tf.moe_ffn(h, lp, cfg, DECODE_CAPACITY_FACTOR)[0]
+        return h + mlp(rms_norm(h, lp["mlp_norm"]), lp["mlp"], cfg.mlp_kind)
+
     def _paged_block(self, cfg, attn_fn):
         """The per-layer body shared by paged decode and chunked prefill:
         attention through ``attn_fn`` (which writes the page pools), then
-        the MLP."""
+        the family's FFN."""
         def body(h, lp, kp_l, vp_l):
             a, _, _ = attn_fn(rms_norm(h, lp["attn_norm"]), lp, kp_l, vp_l)
-            h = h + a
-            return h + mlp(rms_norm(h, lp["mlp_norm"]), lp["mlp"],
-                           cfg.mlp_kind)
+            return self._step_ffn(h + a, lp)
         return body
 
     def decode_step_paged(self, params: Params, state: Params,

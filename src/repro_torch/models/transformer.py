@@ -1,11 +1,13 @@
-"""Decoder stacks: the dense block (counterpart of the dense part of
-``repro.models.transformer``).
+"""Decoder stacks: the dense and MoE blocks (counterpart of the dense and
+MoE parts of ``repro.models.transformer``).
 
 The JAX package stacks every parameter leaf along a leading ``num_layers``
 dim and scans over it; here the stack is a list of per-layer parameter
-dicts and the layer loop is a Python loop.  The MoE and SSM blocks come
-with their families' slices (ROADMAP queue 1 items 5 and 6); ``constrain``
-(mesh sharding hints) is mesh scope and is left out.
+dicts and the layer loop is a Python loop.  A block returns ``(x, aux)``,
+the auxiliary losses ``{"aux_lb", "aux_z"}`` (zeros for the dense block),
+and :func:`stack_apply` sums them over the layers.  The SSM blocks come
+with their family's slice (ROADMAP queue 1 item 6); ``constrain`` (mesh
+sharding hints) is mesh scope and is left out.
 """
 from __future__ import annotations
 
@@ -18,12 +20,19 @@ import torch.utils.checkpoint
 
 from repro_torch.core import registry
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import mlp, mlp_init, rms_norm, rms_norm_init
 
 Params = dict[str, Any]
 
-__all__ = ["dense_block_init", "dense_block", "dense_block_kv", "stack_apply",
-           "stack_init"]
+__all__ = ["dense_block_init", "dense_block", "dense_block_kv",
+           "moe_block_init", "moe_block", "moe_block_kv", "moe_ffn",
+           "stack_apply", "stack_init", "zero_aux"]
+
+
+def zero_aux(device=None) -> dict[str, torch.Tensor]:
+    return {"aux_lb": torch.zeros((), device=device),
+            "aux_z": torch.zeros((), device=device)}
 
 
 def dense_block_init(gen: torch.Generator, cfg) -> Params:
@@ -35,10 +44,11 @@ def dense_block_init(gen: torch.Generator, cfg) -> Params:
     }
 
 
-def dense_block(x, p: Params, cfg, cos, sin) -> torch.Tensor:
+def dense_block(x, p: Params, cfg, cos, sin):
     h = x + attn.attention_apply(rms_norm(x, p["attn_norm"]), p["attn"], cfg,
                                  cos, sin)
-    return h + mlp(rms_norm(h, p["mlp_norm"]), p["mlp"], cfg.mlp_kind)
+    return (h + mlp(rms_norm(h, p["mlp_norm"]), p["mlp"], cfg.mlp_kind),
+            zero_aux(x.device))
 
 
 def dense_block_kv(x, p: Params, cfg, cos, sin):
@@ -50,26 +60,69 @@ def dense_block_kv(x, p: Params, cfg, cos, sin):
     return h + mlp(rms_norm(h, p["mlp_norm"]), p["mlp"], cfg.mlp_kind), (k, v)
 
 
+def moe_block_init(gen: torch.Generator, cfg) -> Params:
+    p = {
+        "attn_norm": rms_norm_init(cfg.d_model, cfg.pdtype, gen.device),
+        "attn": attn.attention_init(gen, cfg),
+        "moe_norm": rms_norm_init(cfg.d_model, cfg.pdtype, gen.device),
+        "moe": moe_mod.moe_init(gen, cfg),
+    }
+    if cfg.dense_residual:
+        p["dense_mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype)
+    return p
+
+
+def moe_ffn(h, p: Params, cfg, capacity_factor: float):
+    """The MoE half of a block on the residual ``h``: the routed experts at
+    ``capacity_factor`` (and arctic's parallel dense branch), returning
+    ``(y, aux)`` for ``h + y``."""
+    hn = rms_norm(h, p["moe_norm"])
+    y, aux = moe_mod.moe_apply(hn, p["moe"], cfg,
+                               capacity_factor=capacity_factor)
+    if cfg.dense_residual:
+        y = y + mlp(hn, p["dense_mlp"], cfg.mlp_kind)
+    return y, aux
+
+
+def moe_block(x, p: Params, cfg, cos, sin):
+    h = x + attn.attention_apply(rms_norm(x, p["attn_norm"]), p["attn"], cfg,
+                                 cos, sin)
+    y, aux = moe_ffn(h, p, cfg, cfg.capacity_factor)
+    return h + y, aux
+
+
+def moe_block_kv(x, p: Params, cfg, cos, sin):
+    """:func:`moe_block` that returns the layer's rope-applied K/V instead
+    of its aux losses: the prefill path."""
+    a, k, v = attn.attention_apply_kv(rms_norm(x, p["attn_norm"]), p["attn"],
+                                      cfg, cos, sin)
+    h = x + a
+    y, _ = moe_ffn(h, p, cfg, cfg.capacity_factor)
+    return h + y, (k, v)
+
+
 def stack_apply(x, layers: list[Params], block_fn: Callable, cfg, *,
-                remat: bool | None = None) -> torch.Tensor:
-    """Apply ``block_fn(x, layer_params) -> x`` over the layers in order.
+                remat: bool | None = None):
+    """Apply ``block_fn(x, layer_params) -> (x, aux)`` over the layers in
+    order; returns ``(x, aux)`` with each block's aux losses summed.
 
     With remat (``cfg.remat`` unless given) and grad mode on, each block
     runs under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=
     False)``: the backward recomputes the block's activations instead of
     keeping them.  Like the JAX package's ``REMAT_POLICY``, this decides
-    what is kept, not what is computed, so the values do not change.  The
-    dense family has no auxiliary losses, so only ``x`` is returned."""
+    what is kept, not what is computed, so the values do not change."""
     remat = cfg.remat if remat is None else remat
     ckpt = remat and torch.is_grad_enabled()
+    aux = zero_aux(x.device)
     for lp in layers:
         if ckpt:
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 block_fn, x, lp, use_reentrant=False,
                 context_fn=_recompute_on_this_plane)
         else:
-            x = block_fn(x, lp)
-    return x
+            x, a = block_fn(x, lp)
+        aux = {name: aux[name] + a[name] for name in aux}
+    return x, aux
 
 
 def _recompute_on_this_plane():

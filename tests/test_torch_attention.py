@@ -7,8 +7,9 @@ run them; the port's wrappers run their plain versions on host tensors.
 
 Bars: 1e-5 in f32 (the JAX suite's, tests/test_kernels.py and
 tests/test_blocksparse_attention.py); the mask compiler's arrays are equal.
-Rows with no live key carry garbage o and l (only m == NEG_INF is
-meaningful there), so o and l are compared on live rows only.
+Rows with no live key carry garbage l (only m == NEG_INF is meaningful
+there; the dense grid and tiles write o = 0 on them, the lens walk
+garbage), so o and l are compared on live rows only.
 """
 import dataclasses
 

@@ -7,8 +7,9 @@ CPU plane, on the same numpy inputs and cotangents.
 
 Bar: 1e-5 in f32, as tests/test_torch_models.py.  Rows with no live key
 are 0 in the JAX masked oracle, whose gradient through them is 0; the
-port's backward gives such rows no probability (dQ = 0, nothing into dK or
-dV), so the gradients agree there too, for any cotangent.
+port's forward writes 0 there too and its backward gives such rows no
+probability (dQ = 0, nothing into dK or dV), so the gradients agree there
+for any cotangent, and with autograd of the port's own plain forward.
 """
 import jax
 import jax.numpy as jnp
@@ -195,6 +196,46 @@ def test_empty_layout_has_zero_grads():
     got, out = _port_grads(lambda a, b, c: fa.flash_attention_tiles(
         a, b, c, lay), q, k, v, do)
     assert not out.any() and not any(g.any() for g in got)
+
+
+def _dead_layout(case):
+    """The layouts of the dead-row cases: causal with Lq > Lk (whole Q
+    tiles and the first rows of others see no key) and the ``deadrows``
+    block pattern (its dead rows 40-47 sit inside a live Q tile, masked
+    by bias tiles)."""
+    if case == "deadrows":
+        _, ts = _spec_pair("deadrows", 64, 64)
+        return tmc.compile_layout(ts, 64, 64, 16, 16)
+    lq, lk = case
+    return tmc.causal_layout(lq, lk, 16, 16)
+
+
+@pytest.mark.parametrize("case", [(9, 5), (300, 130), "deadrows"],
+                         ids=["causal_9x5", "causal_300x130", "deadrows"])
+def test_dead_rows_backward_is_the_forwards_derivative(case):
+    """On rows with no live key (m == NEG_INF) the forward writes o = 0,
+    and the custom backward's dQ, dK and dV equal autograd through the
+    plain forward (flash_attention_tiles_plain) within 1e-5: the backward
+    gives such rows no probability, and 0 has no derivative."""
+    lay = _dead_layout(case)
+    lq, lk = lay.shape
+    q, k, v, do = _inputs(LQ=lq, LK=lk, seed=lq + lk)
+    got, out = _port_grads(lambda a, b, c: fa.flash_attention_tiles(
+        a, b, c, lay), q, k, v, do)
+    want, plain = _port_grads(lambda a, b, c: fa.flash_attention_tiles_plain(
+        a, b, c, lay), q, k, v, do)
+    _, m, _ = fa.flash_attention_tiles_plain(
+        *(torch.as_tensor(a) for a in (q, k, v)), lay, return_state=True)
+    dead = (m <= fa.NEG_INF).numpy()
+    assert dead.any()
+    assert not out[dead].any() and not plain[dead].any()
+    np.testing.assert_array_equal(out, plain)
+    _close_all(got, want)
+    if isinstance(case, tuple):
+        # the causal call routes to the same walk
+        via, _ = _port_grads(lambda a, b, c: fa.flash_attention(
+            a, b, c, causal=True, block_q=16, block_k=16), q, k, v, do)
+        _close_all(via, want)
 
 
 def test_state_has_no_backward():

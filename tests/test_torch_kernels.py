@@ -2177,3 +2177,77 @@ def test_lens_kernel_with_grad_raises(card):
         fa_k.flash_attention_lens(q.requires_grad_(), k, v, kv_len)
     with torch.no_grad():
         fa_k.flash_attention_lens(q, k, v, kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dead_rows_output_zero_and_backward_is_its_derivative(dtype, card):
+    """At the ``deadrow`` layout (Q tile 1 walks nothing, rows 256-319 are
+    dead inside Q tile 2's bias tiles) the tiles kernel writes o = 0 on
+    every row with m == NEG_INF.  In f32 the kernels' backward (three
+    launches) matches autograd of the plain forward on the card, whose o
+    is also 0 there; in bf16 the kernels round P and dS where the plain
+    backward does and autograd of the plain forward does not, so there
+    they are held against the plain backward on their own o and lse; the
+    backward bars in both."""
+    L = 384
+    q, k, v = _attn_inputs(card, dtype, b=1, hq=4, hkv=2, lq=L, lk=L, d=64,
+                           seed=31)
+    lay = _bwd_layout("deadrow", L)
+    g = torch.Generator(device=card).manual_seed(32)
+    do = torch.randn(q.shape, device=card, generator=g).to(dtype)
+    with torch.no_grad():
+        o, m, l = fa_k.flash_attention_tiles(q, k, v, lay,
+                                             return_state=True)
+    dead = m <= fa_k.NEG_INF
+    assert dead[:, :, 128:320].all() and not dead[:, :, :128].any()
+    assert not o[dead].any()
+    fns = (fa_k.flash_attention_tiles, fa_k.flash_attention_tiles_plain)
+    if dtype == torch.bfloat16:
+        fns = fns[:1]
+    grads = []
+    for fn in fns:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, lay).backward(do)
+        grads.append([t.grad for t in leaves])
+    if dtype == torch.bfloat16:
+        grads.append(fa_k.flash_attention_tiles_bwd_plain(
+            q, k, v, o, fa_k.softmax_lse(m, l), do, lay))
+    for g_, w, what in zip(*grads, ("dq", "dk", "dv")):
+        assert torch.isfinite(g_).all(), what
+        _close_grad(g_, w, dtype, f"deadrow {dtype} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(32, 4), (56, 8)])
+def test_lens_and_tiles_kernels_at_the_moe_heads(dtype, hq, hkv, card):
+    """The MoE family's heads at d = 128: qwen3-moe-30b-a3b's 32/4 (GQA
+    group 8) and arctic-480b's 56/8 (group 7, which sizes the lens row
+    blocks unevenly): lens at the ContinuousEngine's decode (4 slots,
+    capacity 1152) and a chunk's prefix (128 rows against 1152), tiles at
+    the Engine's prefill (causal, L 512) and at a chunk's own keys."""
+    for b, lq, lk in ((4, 1, 1152), (1, 128, 1152)):
+        q, k, v = _attn_inputs(card, dtype, b=b, hq=hq, hkv=hkv, lq=lq,
+                               lk=lk, d=128, seed=hq + lq)
+        kv_len = torch.tensor([0, lk, 517, 1][:b] if b > 1 else [1000],
+                              dtype=torch.int32, device=card)
+        got = fa_k.flash_attention_lens(q, k, v, kv_len, return_state=True)
+        want = fa_k.flash_attention_plain(q, k, v, causal=False,
+                                          kv_len=kv_len, return_state=True)
+        live = kv_len > 0
+        assert torch.all(got[1][~live] == fa_k.NEG_INF)
+        _close(got[0], want[0], ATTN_TOL[dtype], f"lens o {b}x{lq}", live)
+        _close(got[1], want[1], ATTN_TOL[dtype], f"lens m {b}x{lq}", live)
+        _close(got[2], want[2], ATTN_TOL[dtype] * lk, f"lens l {b}x{lq}",
+               live)
+    for b, L in ((2, 512), (1, 128)):
+        q, k, v = _attn_inputs(card, dtype, b=b, hq=hq, hkv=hkv, lq=L, lk=L,
+                               d=128, seed=hq + L)
+        layout = causal_layout(L, L, 128, 128)
+        got = fa_k.flash_attention_tiles(q, k, v, layout, return_state=True)
+        want = fa_k.flash_attention_tiles_plain(q, k, v, layout,
+                                                return_state=True)
+        for g_, w, what in zip(got, want, "oml"):
+            _close(g_, w, ATTN_TOL[dtype] * (L if what == "l" else 1),
+                   f"tiles {what} {b}x{L}")

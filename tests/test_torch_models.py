@@ -251,9 +251,9 @@ def test_prefill_chunk_and_paged_decode_match_jax(models):
 
 
 def test_other_families_raise_not_implemented():
-    moe = dataclasses.replace(TCfg(**SERVE_KW), family="moe")
+    ssm = dataclasses.replace(TCfg(**SERVE_KW), family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM(moe).init(0, device="cpu")
+        TLM(ssm).init(0, device="cpu")
 
 
 def test_init_goes_to_the_card_unless_asked(monkeypatch):
