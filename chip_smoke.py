@@ -20,7 +20,10 @@
    a window, a bias layout and the dense grid; in bf16 every layout kind
    (also dead rows) at every head_dim; the same bits from two backward
    passes.  The lens and tiles kernels also at the MoE configs' heads
-   (32/4 and 56/8, d 128) at the serve paths' shapes.
+   (32/4 and 56/8, d 128) at the serve paths' shapes.  The three forward
+   attention kernels at every head_dim a config needs: 128, phi3-mini's 96,
+   zamba2's 112 (32/32) and gemma's 256, each with the tiles == dense
+   causal bitwise check in f32 and bf16.
 3. Run the paths of the port, each with data made from fixed seeds and
    validated as benchmarks/*.py does, and each with the launch counts set
    to 0 just before it and read just after; every kernel of a path must
@@ -73,6 +76,20 @@
       cuda plane against the torch plane; (f) two ContinuousEngine runs
       give the same tokens bitwise; the share of top-k sets that agree
       between the planes at full depth in bf16 is printed, not held.
+   f. Serving the SSM and hybrid families (after e, once its models are
+      dropped): mamba2-370m (48 layers, attention-free, f32 parameters,
+      bf16 activations) and zamba2-7b (81 layers: 13 groups of 6 mamba2
+      layers, each followed by the one weight-shared attention block at
+      32/32 heads of 112, and a tail of 3; bf16, 6.75 B parameters), whole,
+      through the Engine on 4 prompts of 512 tokens (a multiple of the SSD
+      chunk, 256), 32 new, greedy: tok/s, time to first token, decode step,
+      peak memory and a profile with the mamba2 work under an ``ssm``
+      group; zamba2's prefill launches the tiles kernel at d 112 once per
+      shared-block site (13).  Checks, in f32 at full width (mamba2 at 2
+      layers, zamba2 at 7: a group and a tail of 1): (a-ssm) prefill
+      logits cuda vs torch plane and (g) a 256-token prefill then 256
+      teacher-forced decode steps against the 512-token prefill's last
+      logits, each within 1e-3 of the largest.
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
@@ -84,6 +101,7 @@
    summed over one run of phase 2b's path
    (also alone with --sparse-shapes, which a copy of this script in a
    checkout of an older commit runs to time that tree's kernels);
+   the attention forward kernels also at d 96, 112 and 256;
    the backward kernels at the training shape beside SDPA's backward
    pinned to one backend (also alone with --backward-shapes, the same
    A/B hook for them);
@@ -120,11 +138,18 @@ L2_SCRUB_BYTES = 256 << 20
 #: Kernels whose ptxas report (registers, spills) the build prints; a
 #: name with "ILi256" is the head_dim 256 instantiations alone (the first
 #: name a symbol holds wins).
-PTXAS_NAMES = ("flash_attention_lens_decode_kernel",
+PTXAS_NAMES = ("flash_attention_lens_decode_kernelIfLi112",
+               "flash_attention_lens_decode_kernelI13__nv_bfloat16Li112",
+               "flash_attention_lens_decode_kernel",
+               "flash_attention_lens_prefix_kernelILi112",
                "flash_attention_lens_prefix_kernelILi256",
                "flash_attention_lens_prefix_kernel",
+               "flash_attention_kernelIfLi112",
+               "flash_attention_bf16_kernelILi112",
                "flash_attention_bf16_kernelILi256",
                "flash_attention_bf16_kernel",
+               "flash_attention_tiles_kernelIfLi112",
+               "flash_attention_tiles_bf16_kernelILi112",
                "flash_attention_tiles_bf16_kernelILi256",
                "flash_attention_tiles_bf16_kernel",
                "fa_bwd_dkdv_wgmma_kernelILi256", "fa_bwd_dkdv_wgmma_kernel",
@@ -811,9 +836,10 @@ PRIME_LEN = 1021
 #: A chunk's prefix: one slot's 128 chunk rows against its gathered pages
 #: (capacity SERVE_MAX_LEN), PREFIX_LEN of them live.
 PREFIX_LEN = 1024
-#: The head shapes of the repo's other dense configs, which need head_dim
-#: 96 and 256: phi3-mini-3.8b (Hq/Hkv 32/32, d 96) and gemma-2b (8/1, 256).
-HEAD_DIM_SHAPES = ((32, 32, 96), (8, 1, 256))
+#: The head shapes of the repo's other configs, which need head_dim 96, 112
+#: and 256: phi3-mini-3.8b (Hq/Hkv 32/32, d 96), zamba2-7b's shared block
+#: (32/32, 112) and gemma-2b (8/1, 256).
+HEAD_DIM_SHAPES = ((32, 32, 96), (32, 32, 112), (8, 1, 256))
 
 
 def attn_inputs(torch, dtype, b, hq, hkv, lq, lk, d, seed):
@@ -1071,34 +1097,43 @@ def kernel_group(name: str) -> str:
     return "elementwise/reduce"
 
 
-#: The profiler range every moe_apply runs under in device_breakdown(...,
-#: moe=True).
-MOE_RANGE = "moe"
+#: The profiler ranges device_breakdown(..., group=label) can split out:
+#: label -> (module of repro_torch.models, the functions that run under a
+#: range of that label).  The transformer and the LM call them through the
+#: module attribute, so wrapping the attribute covers every call.
+RANGES = {"moe": ("moe", ("moe_apply",)),
+          "ssm": ("ssm", ("mamba2_apply_state", "mamba2_decode"))}
 
 
 @contextlib.contextmanager
-def moe_ranges(torch):
-    """Run every ``repro_torch.models.moe.moe_apply`` call under a profiler
-    range named :data:`MOE_RANGE` (the transformer calls it through the
-    module attribute), so that a trace can tell its kernels apart."""
-    from repro_torch.models import moe as moe_mod
+def ranged(torch, label: str):
+    """Run every call of the functions of :data:`RANGES` [label] under a
+    profiler range named ``label``, so that a trace can tell their kernels
+    apart."""
+    import importlib
 
-    orig = moe_mod.moe_apply
+    mod_name, names = RANGES[label]
+    mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+    origs = {n: getattr(mod, n) for n in names}
 
-    def ranged(*args, **kwargs):
-        with torch.profiler.record_function(MOE_RANGE):
-            return orig(*args, **kwargs)
+    def wrap(orig):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return orig(*args, **kwargs)
+        return run
 
-    moe_mod.moe_apply = ranged
+    for n, orig in origs.items():
+        setattr(mod, n, wrap(orig))
     try:
         yield
     finally:
-        moe_mod.moe_apply = orig
+        for n, orig in origs.items():
+            setattr(mod, n, orig)
 
 
-def moe_kernel_s(prof) -> dict:
-    """Device seconds of the kernels launched under the :data:`MOE_RANGE`
-    ranges of a trace with CPU activity, by :func:`kernel_group` (the
+def range_kernel_s(prof, label: str) -> dict:
+    """Device seconds of the kernels launched under the ranges named
+    ``label`` of a trace with CPU activity, by :func:`kernel_group` (the
     profiler hangs each kernel on the CPU op that launched it)."""
     out: dict = {}
 
@@ -1110,20 +1145,23 @@ def moe_kernel_s(prof) -> dict:
             walk(ch)
 
     for ev in prof.events():
-        if ev.name == MOE_RANGE:
+        if ev.name == label:
             walk(ev)
     return out
 
 
-def device_breakdown(torch, fn, moe: bool = False) -> dict:
+def device_breakdown(torch, fn, group: str | None = None) -> dict:
     """Run ``fn`` once unprofiled (host clock, synchronised), then once
     under torch.profiler (CUDA activity only, which keeps its host cost
     low), and sum the device time of the run's CUDA kernels by group.  The
     busy share is that sum over the unprofiled wall time; one stream, so
-    kernels do not overlap.  With ``moe`` the profiled run also records CPU
-    activity and runs moe_apply under :func:`moe_ranges`: the kernels the
-    MoE layers launch (router, dispatch, combine) move to a group ``moe``,
-    except their expert products, which stay under cuBLAS."""
+    kernels do not overlap.  With ``group`` (a label of :data:`RANGES`)
+    the profiled run also records CPU activity and runs that label's
+    functions under :func:`ranged`: the kernels they launch move to a
+    group of that name (``moe``: router, dispatch, combine; ``ssm``: the
+    mamba2 conv, SSD scan and elementwise work), except their matrix
+    products, which stay under cuBLAS (``in_range`` keeps the range's
+    device time by name group, cuBLAS included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1132,8 +1170,9 @@ def device_breakdown(torch, fn, moe: bool = False) -> dict:
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
-    with moe_ranges(torch) if moe else contextlib.nullcontext(), \
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if group
+                                      else [])
+    with ranged(torch, group) if group else contextlib.nullcontext(), \
             profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
@@ -1143,19 +1182,20 @@ def device_breakdown(torch, fn, moe: bool = False) -> dict:
     for e in averages:
         # the ranges' own device spans are not kernels
         if e.device_type != DeviceType.CUDA or e.device_time_total <= 0 \
-                or e.key == MOE_RANGE:
+                or e.key in RANGES:
             continue
         g = kernel_group(e.key)
         t_s = e.device_time_total / 1e6
         groups[g] = groups.get(g, 0.0) + t_s
         top.append((t_s, e.key[:70]))
-    host_top = []
-    if moe:
-        groups[MOE_RANGE] = 0.0
-        for g, t_s in moe_kernel_s(prof).items():
+    host_top, in_range = [], {}
+    if group:
+        groups[group] = 0.0
+        in_range = range_kernel_s(prof, group)
+        for g, t_s in in_range.items():
             if g != MATMUL_GROUP and g in groups:
                 groups[g] -= t_s
-                groups[MOE_RANGE] += t_s
+                groups[group] += t_s
         host_top = sorted(((e.self_cpu_time_total / 1e6, e.count, e.key)
                            for e in averages
                            if e.device_type == DeviceType.CPU),
@@ -1163,7 +1203,8 @@ def device_breakdown(torch, fn, moe: bool = False) -> dict:
     busy = sum(groups.values())
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall,
             "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top": sorted(top, reverse=True)[:6], "host_top": host_top}
+            "top": sorted(top, reverse=True)[:6], "host_top": host_top,
+            "in_range": in_range}
 
 
 def fmt_breakdown(b: dict) -> str:
@@ -1174,9 +1215,13 @@ def fmt_breakdown(b: dict) -> str:
     top = "; ".join(f"{n} {t * 1e3:.1f} ms" for t, n in b["top"])
     host = "; ".join(f"{n} {t * 1e3:.1f} ms ({c} calls)"
                      for t, c, n in b.get("host_top", ()))
+    in_range = ", ".join(f"{g} {t * 1e3:.1f} ms"
+                         for g, t in b.get("in_range", {}).items())
     return (f"wall {b['wall_s'] * 1e3:.1f} ms, device busy "
             f"{b['busy_s'] * 1e3:.1f} ms, idle share {b['idle_share']:.0%}: "
             f"{parts}\n    top kernels: {top}"
+            + (f"\n    under the ranges, by name group: {in_range}"
+               if in_range else "")
             + (f"\n    host ops by self time (profiled run): {host}"
                if host else ""))
 
@@ -1400,8 +1445,8 @@ def time_attention_kernels(torch, kernels, cold_ms):
                                                     PEAK_BF16_FLOP_PER_S)
         timed[name] = kern
     # the same shapes at the other configs' head sizes (kernel and library
-    # call; their bound), under d96_* and d256_*
-    for hd in (96, 256):
+    # call; their bound), under d96_*, d112_* and d256_*
+    for hd in (96, 112, 256):
         for name, (kern, _, lib, nb, flops) in calls_at(hd).items():
             rec = kernels[name]
             rec[f"d{hd}_ms"] = cold_ms(kern, 50)
@@ -1498,7 +1543,8 @@ def hold_backward_kernels(torch) -> dict:
     windowed band, a bias layout and the dense grid; in bf16 (the wgmma
     kernels) every layout kind at every head_dim (B 1, Hq 8, L 384, GQA
     groups 1, 2 and 8 in turn); then the same bits from two backward
-    passes at the training shape in both dtypes.  Each check prints its
+    passes at the training shape in both dtypes, and a ValueError at head
+    dim 112, where the kernels are not built.  Each check prints its
     largest error beside its bar.  Returns each kernel's largest error in
     bf16 at the training shape (D against its plain sum, dK and dV for
     dkdv, dQ for dq)."""
@@ -1520,7 +1566,7 @@ def hold_backward_kernels(torch) -> dict:
     kinds = ("causal", "window", "bias", "grid", "deadrow")
     cases += [(kind, torch.bfloat16, 1, 8, (8, 4, 1)[n % 3], 384, hd)
               for n, (kind, hd) in enumerate(
-                  (kind, hd) for kind in kinds for hd in fa_k.HEAD_DIMS)]
+                  (kind, hd) for kind in kinds for hd in fa_k.BWD_HEAD_DIMS)]
     errs = {}
     wrappers = [getattr(fa_k, n) for n in BWD_KERNELS]
     for kind, dtype, bsz, h, hk, n, hd in cases:
@@ -1572,6 +1618,22 @@ def hold_backward_kernels(torch) -> dict:
         if not all(torch.equal(x, y) for x, y in zip(*runs)):
             raise AssertionError(f"backward: two passes differ in {dtype}")
     log("backward: dQ, dK, dV bitwise equal over two passes in bf16 and f32")
+    # the backward kernels are not built at zamba2's head_dim 112 (ROADMAP
+    # queue 1 item 6a): a backward there raises before any launch
+    q, k, v = (t.requires_grad_() for t in attn_inputs(
+        torch, torch.bfloat16, 1, 4, 4, 128, 128, 112, 6))
+    out = fa_k.flash_attention(q, k, v, causal=True)
+    before = [w.launches for w in wrappers]
+    try:
+        out.float().sum().backward()
+    except ValueError as exc:
+        if "item 6a" not in str(exc):
+            raise
+    else:
+        raise AssertionError("backward at head_dim 112 did not raise")
+    if [w.launches for w in wrappers] != before:
+        raise AssertionError("backward at head_dim 112 launched a kernel")
+    log("backward: at head_dim 112 it raises ValueError before any launch")
     return errs
 
 
@@ -1873,6 +1935,27 @@ def free_card(torch) -> tuple[float, float]:
             torch.cuda.memory_allocated() / 1e9)
 
 
+def reset_attention_counts(wrappers) -> None:
+    """Set the attention wrappers' launch counts, and the tiles and lens
+    counts by kernel, to 0."""
+    for w in wrappers.values():
+        w.launches = 0
+    for name in ("flash_attention_tiles", "flash_attention_lens"):
+        counts = wrappers[name].kernels
+        for kind in counts:
+            counts[kind] = 0
+
+
+def read_attention_counts(wrappers) -> dict:
+    """The attention launches since :func:`reset_attention_counts`, by
+    kernel."""
+    tiles = wrappers["flash_attention_tiles"].kernels
+    lens = wrappers["flash_attention_lens"].kernels
+    return {"tiles": tiles["o"], "tiles_state": tiles["state"],
+            "lens_decode": lens["decode"], "lens_prefix": lens["prefix"],
+            "flash_attention": wrappers["flash_attention"].launches}
+
+
 def run_moe_path(torch, wrappers) -> dict:
     """Phase 2e: the MoE family.  (a-moe) qwen3-moe-30b-a3b at full width
     in f32 with 2 layers: the prefill logits and every token's top-k expert
@@ -1895,23 +1978,11 @@ def run_moe_path(torch, wrappers) -> dict:
     from repro_torch.serve import ContinuousEngine, Engine, SamplingParams
     from repro_torch.utils.tree import tree_leaves
 
-    tiles_kernels = wrappers["flash_attention_tiles"].kernels
-    lens_kernels = wrappers["flash_attention_lens"].kernels
-    counters = (tiles_kernels, lens_kernels)
-
     def reset():
-        for w in wrappers.values():
-            w.launches = 0
-        for d in counters:
-            for kind in d:
-                d[kind] = 0
+        reset_attention_counts(wrappers)
 
     def read():
-        return {"tiles": tiles_kernels["o"],
-                "tiles_state": tiles_kernels["state"],
-                "lens_decode": lens_kernels["decode"],
-                "lens_prefix": lens_kernels["prefix"],
-                "flash_attention": wrappers["flash_attention"].launches}
+        return read_attention_counts(wrappers)
 
     def need(what, counts, kinds):
         missing = [k for k in kinds if counts[k] == 0]
@@ -2057,7 +2128,7 @@ def run_moe_path(torch, wrappers) -> dict:
     # slow: the Engine's short window only
     sub = [(p, PROFILE_NEW) for p, _ in reqs[:SERVE_SLOTS]]
     out["profile_fixed"] = device_breakdown(torch, lambda: eng.generate(
-        prompts, max_new_tokens=PROFILE_NEW), moe=True)
+        prompts, max_new_tokens=PROFILE_NEW), group="moe")
     out["profile_cont"] = device_breakdown(
         torch, lambda: continuous().serve(sub))
     del lm, params, leaves, router, emb, eng, ce, got, again, first, toks
@@ -2106,6 +2177,139 @@ def run_moe_path(torch, wrappers) -> dict:
     lap("arctic-480b")
     clock.pop("start")
     out["seconds"] = clock
+    return out
+
+
+# -- phase 2f: serving the SSM and hybrid families ---------------------------
+
+#: The SSM config (48 layers, f32 parameters, bf16 activations) and the
+#: hybrid one (81 layers: 13 groups of 6 mamba layers with the shared
+#: attention block after each, and a tail of 3; bf16), both whole; served
+#: through the Engine on 4 prompts of SSM_PROMPT tokens (a multiple of the
+#: SSD chunk, 256), SSM_NEW new, greedy.
+SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
+SSM_PROMPT, SSM_NEW = 512, 32
+#: (a-ssm) and (g)'s depths in f32 at full width: mamba2 at 2 layers,
+#: zamba2 at 7 (one group of 6 and a tail of 1).
+SSM_CHECK_LAYERS = {"mamba2-370m": 2, "zamba2-7b": 7}
+#: (a-ssm) and (g)'s bar: the largest |difference| of the logits over their
+#: largest entry (f32, TF32 off).
+SSM_REL_TOL = 1e-3
+
+
+def run_ssm_path(torch, wrappers) -> dict:
+    """Phase 2f: the SSM and hybrid families.  For each of SSM_ARCHS: (a-ssm)
+    at full width in f32 and SSM_CHECK_LAYERS depth, the prefill logits of
+    the cuda plane against the torch plane; (g) at the same depth, the
+    recurrence against the chunked form: prefill SSM_PROMPT / 2 tokens,
+    decode the next SSM_PROMPT / 2 one at a time (teacher-forced), and
+    hold the last logits against a SSM_PROMPT-token prefill's.  Then the
+    config whole (bf16 activations, seeded random weights) through the
+    Engine (FIXED_BATCH x SSM_PROMPT prompt tokens, SSM_NEW new), the
+    launch counts reset just before the measured run and read just after
+    (zamba2: the tiles kernel once per shared-block site, 13, at d 112;
+    mamba2: no attention kernel), peak memory and a profile with the
+    mamba2 work under an ``ssm`` group.  Returns the phase's numbers by
+    config."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import Engine, SamplingParams
+    from repro_torch.utils.tree import tree_leaves
+
+    greedy = SamplingParams(greedy=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {"free_gb": free_card(torch)[0]}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        rec: dict = {}
+        clock = time.perf_counter()
+        prompts = torch.randint(0, cfg.vocab_size,
+                                (FIXED_BATCH, SSM_PROMPT), generator=g,
+                                device="cuda")
+
+        # (a-ssm) and (g): f32 at full width, cut in depth
+        lm32 = LM(dataclasses.replace(cfg,
+                                      num_layers=SSM_CHECK_LAYERS[arch],
+                                      dtype="float32",
+                                      param_dtype="float32"))
+        p32 = lm32.init(0, device="cuda")
+        lc, _ = lm32.prefill(p32, prompts)
+        with registry.use_backend("torch"):
+            lt, _ = lm32.prefill(p32, prompts)
+        rec["a_rel"] = float((lc - lt).abs().max() / lt.abs().max())
+        half = SSM_PROMPT // 2
+        _, cache = lm32.prefill(p32, prompts[:, :half], max_len=SSM_PROMPT)
+        for i in range(half, SSM_PROMPT):
+            lg, cache = lm32.decode_step(p32, cache, prompts[:, i:i + 1])
+        rec["g_rel"] = float((lg - lc).abs().max() / lc.abs().max())
+        if not (rec["a_rel"] <= SSM_REL_TOL and rec["g_rel"] <= SSM_REL_TOL
+                and bool(torch.isfinite(lc).all())):
+            raise AssertionError(f"{arch}: (a-ssm) {rec['a_rel']}, (g) "
+                                 f"{rec['g_rel']} (bar {SSM_REL_TOL})")
+        del lm32, p32, lc, lt, lg, cache
+        free_card(torch)
+        rec["checks_s"] = time.perf_counter() - clock
+
+        # the config whole, bf16 activations, through the Engine
+        lm = LM(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params = lm.init(0, device="cuda")
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t
+        leaves = tree_leaves(params)
+        rec["params"] = sum(x.numel() for x in leaves)
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        rec["param_gb"] = nbytes / 1e9
+        # a decode step reads every weight once, the embedding only where
+        # it is tied (the unembedding; a lookup reads 4 of its rows)
+        emb = params["embed"]
+        untied = 0 if cfg.tie_embeddings else emb.numel() * emb.element_size()
+        rec["step_bound_ms"] = (nbytes - untied) / PEAK_BYTES_PER_S * 1e3
+        layer0 = (params["groups"][0][0] if "groups" in params
+                  else params["layers"][0])["mamba"]
+        if any(layer0[n].dtype != torch.float32
+               for n in ("A_log", "D", "dt_bias")) or \
+                layer0["in_proj"].dtype != cfg.pdtype:
+            raise AssertionError(f"{arch}: A_log, D, dt_bias must be f32, "
+                                 f"in_proj {cfg.pdtype}")
+        eng = Engine(lm, params, max_len=SSM_PROMPT + SSM_NEW,
+                     sampling=greedy)
+        eng.generate(prompts[:, :64], max_new_tokens=2)    # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        first = eng.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        rec["ttft_s"] = time.perf_counter() - t
+        reset_attention_counts(wrappers)
+        t = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=SSM_NEW)
+        torch.cuda.synchronize()
+        rec["s"] = time.perf_counter() - t
+        rec["launches"] = read_attention_counts(wrappers)
+        rec["step_s"] = (rec["s"] - rec["ttft_s"]) / (SSM_NEW - 1)
+        rec["tok_s"] = FIXED_BATCH * SSM_NEW / rec["s"]
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if toks.shape != (FIXED_BATCH, SSM_NEW) or not torch.equal(
+                toks[:, :1], first) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{arch} Engine.generate: bad tokens "
+                                 f"{tuple(toks.shape)}")
+        sites = lm._hybrid_split()[0] if cfg.family == "hybrid" else 0
+        want = {"tiles": sites, "tiles_state": 0, "lens_decode": 0,
+                "lens_prefix": 0, "flash_attention": 0}
+        if rec["launches"] != want:
+            raise AssertionError(f"{arch} Engine: launches "
+                                 f"{rec['launches']}, want {want} (one "
+                                 f"tiles launch per shared-block site of "
+                                 f"the one prefill)")
+        rec["profile"] = device_breakdown(torch, lambda: eng.generate(
+            prompts, max_new_tokens=PROFILE_NEW), group="ssm")
+        del lm, params, leaves, layer0, emb, eng, first, toks
+        free_card(torch)
+        rec["s_all"] = time.perf_counter() - clock
+        out[arch] = rec
     return out
 
 
@@ -2652,6 +2856,35 @@ def main() -> int:
         f"{moe['arctic_s']:.2f} s; logits finite")
     log("  phase 2e's wall time by step: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in moe["seconds"].items()))
+
+    # -- phase 2f: the SSM and hybrid serve paths, counted ------------------
+    # after phase 2e, whose models run_moe_path has dropped
+    t_path = time.perf_counter()
+    ssm = run_ssm_path(torch, attn_wrappers)
+    log(f"phase 2f: {' and '.join(SSM_ARCHS)} serve paths and their checks "
+        f"in {time.perf_counter() - t_path:.2f} s; free on the card before "
+        f"it {ssm['free_gb']:.2f} GB")
+    for arch in SSM_ARCHS:
+        r = ssm[arch]
+        launches["flash_attention_tiles"] += r["launches"]["tiles"]
+        log(f"{arch} ({r['params']} parameters, {r['param_gb']:.2f} GB, "
+            f"init {r['init_s']:.2f} s, peak memory allocated "
+            f"{r['peak_gb']:.2f} GB) on {smi[0]}:")
+        log(f"  Engine: {FIXED_BATCH} x {SSM_PROMPT} prompt tokens, "
+            f"{SSM_NEW} new: {r['tok_s']:.1f} tok/s, time to first token "
+            f"{r['ttft_s'] * 1e3:.1f} ms, {r['step_s'] * 1e3:.2f} ms per "
+            f"decode step (bound {r['step_bound_ms']:.2f} ms: the weights a "
+            f"step reads, once, at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s); "
+            f"kernel launches "
+            f"{r['launches']}")
+        log(f"  (a-ssm) f32, {SSM_CHECK_LAYERS[arch]} layers: prefill "
+            f"logits max |cuda - torch| / max |torch| {r['a_rel']:.3g}; (g) "
+            f"{SSM_PROMPT // 2}-token prefill + {SSM_PROMPT // 2} decode "
+            f"steps against a {SSM_PROMPT}-token prefill: last logits "
+            f"{r['g_rel']:.3g} (bar {SSM_REL_TOL}); checks "
+            f"{r['checks_s']:.1f} s, the config's run {r['s_all']:.1f} s")
+        log(f"  device time by kernel group, Engine, {PROFILE_NEW} new "
+            f"tokens: {fmt_breakdown(r['profile'])}")
     KEYS = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernel_ms")
     out = []

@@ -1,10 +1,10 @@
-"""ModelConfig: the architecture schema of the dense and MoE families +
-registry (counterpart of ``repro.configs.base``, a copy: the port imports
-nothing of the JAX package).
+"""ModelConfig: the architecture schema of the dense, MoE, SSM and hybrid
+families + registry (counterpart of ``repro.configs.base``, a copy: the
+port imports nothing of the JAX package).
 
-Every field is a static (hashable) property.  Only the fields the dense
-and MoE families read are here; the other families' fields (SSM, hybrid,
-frontends, M-RoPE) come with their slices (ROADMAP queue 1 items 6-7).
+Every field is a static (hashable) property.  Only the fields these four
+families read are here; the frontends' and M-RoPE's fields (the VLM and
+audio families) come with their slice (ROADMAP queue 1 item 7).
 ``dtype`` / ``param_dtype`` keep the JAX package's names;
 :attr:`ModelConfig.act_dtype` and :attr:`ModelConfig.pdtype` are the
 ``torch.dtype`` s.
@@ -21,12 +21,12 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs", "REGISTRY"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe (the families ported)
+    family: str                      # dense | moe | ssm | hybrid (ported)
     num_layers: int
     d_model: int
     vocab_size: int
 
-    # attention
+    # attention (unused for pure-ssm)
     num_heads: int = 0
     num_kv_heads: int = 0
     head_dim: int = 0
@@ -57,6 +57,16 @@ class ModelConfig:
     # expert-parallel dispatch's sharding constraints over a mesh ("a2a" or
     # "gather"); at chip scope nothing is sharded, so it has no effect here
     moe_dispatch: str = "a2a"
+
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_groups: int = 1
+    conv_width: int = 4
+
+    # hybrid (zamba2): one weight-shared attention block every N ssm layers
+    attn_every: int = 0
 
     # dtypes / execution
     dtype: str = "bfloat16"                  # activations
@@ -104,8 +114,25 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    @property
+    def has_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_attention(self) -> bool:
+        return self.family != "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def param_count(self) -> int:
-        """Analytic parameter count of the dense and MoE families."""
+        """Analytic parameter count of the dense, MoE, SSM and hybrid
+        families (the hybrid's shared attention block counted once)."""
         d, v = self.d_model, self.vocab_size
         attn = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim * d \
             + self.num_heads * self.head_dim * d
@@ -113,11 +140,18 @@ class ModelConfig:
             moe = self.num_experts * 3 * d * self.moe_d_ff \
                 + d * self.num_experts
             dense = 3 * d * self.d_ff if self.dense_residual else 0
-            per = attn + moe + dense
+            per, shared = attn + moe + dense, 0
+        elif self.has_ssm:
+            di, g, ns, h = (self.d_inner, self.ssm_groups, self.ssm_state,
+                            self.ssm_heads)
+            per = d * (2 * di + 2 * g * ns + h) + di * d + h * 2 \
+                + (di + 2 * g * ns) * self.conv_width
+            shared = attn + 3 * d * self.d_ff \
+                if self.family == "hybrid" and self.attn_every else 0
         else:
-            per = attn + 3 * d * self.d_ff
+            per, shared = attn + 3 * d * self.d_ff, 0
         return v * d * (1 if self.tie_embeddings else 2) \
-            + self.num_layers * per
+            + self.num_layers * per + shared
 
 
 REGISTRY: dict[str, ModelConfig] = {}

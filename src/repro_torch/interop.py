@@ -23,9 +23,11 @@ import torch
 
 from repro_torch.core.containers import Dense, resolve_device, to_device
 from repro_torch.models.moe import ROUTER_DTYPE
+from repro_torch.models.ssm import SSM_PARAMS
 from repro_torch.numerics.sparse import CSR, DIA, ELL, index_array
 from repro_torch.sparse.formats import BSR
 from repro_torch.sparse.stats import SparseStats
+from repro_torch.utils.tree import tree_leaves
 
 __all__ = ["carry", "carry_params", "carry_train_state"]
 
@@ -90,27 +92,58 @@ def _tree(x, fn, path=()):
 
 def _param_dtype(path: tuple, cfg) -> torch.dtype:
     """A carried parameter's dtype: ``cfg.pdtype``, except an MoE router
-    (``[...]["moe"]["router"]``), which stays in ``ROUTER_DTYPE`` (f32)
-    whatever ``param_dtype`` is, as the JAX package keeps it."""
-    return ROUTER_DTYPE if path[-2:] == ("moe", "router") else cfg.pdtype
+    (``[...]["moe"]["router"]``), which stays in ``ROUTER_DTYPE`` (f32),
+    and a mamba layer's ``A_log``, ``D`` and ``dt_bias`` (``[...]["mamba"]
+    [name]``), which stay f32, whatever ``param_dtype`` is, as the JAX
+    package keeps them."""
+    if path[-2:] == ("moe", "router"):
+        return ROUTER_DTYPE
+    if len(path) >= 2 and path[-2] == "mamba" and path[-1] in SSM_PARAMS:
+        return torch.float32
+    return cfg.pdtype
+
+
+#: The layer-stacked entries of the JAX LM's pytree: every leaf of
+#: ``layers`` and ``tail`` is (layers, ...), of ``groups`` (ngroups,
+#: attn_every, ...).
+STACKED = ("layers", "tail", "groups")
+
+
+def _unstack(tree: dict, fn, depth: int):
+    """``tree``'s leaves, whose first ``depth`` dims are layer indices, as
+    nested lists of per-layer dicts; ``fn(leaf_slice, path)`` carries a
+    leaf."""
+    n = np.asarray(tree_leaves(tree)[0]).shape[0]
+    rows = [_tree(tree, lambda a, _, i=i: np.asarray(a)[i]) for i in range(n)]
+    if depth == 1:
+        return [_tree(row, fn) for row in rows]
+    return [_unstack(row, fn, depth - 1) for row in rows]
+
+
+def _carry_tree(params: dict, leaf) -> dict:
+    """``params`` with every leaf carried by ``leaf(array, path)``, and the
+    layer-stacked entries (:data:`STACKED`) unstacked into lists."""
+    out = {k: _tree(v, leaf, (k,)) for k, v in params.items()
+           if k not in STACKED}
+    for k in STACKED:
+        if k in params:
+            out[k] = _unstack(params[k], leaf, 2 if k == "groups" else 1)
+    return out
 
 
 def carry_params(params: dict, cfg, *, device: Any = None) -> dict:
     """The port's LM parameters from the JAX LM's pytree ``params`` (leaves
     as numpy arrays or anything ``numpy.asarray`` reads), in ``cfg.pdtype``
-    (an MoE router in f32) on the device chosen by the ``bind`` rule.
-    Layer-stacked ``(num_layers, ...)`` leaves of ``params["layers"]``
-    become a list of per-layer dicts; every weight keeps its layout
-    (``linear`` weights are (in, out) in both packages)."""
+    (an MoE router and a mamba layer's ``A_log``, ``D`` and ``dt_bias`` in
+    f32) on the device chosen by the ``bind`` rule.  Layer-stacked
+    ``(num_layers, ...)`` leaves of ``params["layers"]`` (and of the
+    hybrid's ``params["tail"]``) become a list of per-layer dicts, the
+    hybrid's ``(ngroups, attn_every, ...)`` ``params["groups"]`` a list of
+    lists; every weight keeps its layout (``linear`` weights are (in, out)
+    in both packages)."""
     dev = resolve_device(device)
-    out = {k: _tree(v, lambda a, path: _leaf(a, _param_dtype(path, cfg),
-                                             dev), (k,))
-           for k, v in params.items() if k != "layers"}
-    stacked = params["layers"]
-    out["layers"] = [_tree(stacked, lambda a, path, i=i: _leaf(
-        np.asarray(a)[i], _param_dtype(path, cfg), dev))
-        for i in range(cfg.num_layers)]
-    return out
+    return _carry_tree(params, lambda a, path: _leaf(
+        a, _param_dtype(path, cfg), dev))
 
 
 def _dtype_of(x) -> torch.dtype:
@@ -134,13 +167,7 @@ def carry_train_state(state: Any, cfg, *, device: Any = None):
     opt = state.opt_state
 
     def moments(tree):
-        out = {k: _tree(v, lambda a, _: _leaf(a, _dtype_of(a), dev))
-               for k, v in tree.items() if k != "layers"}
-        out["layers"] = [_tree(tree["layers"],
-                               lambda a, _, i=i: _leaf(np.asarray(a)[i],
-                                                       _dtype_of(a), dev))
-                         for i in range(cfg.num_layers)]
-        return out
+        return _carry_tree(tree, lambda a, _: _leaf(a, _dtype_of(a), dev))
 
     def count(x):
         return torch.as_tensor(np.array(x, np.int32), device=dev)

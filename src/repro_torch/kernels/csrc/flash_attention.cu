@@ -22,7 +22,7 @@
 // masked.  A K tile wholly above the diagonal for every row of the CTA is
 // skipped: for a row with a live key such a tile changes nothing (alpha = 1
 // and p = 0 exactly).  Both kernels are compiled at head_dim 32, 64, 96,
-// 128 and 256.
+// 112, 128 and 256.
 //
 // bf16 runs flash_attention_bf16_kernel: up to 128 Q rows a CTA (a
 // warpgroup per 64), K tiles 0 .. ceil(kend / block_k) folded on the
@@ -203,6 +203,8 @@ int launch_dtype(const void* q, const void* k, const void* v, void* o,
       return launch_flags<T, 64>(a, batch, causal, state, s);
     case 96:
       return launch_flags<T, 96>(a, batch, causal, state, s);
+    case 112:
+      return launch_flags<T, 112>(a, batch, causal, state, s);
     case 128:
       return launch_flags<T, 128>(a, batch, causal, state, s);
     case 256:
@@ -217,7 +219,7 @@ int launch_dtype(const void* q, const void* k, const void* v, void* o,
 // q (B, Hq, Lq, d), k / v (B, Hkv, Lk, d), o like q; m, l (B, Hq, Lq) f32
 // when state.  dtype 0 = f32, 1 = bf16 (the tensor-core kernel, q, k, v
 // 16-byte aligned).  The caller checks shapes: Hq % Hkv == 0,
-// block_k <= 128, d in {32, 64, 96, 128, 256}; any Lq and Lk (the last K
+// block_k <= 128, d in {32, 64, 96, 112, 128, 256}; any Lq and Lk (the last K
 // tile may be short).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* m,

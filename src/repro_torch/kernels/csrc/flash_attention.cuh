@@ -2,8 +2,10 @@
 // the dense grid; flash_attention_tiles.cu, the tile-skipping walk over a
 // compiled TileLayout): the CTA shape, the shared-memory plan, and
 // fold_tile, which folds one K/V tile into the online-softmax state
-// (m, l, acc) of a CTA's Q rows, at head_dim 32, 64, 96, 128 or 256 (a
-// lane owns D / 32 columns; 153 KB of shared memory at 256).  The
+// (m, l, acc) of a CTA's Q rows, at head_dim 32, 64, 96, 112, 128 or 256
+// (a lane owns ceil(D / 32) columns: at 112 lanes 0-15 own a fourth one and
+// lanes 16-31 hold a dead slot that is never read or written; 153 KB of
+// shared memory at 256).  The
 // conversions to_f, round_to and from_f serve the bf16 kernels too.  Both
 // kernels fold every tile through fold_tile, so a row's arithmetic depends
 // only on its q, the tiles it visits and their order, and not on which
@@ -84,10 +86,15 @@ constexpr size_t smem_bytes() {
 }
 
 // The online-softmax state of one warp's RPW rows; every lane holds m and l
-// of each row and its D/32 columns of acc.
+// of each row and its ceil(D / 32) columns of acc (column lane + 32 u).
 template <int D>
 struct State {
-  static constexpr int CPL = D / 32;
+  static constexpr int CPL = (D + 31) / 32;
+  // whether the lane's u-th column is a column of the head (always, unless
+  // 32 does not divide D)
+  static __device__ __forceinline__ bool owns(int lane, int u) {
+    return D % 32 == 0 || lane + 32 * u < D;
+  }
   float m[RPW];
   float l[RPW];
   float acc[RPW][CPL];
@@ -214,7 +221,8 @@ __device__ __forceinline__ void fold_tile(const T* __restrict__ kg,
       for (int r = 0; r < RPW; ++r) pj[r] = p_s[(r0 + r) * BK_MAX + j];
 #pragma unroll
       for (int u = 0; u < CPL; ++u) {
-        const float vv = to_f(kv_s[j * D + lane + 32 * u]);
+        const float vv =
+            State<D>::owns(lane, u) ? to_f(kv_s[j * D + lane + 32 * u]) : 0.f;
 #pragma unroll
         for (int r = 0; r < RPW; ++r) pv[r][u] = fmaf(pj[r], vv, pv[r][u]);
       }
@@ -249,8 +257,9 @@ __device__ __forceinline__ void flush(const State<D>& st, int q0, int nrows,
     const bool dead = st.m[r] <= NEG_INF;
 #pragma unroll
     for (int u = 0; u < CPL; ++u)
-      o[(size_t)row * D + lane + 32 * u] =
-          from_f<T>(dead ? 0.f : __fdiv_rn(st.acc[r][u], denom));
+      if (State<D>::owns(lane, u))
+        o[(size_t)row * D + lane + 32 * u] =
+            from_f<T>(dead ? 0.f : __fdiv_rn(st.acc[r][u], denom));
     if (m_out != nullptr && lane == 0) {
       m_out[row] = st.m[r];
       l_out[row] = st.l[r];

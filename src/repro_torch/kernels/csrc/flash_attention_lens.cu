@@ -58,7 +58,7 @@
 //       of the range, masked by key < kv_len[b] and the causal compare),
 //       writing an f32 partial (FoldOut) when the keys are split.
 //
-// Both are compiled at head_dim 32, 64, 96, 128 and 256.
+// Both are compiled at head_dim 32, 64, 96, 112, 128 and 256.
 #include <algorithm>
 #include <type_traits>
 
@@ -683,6 +683,8 @@ int launch_dtype(const LensArgs<T>& a, int batch, int d, bool prefix,
       return launch_d<T, 64>(a, batch, prefix, state, s);
     case 96:
       return launch_d<T, 96>(a, batch, prefix, state, s);
+    case 112:
+      return launch_d<T, 112>(a, batch, prefix, state, s);
     case 128:
       return launch_d<T, 128>(a, batch, prefix, state, s);
     case 256:
@@ -701,8 +703,8 @@ int launch_dtype(const LensArgs<T>& a, int batch, int d, bool prefix,
 // tiles (kernels/flash_attention.py lens_partition); with nsplit > 1, part
 // is an f32 scratch of groups x nsplit x rows_blk x (d + 2) floats and
 // tickets groups int32 zeros (groups = B x Hkv x row blocks), left at 0.
-// The caller checks Hq % Hkv == 0, block_k <= 128, d in {32, 64, 96, 128,
-// 256}.
+// The caller checks Hq % Hkv == 0, block_k <= 128, d in {32, 64, 96, 112,
+// 128, 256}.
 extern "C" int flash_attention_lens_launch(
     const void* q, const void* k, const void* v, const void* lens, void* o,
     void* m, void* l, void* part, void* tickets, int batch, int hq, int hkv,

@@ -278,6 +278,8 @@ int launch_dtype(TilesArgs<T> a, const int* order, int batch, int d,
       return launch_flags<T, 64>(a, order, batch, band, state, s);
     case 96:
       return launch_flags<T, 96>(a, order, batch, band, state, s);
+    case 112:
+      return launch_flags<T, 112>(a, order, batch, band, state, s);
     case 128:
       return launch_flags<T, 128>(a, order, batch, band, state, s);
     case 256:
@@ -317,7 +319,7 @@ TilesArgs<T> args(const void* rowp, const void* mid, const void* prowp,
 // PARTIAL tiles by (causal, window, offset), window < 0 for none; band = 0
 // adds their bias tiles.  dtype 0 = f32 (the FMA fold; order unused), 1 =
 // bf16 (the tensor cores; q, k, v 16-byte aligned).  The caller checks
-// block_k <= 128, d in {32, 64, 96, 128, 256}, and that the layout has at
+// block_k <= 128, d in {32, 64, 96, 112, 128, 256}, and that the layout has at
 // least one live tile.  The layout covers (Lq, Lk) in ceil-divided tiles:
 // the last Q tile and the last K tile may be short.
 extern "C" int flash_attention_tiles_launch(

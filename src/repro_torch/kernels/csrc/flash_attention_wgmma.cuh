@@ -27,9 +27,10 @@
 // mask and the online softmax run on the S accumulators in registers; P is
 // rounded to bf16 (round to nearest even) and is, fragment for fragment,
 // the register A operand of P V, m64n{d}k16 per 16 keys with V as the
-// transposed B operand (d = 32, 64, 96, 128 or 256).  o is accumulated in
-// f32 and rounded once, or written as an unnormalised f32 partial for a
-// split-K merge (FoldOut).  The recurrence and its rounding points are
+// transposed B operand (d = 32, 64, 96, 112, 128 or 256; at 112 a row is
+// 224 bytes, 14 core-matrix columns, and S = Q K^T takes 7 k16 steps).  o
+// is accumulated in f32 and rounded once, or written as an unnormalised f32
+// partial for a split-K merge (FoldOut).  The recurrence and its rounding points are
 // fa::fold_tile's: s = (q . k) * scale, masked; m, alpha, p and l with
 // expf and explicit round-to-nearest ops; acc = acc * alpha + P V.  The
 // two warpgroups run S, softmax and P V in step, so the tensor cores idle
@@ -251,6 +252,38 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
       : "memory");
 }
 
+// d += A B, m64n112k16: A from registers, B from shared memory
+// (MN-major, transposed)
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
 // d += A B, m64n256k16: A from registers, B from shared memory
 // (MN-major, transposed)
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
@@ -313,7 +346,8 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  static_assert(D == 32 || D == 64 || D == 96 || D == 128 || D == 256,
+  static_assert(D == 32 || D == 64 || D == 96 || D == 112 || D == 128 ||
+                    D == 256,
                 "head_dim");
   if constexpr (D == 32)
     wgmma_rs_n32(d, a, db);
@@ -321,6 +355,8 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
     wgmma_rs_n64(d, a, db);
   else if constexpr (D == 96)
     wgmma_rs_n96(d, a, db);
+  else if constexpr (D == 112)
+    wgmma_rs_n112(d, a, db);
   else if constexpr (D == 128)
     wgmma_rs_n128(d, a, db);
   else

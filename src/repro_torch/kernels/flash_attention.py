@@ -46,7 +46,7 @@ maxima ``m`` and denominators ``l``, (B, Hq, Lq) f32.
 On host tensors each wrapper computes its plain version (the same blocked
 online-softmax recurrence in torch, tile by tile); on CUDA tensors it
 launches its kernel or raises.  The kernels take f32 or bf16, head_dim in
-:data:`HEAD_DIMS` (32, 64, 96, 128 and 256) and K tiles of at most
+:data:`HEAD_DIMS` (32, 64, 96, 112, 128 and 256) and K tiles of at most
 :data:`MAX_BLOCK_K` keys.  The blocks need not divide the lengths: the
 last Q tile and the last K tile are short.
 
@@ -70,8 +70,11 @@ maskcompiler.grid_layout`): three launches of csrc/flash_attention_bwd.cu
 on CUDA tensors (:func:`fa_bwd_delta`, :func:`fa_bwd_dkdv`,
 :func:`fa_bwd_dq`, each counting its launches), the plain
 :func:`flash_attention_tiles_bwd_plain` on host tensors.  A row with no
-live key gets no gradient, as its output is 0.  ``flash_attention_lens``
-(serving) has no backward and raises when asked for one.
+live key gets no gradient, as its output is 0.  The backward kernels take
+the head_dims of :data:`BWD_HEAD_DIMS`, which lacks 112: on the card a
+backward at 112 raises ValueError (ROADMAP queue 1 item 6a).
+``flash_attention_lens`` (serving) has no backward and raises when asked
+for one.
 """
 from __future__ import annotations
 
@@ -92,10 +95,16 @@ __all__ = ["NEG_INF", "merge_states", "flash_attention",
            "fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq", "softmax_lse",
            "column_walk", "CardLayout",
            "LensPartition", "lens_partition", "lens_blocks", "HEAD_DIMS",
+           "BWD_HEAD_DIMS",
            "MAX_BLOCK_K"]
 
-#: head_dim values the kernels are compiled for.
-HEAD_DIMS = (32, 64, 96, 128, 256)
+#: head_dim values the forward kernels (dense grid, tiles, lens) are
+#: compiled for.
+HEAD_DIMS = (32, 64, 96, 112, 128, 256)
+#: head_dim values the backward kernels are compiled for: not 112 (zamba2's
+#: shared attention block), which serving needs and training does not yet
+#: (ROADMAP queue 1 item 6a).
+BWD_HEAD_DIMS = (32, 64, 96, 128, 256)
 #: The largest K tile the kernels take.
 MAX_BLOCK_K = 128
 #: The lens decode kernel's largest row block; a bf16 group with more rows
@@ -729,6 +738,13 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def _check_bwd_head_dim(what: str, d: int) -> None:
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} not in {BWD_HEAD_DIMS}: the "
+                         f"backward kernels are not built at this width "
+                         f"(ROADMAP queue 1 item 6a)")
+
+
 def fa_bwd_delta(o, do):
     """``D = rowsum(dO * o)`` in f32, (B, Hq, Lq): one launch of
     ``fa_bwd_delta_kernel`` on CUDA tensors, the plain sum on host ones."""
@@ -738,7 +754,8 @@ def fa_bwd_delta(o, do):
     _lib.require_cuda("fa_bwd_delta", o, do)
     _lib.require_dtypes("fa_bwd_delta", (o, do), (),
                         allowed=tuple(_DTYPE_CODE))
-    if o.shape != do.shape or o.shape[-1] not in HEAD_DIMS:
+    _check_bwd_head_dim("fa_bwd_delta", o.shape[-1])
+    if o.shape != do.shape:
         raise ValueError(f"fa_bwd_delta: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}")
     delta = torch.empty(o.shape[:-1], device=o.device)
@@ -761,6 +778,7 @@ def _grad_args(what, q, k, v, do, lse, delta, layout):
     one is copied into a fresh tensor, which the caching allocator
     aligns), the layout on the card and the launch's shape arguments."""
     _check(what, q, k, v)
+    _check_bwd_head_dim(what, q.shape[3])
     _lib.require_cuda(what, q, do, lse, delta)
     if do.shape != q.shape or do.dtype != q.dtype \
             or lse.shape != q.shape[:3] or delta.shape != q.shape[:3] \
@@ -828,13 +846,15 @@ def flash_attention_tiles_bwd(q, k, v, o, lse, do, layout, *,
     ``o`` and ``lse`` (:func:`softmax_lse`) and the output gradient ``do``.
     On host tensors the plain version; on CUDA tensors three launches
     (:func:`fa_bwd_delta`, :func:`fa_bwd_dkdv`, :func:`fa_bwd_dq`), or
-    none for an empty layout, whose gradients are 0."""
+    none for an empty layout, whose gradients are 0.  On the card the
+    head_dim must be in :data:`BWD_HEAD_DIMS` (112 raises ValueError)."""
     scale = scale if scale is not None else q.shape[3] ** -0.5
     if layout.ntiles == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     if _lib.on_host(q, k, v, o, lse, do):
         return flash_attention_tiles_bwd_plain(q, k, v, o, lse, do, layout,
                                                scale=scale)
+    _check_bwd_head_dim("flash_attention_tiles_bwd", q.shape[3])
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     delta = fa_bwd_delta(o, do)
     dk, dv = fa_bwd_dkdv(q, k, v, do, lse, delta, layout, scale)

@@ -9,7 +9,9 @@ It runs on the card unless ``--device cpu`` is given.  ``--scale`` below 1
 shrinks the architecture with :func:`reduce_config`; a config whose
 parameters do not fit the card (arctic-480b: 476.8 B) raises unless it is
 shrunk.  ``--arch qwen3-moe-30b-a3b --scale 1.0`` serves the whole MoE
-model (61 GB in bf16) on one 80 GB card.  ``--ckpt-dir`` loads
+model (61 GB in bf16) on one 80 GB card; ``--arch mamba2-370m`` (SSM) and
+``--arch zamba2-7b`` (hybrid) serve those families (a prompt longer than
+256 tokens must be a multiple of 256, the SSD chunk).  ``--ckpt-dir`` loads
 the parameters of the newest checkpoint there (written by either package's
 ``Checkpointer``; the scale must match the one it was trained at).  The
 execution levels of the JAX version are not ported.

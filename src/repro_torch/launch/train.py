@@ -39,35 +39,44 @@ clock = time.perf_counter
 def reduce_config(cfg: ModelConfig, scale: float, *,
                   seq_len: int = 256) -> ModelConfig:
     """Shrink an assigned architecture into a CPU-runnable sibling (same
-    family, same block structure, fewer/narrower layers): the dense and MoE
-    branches of the JAX package's ``reduce_config`` (MoE: at most 8 experts
-    and top-2, ``moe_d_ff`` scaled, capacity factor 4, ``d_ff`` only with a
-    dense residual).  ``seq_len`` sizes the JAX package's frontends, which
-    these families have none of."""
+    family, same block structure, fewer/narrower layers): the dense, MoE,
+    SSM and hybrid branches of the JAX package's ``reduce_config`` (MoE: at
+    most 8 experts and top-2, ``moe_d_ff`` scaled, capacity factor 4,
+    ``d_ff`` only with a dense residual; SSM and hybrid: ``ssm_state`` and
+    ``ssm_headdim`` at most 32, one group, ``d_model`` at least 64 (after
+    the heads are sized from the narrower width, as there); hybrid:
+    ``attn_every`` clamped to 2-3).  ``seq_len`` sizes the JAX package's
+    frontends, which these families have none of."""
     def s(x, lo=1, mult=1):
         v = max(lo, int(round(x * scale)))
         return -(-v // mult) * mult
 
-    d_model = s(cfg.d_model, 32, 16)
-    heads = max(2, int(round(cfg.num_heads * scale)))
-    kvh = max(1, min(cfg.num_kv_heads, heads))
-    while heads % kvh:
-        kvh -= 1
-    kw: dict = dict(d_ff=s(cfg.d_ff, 64, 16) if cfg.d_ff else 0)
+    kw: dict = dict(
+        num_layers=max(2, int(round(cfg.num_layers * scale))),
+        d_model=s(cfg.d_model, 32, 16), vocab_size=min(cfg.vocab_size, 2048),
+        dtype="float32", param_dtype="float32", remat=False,
+        scan_layers=True)
+    if cfg.has_attention:
+        heads = max(2, int(round(cfg.num_heads * scale)))
+        kvh = max(1, min(cfg.num_kv_heads, heads))
+        while heads % kvh:
+            kvh -= 1
+        kw.update(num_heads=heads, num_kv_heads=kvh,
+                  head_dim=max(8, kw["d_model"] // heads // 2 * 2),
+                  d_ff=s(cfg.d_ff, 64, 16) if cfg.d_ff else 0)
     if cfg.family == "moe":
         kw.update(num_experts=min(cfg.num_experts, 8),
                   experts_per_token=min(cfg.experts_per_token, 2),
                   moe_d_ff=s(cfg.moe_d_ff, 32, 8),
                   d_ff=s(cfg.d_ff, 64, 16) if cfg.dense_residual else 0,
                   capacity_factor=4.0)
-    return dataclasses.replace(
-        cfg, name=f"{cfg.name}-x{scale}",
-        num_layers=max(2, int(round(cfg.num_layers * scale))),
-        d_model=d_model, vocab_size=min(cfg.vocab_size, 2048),
-        num_heads=heads, num_kv_heads=kvh,
-        head_dim=max(8, d_model // heads // 2 * 2),
-        dtype="float32", param_dtype="float32",
-        remat=False, scan_layers=True, **kw)
+    if cfg.has_ssm:
+        kw.update(ssm_state=min(cfg.ssm_state, 32),
+                  ssm_headdim=min(cfg.ssm_headdim, 32), ssm_groups=1)
+        kw["d_model"] = max(64, kw["d_model"])
+    if cfg.family == "hybrid":
+        kw.update(attn_every=max(2, min(cfg.attn_every, 3)))
+    return dataclasses.replace(cfg, name=f"{cfg.name}-x{scale}", **kw)
 
 
 class Trainer:

@@ -1,5 +1,5 @@
-"""LM: the architecture facade, dense and MoE families (counterpart of
-``repro.models.lm``, chip scope).
+"""LM: the architecture facade, dense, MoE, SSM and hybrid families
+(counterpart of ``repro.models.lm``, chip scope).
 
     init               seeded random weights on the card (or the CPU)
     forward            full-sequence logits (through ``stack_apply``, with
@@ -7,14 +7,22 @@
     loss               token-mean cross entropy of a batch (training)
     prefill            prompt -> last logits + a fixed-size K/V cache
     decode_step        one token against that cache (the fixed engine)
-    decode_step_paged  one token per slot against the paged cache
+    decode_step_paged  one token per slot against the paged cache (dense
+                       and MoE only, as in the JAX package)
     prefill_chunk      one prompt chunk of one slot into the paged cache
+                       (dense and MoE only)
 
 Parameters mirror the JAX package's pytree as dicts of tensors, except
 that its layer-stacked leaves become a list of per-layer dicts
-(``params["layers"]``).  Caches keep the JAX layouts: the fixed cache is
-(layers, B, kv_heads, max_len, head_dim); the paged state is ``kpages`` /
-``vpages`` (layers, P, kv_heads, page_size, head_dim), ``table`` (B, n)
+(``params["layers"]``, the hybrid's ``params["tail"]``) and the hybrid's
+``params["groups"]``, stacked (ngroups, attn_every, ...) there, a list of
+ngroups lists of ``attn_every`` per-layer dicts.  Caches keep the JAX
+layouts: the fixed cache is (layers, B, kv_heads, max_len, head_dim); the
+SSM state is ``cache["ssm"] = {"conv": (layers, B, conv_width - 1, C),
+"ssm": (layers, B, H, P, N) f32}``; the hybrid keeps both, with K/V for
+each of its ngroups shared-block sites (one set of weights, used after
+every group of ``attn_every`` mamba layers); the paged state is ``kpages``
+/ ``vpages`` (layers, P, kv_heads, page_size, head_dim), ``table`` (B, n)
 int32 and ``lens`` (B,) int32.  Decode steps update caches in place (the
 JAX package returns updated copies) and return the same tensors.
 
@@ -25,8 +33,8 @@ the JAX package does.  Nothing is masked before the router: an inactive
 decode slot's token and a chunk's padding are routed and take capacity
 like any other, so capacity couples the requests of a batch.
 
-The other families (ssm, hybrid, vlm, audio) raise NotImplementedError
-until their slices port them (ROADMAP queue 1 items 6-7).
+The other families (vlm, audio) raise NotImplementedError until their
+slice ports them (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.containers import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (dense_init, linear, mlp, rms_norm,
                                        rms_norm_init, rope)
@@ -73,10 +82,10 @@ class LM:
 
     def _check_family(self) -> None:
         cfg = self.cfg
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(ROADMAP queue 1 items 6-7 port the other families)")
+                f"(ROADMAP queue 1 item 7 ports the other families)")
 
     # ------------------------------------------------------------------
     # init
@@ -96,10 +105,30 @@ class LM:
         if not cfg.tie_embeddings:
             p["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                                       dtype=cfg.pdtype)
-        block_init = tf.moe_block_init if cfg.family == "moe" \
-            else tf.dense_block_init
+        fam = cfg.family
+        if fam == "hybrid":
+            ngroups, tail = self._hybrid_split()
+            if ngroups:
+                p["groups"] = [tf.stack_init(gen, cfg, tf.mamba_block_init,
+                                             cfg.attn_every)
+                               for _ in range(ngroups)]
+            if tail:
+                p["tail"] = tf.stack_init(gen, cfg, tf.mamba_block_init,
+                                          tail)
+            p["shared_attn"] = tf.dense_block_init(gen, cfg)
+            return p
+        block_init = {"moe": tf.moe_block_init,
+                      "ssm": tf.mamba_block_init}.get(fam,
+                                                      tf.dense_block_init)
         p["layers"] = tf.stack_init(gen, cfg, block_init, cfg.num_layers)
         return p
+
+    def _hybrid_split(self) -> tuple[int, int]:
+        """(full groups of attn_every mamba layers + the shared attention
+        block, tail mamba layers)."""
+        cfg = self.cfg
+        ngroups = cfg.num_layers // cfg.attn_every
+        return ngroups, cfg.num_layers - ngroups * cfg.attn_every
 
     # ------------------------------------------------------------------
     # embedding / positions
@@ -130,6 +159,8 @@ class LM:
         return logits
 
     def _rope_tables(self, batch: int, seq_len: int, device):
+        if not self.cfg.has_attention:
+            return None, None
         positions = torch.arange(seq_len, dtype=torch.int32,
                                  device=device).expand(batch, seq_len)
         return rope(positions, self.cfg.head_dim, self.cfg.rope_theta)
@@ -140,14 +171,35 @@ class LM:
     def forward(self, params: Params, tokens: torch.Tensor):
         """Full-sequence forward -> (logits (B, S, V), aux)."""
         self._check_family()
+        cfg = self.cfg
         x = self._embed(params, tokens)
         B, S, _ = x.shape
         cos, sin = self._rope_tables(B, S, x.device)
-        block = tf.moe_block if self.cfg.family == "moe" else tf.dense_block
-        x, aux = tf.stack_apply(x, params["layers"], functools.partial(
-            block, cfg=self.cfg, cos=cos, sin=sin), self.cfg)
+        if cfg.family == "hybrid":
+            x, aux = self._hybrid_forward(params, x, cos, sin)
+        elif cfg.family == "ssm":
+            x, aux = tf.stack_apply(x, params["layers"], functools.partial(
+                tf.mamba_block, cfg=cfg), cfg)
+        else:
+            block = tf.moe_block if cfg.family == "moe" else tf.dense_block
+            x, aux = tf.stack_apply(x, params["layers"], functools.partial(
+                block, cfg=cfg, cos=cos, sin=sin), cfg)
         x = rms_norm(x, params["final_norm"])
         return self._logits(params, x), aux
+
+    def _hybrid_forward(self, params: Params, x, cos, sin):
+        """Each group's mamba layers then the weight-shared attention block,
+        then the tail's mamba layers; every block under remat when
+        ``cfg.remat`` (through ``stack_apply``).  The aux losses are
+        zeros."""
+        cfg = self.cfg
+        mamba = functools.partial(tf.mamba_block, cfg=cfg)
+        shared = functools.partial(tf.dense_block, cfg=cfg, cos=cos, sin=sin)
+        for group in params.get("groups", []):
+            x, _ = tf.stack_apply(x, group, mamba, cfg)
+            x, _ = tf.stack_apply(x, [params["shared_attn"]], shared, cfg)
+        x, _ = tf.stack_apply(x, params.get("tail", []), mamba, cfg)
+        return x, tf.zero_aux(x.device)
 
     def loss(self, params: Params, batch: dict):
         """``(loss, metrics)`` of a batch ``{"tokens", "labels"}`` (B, S)
@@ -171,71 +223,177 @@ class LM:
     def prefill(self, params: Params, tokens: torch.Tensor,
                 max_len: Optional[int] = None):
         """Process the prompt; returns (last-position logits (B, V), cache)
-        with the K/V cache padded to ``max_len`` positions."""
+        with the K/V cache padded to ``max_len`` positions (the SSM family
+        keeps no K/V: its cache is the layers' ``{conv, ssm}`` states; the
+        hybrid's holds both, K/V for each shared-block site).  A prompt of
+        an SSM or hybrid config longer than ``models.ssm.CHUNK`` tokens must
+        be a multiple of it (ValueError otherwise)."""
         self._check_family()
         cfg = self.cfg
         x = self._embed(params, tokens)
         B, S, _ = x.shape
         max_len = max(max_len or S, S)
         cos, sin = self._rope_tables(B, S, x.device)
-        shape = (cfg.num_layers, B, cfg.num_kv_heads, max_len, cfg.head_dim)
-        ck = torch.zeros(shape, dtype=cfg.act_dtype, device=x.device)
-        cv = torch.zeros(shape, dtype=cfg.act_dtype, device=x.device)
-        block_kv = tf.moe_block_kv if cfg.family == "moe" \
-            else tf.dense_block_kv
-        for i, lp in enumerate(params["layers"]):
-            x, (k, v) = block_kv(x, lp, cfg, cos, sin)
-            ck[i, :, :, :S] = k
-            cv[i, :, :, :S] = v
+        cache: Params = {"cur_len": S}
+        if cfg.family == "ssm":
+            states = []
+            for lp in params["layers"]:
+                x, st = tf.mamba_block_state(x, lp, cfg)
+                states.append(st)
+            cache["ssm"] = _stack_states(states)
+        elif cfg.family == "hybrid":
+            x = self._hybrid_prefill(params, x, cos, sin, cache, max_len)
+        else:
+            cache["k"], cache["v"] = self._kv_cache(cfg.num_layers, B,
+                                                    max_len, x.device)
+            block_kv = tf.moe_block_kv if cfg.family == "moe" \
+                else tf.dense_block_kv
+            for i, lp in enumerate(params["layers"]):
+                x, (k, v) = block_kv(x, lp, cfg, cos, sin)
+                cache["k"][i, :, :, :S] = k
+                cache["v"][i, :, :, :S] = v
         x = rms_norm(x, params["final_norm"])
         logits = self._logits(params, x[:, -1:, :])[:, 0, :]
-        return logits, {"cur_len": S, "k": ck, "v": cv}
+        return logits, cache
+
+    def _kv_cache(self, sites: int, batch: int, max_len: int, device,
+                  dtype=None):
+        cfg = self.cfg
+        shape = (sites, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        dtype = dtype or cfg.act_dtype
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    def _hybrid_prefill(self, params: Params, x, cos, sin, cache: Params,
+                        max_len: int):
+        """The hybrid's prefill: every mamba layer's state into
+        ``cache["ssm"]`` (groups' layers then the tail's, in order) and,
+        when there are groups, the shared block's K/V at each site into
+        ``cache["k"]`` / ``cache["v"]`` (ngroups, B, hk, max_len, hd), as
+        the JAX package does.  Returns the residual stream."""
+        cfg = self.cfg
+        S = x.shape[1]
+        states = []
+        groups = params.get("groups", [])
+        if groups:
+            cache["k"], cache["v"] = self._kv_cache(len(groups), x.shape[0],
+                                                    max_len, x.device)
+        for g, group in enumerate(groups):
+            for lp in group:
+                x, st = tf.mamba_block_state(x, lp, cfg)
+                states.append(st)
+            x, (k, v) = tf.dense_block_kv(x, params["shared_attn"], cfg, cos,
+                                          sin)
+            cache["k"][g, :, :, :S] = k
+            cache["v"][g, :, :, :S] = v
+        for lp in params.get("tail", []):
+            x, st = tf.mamba_block_state(x, lp, cfg)
+            states.append(st)
+        cache["ssm"] = _stack_states(states)
+        return x
 
     # ------------------------------------------------------------------
     # decode (the fixed engine)
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
                    device=None) -> Params:
-        """An empty fixed-size cache on ``device`` (the card by default)."""
+        """An empty fixed-size cache on ``device`` (the card by default):
+        K/V for the attention families, the SSM states for the SSM family,
+        both for the hybrid (K/V for max(ngroups, 1) sites)."""
         self._check_family()
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len,
-                 cfg.head_dim)
         dev = resolve_device(device)
         dtype = dtype or cfg.act_dtype
-        return {"cur_len": 0,
-                "k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        cache: Params = {"cur_len": 0}
+        if cfg.has_ssm:
+            cache["ssm"] = _stack_states(
+                [ssm_mod.mamba2_state_init(cfg, batch, dtype, device=dev)
+                 for _ in range(cfg.num_layers)])
+        if cfg.family == "hybrid":
+            sites = max(self._hybrid_split()[0], 1)
+        elif cfg.family != "ssm":
+            sites = cfg.num_layers
+        else:
+            return cache
+        cache["k"], cache["v"] = self._kv_cache(sites, batch, max_len, dev,
+                                                dtype)
+        return cache
 
     def decode_step(self, params: Params, cache: Params,
                     tokens: torch.Tensor):
-        """tokens (B, 1) -> logits (B, V); writes the token's K/V into the
-        cache in place and returns the cache with ``cur_len`` advanced."""
+        """tokens (B, 1) -> logits (B, V); writes the token's K/V (and the
+        SSM layers' new states) into the cache in place and returns the
+        cache with ``cur_len`` advanced."""
         self._check_family()
         cfg = self.cfg
         B = tokens.shape[0]
         cur = int(cache["cur_len"])
         x = self._embed(params, tokens)
-        pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
-        cos, sin = rope(pos, cfg.head_dim, cfg.rope_theta)
-        for i, lp in enumerate(params["layers"]):
-            a, _, _ = attn_mod.attention_decode(
-                rms_norm(x, lp["attn_norm"]), lp["attn"], cfg,
-                cache["k"][i], cache["v"][i], cur, cos, sin)
-            x = self._step_ffn(x + a, lp)
+        cos = sin = None
+        if cfg.has_attention:
+            pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
+            cos, sin = rope(pos, cfg.head_dim, cfg.rope_theta)
+        if cfg.family == "ssm":
+            x = self._ssm_decode_stack(params["layers"], x, cache["ssm"], 0)
+        elif cfg.family == "hybrid":
+            x = self._hybrid_decode(params, x, cache, cur, cos, sin)
+        else:
+            for i, lp in enumerate(params["layers"]):
+                a, _, _ = attn_mod.attention_decode(
+                    rms_norm(x, lp["attn_norm"]), lp["attn"], cfg,
+                    cache["k"][i], cache["v"][i], cur, cos, sin)
+                x = self._step_ffn(x + a, lp)
         x = rms_norm(x, params["final_norm"])
         logits = self._logits(params, x)[:, 0, :]
         return logits, dict(cache, cur_len=cur + 1)
+
+    def _ssm_decode_stack(self, layers: list, x, states: dict, first: int):
+        """One token through mamba layers ``layers``, whose states are
+        layers ``first``, ``first + 1``, ... of the stacked ``states``
+        (updated in place)."""
+        cfg = self.cfg
+        for i, lp in enumerate(layers, start=first):
+            y, st = ssm_mod.mamba2_decode(
+                rms_norm(x, lp["norm"]), lp["mamba"], cfg,
+                {"conv": states["conv"][i], "ssm": states["ssm"][i]})
+            states["conv"][i].copy_(st["conv"])
+            states["ssm"][i].copy_(st["ssm"])
+            x = x + y
+        return x
+
+    def _hybrid_decode(self, params: Params, x, cache: Params, cur: int,
+                       cos, sin):
+        """One token through the groups (mamba layers, then the shared
+        block against its site's K/V) and the tail, in place."""
+        cfg = self.cfg
+        shared = params["shared_attn"]
+        first = 0
+        for g, group in enumerate(params.get("groups", [])):
+            x = self._ssm_decode_stack(group, x, cache["ssm"], first)
+            first += len(group)
+            a, _, _ = attn_mod.attention_decode(
+                rms_norm(x, shared["attn_norm"]), shared["attn"], cfg,
+                cache["k"][g], cache["v"][g], cur, cos, sin)
+            x = x + a
+            x = x + mlp(rms_norm(x, shared["mlp_norm"]), shared["mlp"],
+                        cfg.mlp_kind)
+        return self._ssm_decode_stack(params.get("tail", []), x,
+                                      cache["ssm"], first)
 
     # ------------------------------------------------------------------
     # paged decode + chunked prefill (the continuous-batching serve tier)
     # ------------------------------------------------------------------
     def _check_paged(self) -> None:
+        """Paged serving takes the dense and MoE families (the others keep
+        recurrent state or need a frontend), as in the JAX package."""
         cfg = self.cfg
+        self._check_family()
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"paged serving supports dense/moe families, "
+                             f"not {cfg.family!r}")
         if cfg.attn_window:
             raise ValueError("paged serving does not express attn_window "
                              "masks")
-        self._check_family()
 
     def _step_ffn(self, h, lp):
         """The FFN half of a layer in the decode steps and chunked prefill,
@@ -332,3 +490,9 @@ class LM:
         logits = self._logits(params, h[:, valid_len - 1:valid_len])[0, 0]
         state["lens"][slot] = start + valid_len
         return logits, state
+
+
+def _stack_states(states: list[dict]) -> dict:
+    """Per-layer ``{conv, ssm}`` states stacked along a leading layer dim
+    (the JAX package's cache layout)."""
+    return {k: torch.stack([st[k] for st in states]) for k in ("conv", "ssm")}

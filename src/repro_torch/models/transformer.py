@@ -1,12 +1,13 @@
-"""Decoder stacks: the dense and MoE blocks (counterpart of the dense and
-MoE parts of ``repro.models.transformer``).
+"""Decoder stacks: the dense, MoE and mamba2 blocks (counterpart of
+``repro.models.transformer``).
 
 The JAX package stacks every parameter leaf along a leading ``num_layers``
 dim and scans over it; here the stack is a list of per-layer parameter
 dicts and the layer loop is a Python loop.  A block returns ``(x, aux)``,
 the auxiliary losses ``{"aux_lb", "aux_z"}`` (zeros for the dense block),
-and :func:`stack_apply` sums them over the layers.  The SSM blocks come
-with their family's slice (ROADMAP queue 1 item 6); ``constrain`` (mesh
+and :func:`stack_apply` sums them over the layers.  The mamba2 blocks
+call ``models.ssm`` through the module attribute (``ssm_mod.
+mamba2_apply_state``), so that a profiler can wrap it; ``constrain`` (mesh
 sharding hints) is mesh scope and is left out.
 """
 from __future__ import annotations
@@ -21,12 +22,14 @@ import torch.utils.checkpoint
 from repro_torch.core import registry
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_init, rms_norm, rms_norm_init
 
 Params = dict[str, Any]
 
 __all__ = ["dense_block_init", "dense_block", "dense_block_kv",
            "moe_block_init", "moe_block", "moe_block_kv", "moe_ffn",
+           "mamba_block_init", "mamba_block", "mamba_block_state",
            "stack_apply", "stack_init", "zero_aux"]
 
 
@@ -99,6 +102,25 @@ def moe_block_kv(x, p: Params, cfg, cos, sin):
     h = x + a
     y, _ = moe_ffn(h, p, cfg, cfg.capacity_factor)
     return h + y, (k, v)
+
+
+def mamba_block_init(gen: torch.Generator, cfg) -> Params:
+    return {
+        "norm": rms_norm_init(cfg.d_model, cfg.pdtype, gen.device),
+        "mamba": ssm_mod.mamba2_init(gen, cfg),
+    }
+
+
+def mamba_block(x, p: Params, cfg):
+    return mamba_block_state(x, p, cfg)[0], zero_aux(x.device)
+
+
+def mamba_block_state(x, p: Params, cfg):
+    """:func:`mamba_block` that returns the layer's decode state ``{conv,
+    ssm}`` instead of its (zero) aux losses: the prefill path."""
+    y, st = ssm_mod.mamba2_apply_state(rms_norm(x, p["norm"]), p["mamba"],
+                                       cfg)
+    return x + y, st
 
 
 def stack_apply(x, layers: list[Params], block_fn: Callable, cfg, *,

@@ -2,13 +2,15 @@
 (counterpart of ``repro.serve.engine``, chip scope).
 
 :class:`Engine` runs one batched request: a prefill over the padded batch,
-then one decode step per token against a fixed-size K/V cache, with an
-EOS check lagged by a window so the host does not wait on every step.
+then one decode step per token against a fixed-size cache (K/V, the SSM
+family's recurrent states, or both for the hybrid family), with an EOS
+check lagged by a window so the host does not wait on every step.
 
 :class:`ContinuousEngine` (DESIGN.md §13) serves a stream of requests over
-a paged KV cache (``serve/kvcache.py``): host-side admission and page
-accounting (``serve/scheduler.py``), one prefill chunk per iteration
-interleaved with one batched decode step over the active slots, and a
+a paged KV cache (``serve/kvcache.py``; the dense and MoE families only,
+as in the JAX package): host-side admission and page accounting
+(``serve/scheduler.py``), one prefill chunk per iteration interleaved
+with one batched decode step over the active slots, and a
 lagged demux of the emitted tokens.  Slot recycling rewrites the
 *contents* of the device-side table/lens/active buffers, never their
 shapes or storage, so the decode step sees the same input tensors for the
@@ -158,6 +160,10 @@ class ContinuousEngine:
     def __init__(self, lm: LM, params: Params, *, num_slots: int = 8,
                  max_len: int = 2048, chunk_size: int = 32,
                  sampling: SamplingParams = SamplingParams(greedy=True)):
+        # paged serving takes the dense and MoE families: the SSM and
+        # hybrid ones carry recurrent state (ValueError, as in the JAX
+        # package, which raises on its first chunk)
+        lm._check_paged()
         self.lm = lm
         self.params = params
         self.sampling = sampling

@@ -1734,6 +1734,22 @@ def test_attention_kernels_at_head_dims_96_and_256(dtype, d, hq, hkv, card):
     three kernels: the dense grid (causal and not, with state; a short last
     K tile), lens (decode at Lq 1, and at Lq 48 the prefix kernel in bf16)
     and the tiles walk (band and bias masks)."""
+    _hold_forward_kernels_at(dtype, d, hq, hkv, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (4, 2)])
+def test_attention_kernels_at_head_dim_112(dtype, hq, hkv, card):
+    """zamba2-7b's head_dim (112, 32/32 heads: 112 / 32 columns a lane in
+    the f32 fold, m64n112k16 in the bf16 one) in all three kernels, as
+    at 96 and 256."""
+    _hold_forward_kernels_at(dtype, 112, hq, hkv, card)
+
+
+def _hold_forward_kernels_at(dtype, d, hq, hkv, card):
+    """The dense grid, lens and tiles at head_dim ``d`` against their plain
+    versions."""
     L = 200
     q, k, v = _attn_inputs(card, dtype, hq=hq, hkv=hkv, lq=L, lk=L, d=d,
                            seed=d)
@@ -1768,11 +1784,12 @@ def test_attention_kernels_at_head_dims_96_and_256(dtype, d, hq, hkv, card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("d", [96, 112, 256])
 def test_tiles_kernel_bitwise_equals_dense_causal_at_head_dims(dtype, d,
                                                                card):
-    """The bitwise property of both folds at 96 and 256 (at 256 the bf16
-    fold stages K and V in one buffer each), with a short last tile."""
+    """The bitwise property of both folds at 96, 112 and 256 (at 112 the
+    f32 fold's lanes 16-31 own a dead fourth column; at 256 the bf16 fold
+    stages K and V in one buffer each), with a short last tile."""
     L = 300
     q, k, v = _attn_inputs(card, dtype, b=2, hq=4, hkv=2, lq=L, lk=L, d=d,
                            seed=L + d)
@@ -2091,6 +2108,32 @@ def test_attention_backward_kernels_at_d256_blocks_64(card):
 #: The SDPA backend the library yardstick is pinned to, here and in
 #: chip_smoke.py, so that it means one thing from run to run.
 SDPA_BACKEND = "FLASH_ATTENTION"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_at_head_dim_112_raises(dtype, card):
+    """The backward kernels are not built at 112 (training the hybrid
+    family is ROADMAP queue 1 item 6a): the forward at 112 runs under
+    autograd, its backward raises ValueError before any launch, and so do
+    the three kernel wrappers."""
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        card, dtype, hq=4, hkv=4, lq=64, lk=64, d=112))
+    o = fa_k.flash_attention(q, k, v, causal=True)
+    before = [getattr(fa_k, n).launches for n in
+              ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")]
+    with pytest.raises(ValueError, match="item 6a"):
+        o.float().sum().backward()
+    assert [getattr(fa_k, n).launches for n in
+            ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")] == before
+    qd, kd, vd, od = (t.detach() for t in (q, k, v, o))
+    lse = torch.zeros(q.shape[:3], device=card)
+    layout = causal_layout(64, 64, 64, 64)
+    with pytest.raises(ValueError, match="item 6a"):
+        fa_k.fa_bwd_delta(od, od)
+    for fn in (fa_k.fa_bwd_dkdv, fa_k.fa_bwd_dq):
+        with pytest.raises(ValueError, match="item 6a"):
+            fn(qd, kd, vd, od, lse, lse, layout, 112 ** -0.5)
 
 
 @pytest.mark.cuda
