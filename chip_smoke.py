@@ -16,10 +16,14 @@
    suite's clustered 0.2 case at bs 32.  The three attention backward
    kernels (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq) through the autograd
    wrapper against flash_attention_tiles_bwd_plain: causal tiles at the
-   training shape in bf16 and f32, head_dim 96 and 256, a ragged length,
-   a window, a bias layout and the dense grid; in bf16 every layout kind
-   (also dead rows) at every head_dim; the same bits from two backward
-   passes.  The lens and tiles kernels also at the MoE configs' heads
+   training shape in bf16 and f32, head_dim 96, 112 and 256, a ragged
+   length, a window, a bias layout and the dense grid (f32 also at 112);
+   in bf16 every layout kind (also dead rows) at every head_dim; at d 112
+   a dO that is zero but in columns 96-111 (a lane's fourth column), in
+   both dtypes; the same bits from two backward passes.  moe_apply at
+   qwen3-moe-30b-a3b's width and ssd_chunked at zamba2-7b's, each
+   backward twice in bf16: the same bits (check (e) of phase g rests on
+   it).  The lens and tiles kernels also at the MoE configs' heads
    (32/4 and 56/8, d 128) at the serve paths' shapes.  The three forward
    attention kernels at every head_dim a config needs: 128, phi3-mini's 96,
    zamba2's 112 (32/32) and gemma's 256, each with the tiles == dense
@@ -90,6 +94,18 @@
       logits cuda vs torch plane and (g) a 256-token prefill then 256
       teacher-forced decode steps against the 512-token prefill's last
       logits, each within 1e-3 of the largest.
+   g. Training the MoE, SSM and hybrid families (after f, once its models
+      are dropped), each at full width through Trainer.fit as in d (8
+      steps of 4 x 512 tokens, bf16 activations, f32 AdamW moments, remat)
+      and cut in depth to what one card holds beside its gradients and
+      moments: qwen3-moe-30b-a3b at 3 of 48 layers, mamba2-370m whole,
+      zamba2-7b at 21 of 81 (3 groups of 6 and a tail of 3).  The launches
+      over the 8 steps equal the count reckoned from the code, printed
+      before the run (tiles twice and each backward kernel once per
+      attention site a step: 48 and 24 for qwen3-moe and zamba2, none for
+      mamba2).  Checks (c), (d) and (e) as in d, at 2 layers (zamba2: 7, a
+      group of 6 and a tail of 1, so that the f32 backward runs at d 112);
+      for the MoE (d) first holds every top-k set equal on both planes.
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
@@ -101,10 +117,11 @@
    summed over one run of phase 2b's path
    (also alone with --sparse-shapes, which a copy of this script in a
    checkout of an older commit runs to time that tree's kernels);
-   the attention forward kernels also at d 96, 112 and 256;
-   the backward kernels at the training shape beside SDPA's backward
-   pinned to one backend (also alone with --backward-shapes, the same
-   A/B hook for them);
+   the attention forward kernels also at d 96, 112 and 256 (lens decode's
+   kernel time at 112 too);
+   the backward kernels at the training shape and at zamba2's (B 4, 32/32,
+   L 512, d 112) beside SDPA's backward pinned to one backend (also alone
+   with --backward-shapes, the same A/B hook for them);
    print what ptxas said of the kernels' registers and spills; profile a
    short window of each engine's work (device time by kernel group, the
    device's idle share); print one JSON line of kernel records.
@@ -136,8 +153,8 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 L2_SCRUB_BYTES = 256 << 20
 #: Kernels whose ptxas report (registers, spills) the build prints; a
-#: name with "ILi256" is the head_dim 256 instantiations alone (the first
-#: name a symbol holds wins).
+#: name with "Li256" or "Li112" is that head_dim's instantiations alone
+#: (the first name a symbol holds wins).
 PTXAS_NAMES = ("flash_attention_lens_decode_kernelIfLi112",
                "flash_attention_lens_decode_kernelI13__nv_bfloat16Li112",
                "flash_attention_lens_decode_kernel",
@@ -152,6 +169,11 @@ PTXAS_NAMES = ("flash_attention_lens_decode_kernelIfLi112",
                "flash_attention_tiles_bf16_kernelILi112",
                "flash_attention_tiles_bf16_kernelILi256",
                "flash_attention_tiles_bf16_kernel",
+               "fa_bwd_delta_kernelIfLi112",
+               "fa_bwd_delta_kernelI13__nv_bfloat16Li112",
+               "fa_bwd_dkdv_kernelIfLi112", "fa_bwd_dq_kernelIfLi112",
+               "fa_bwd_dkdv_wgmma_kernelILi112",
+               "fa_bwd_dq_wgmma_kernelILi112",
                "fa_bwd_dkdv_wgmma_kernelILi256", "fa_bwd_dkdv_wgmma_kernel",
                "fa_bwd_dq_wgmma_kernelILi256", "fa_bwd_dq_wgmma_kernel",
                "fa_bwd_dkdv_kernel", "fa_bwd_dq_kernel",
@@ -1387,7 +1409,8 @@ def time_attention_kernels(torch, kernels, cold_ms):
     l) bytes at HBM rate and 4 * B * Hq * (live query-key pairs) * d flops
     at the bf16 tensor-core rate.  Library: scaled_dot_product_attention on
     the same inputs (timed only).  Returns the call that launches each
-    kernel and the lens prefix call, for the profiler pass."""
+    kernel, the lens prefix call and the lens decode call at d 112, for
+    the profiler pass."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.sparse.maskcompiler import causal_layout
@@ -1449,6 +1472,8 @@ def time_attention_kernels(torch, kernels, cold_ms):
     for hd in (96, 112, 256):
         for name, (kern, _, lib, nb, flops) in calls_at(hd).items():
             rec = kernels[name]
+            if (hd, name) == (112, "flash_attention_lens"):
+                lens112 = kern
             rec[f"d{hd}_ms"] = cold_ms(kern, 50)
             rec[f"d{hd}_library_ms"] = cold_ms(lib, 50)
             rec[f"d{hd}_bound_ms"], _ = bound_ms(nb, flops,
@@ -1476,7 +1501,7 @@ def time_attention_kernels(torch, kernels, cold_ms):
     log(f"attention timed: bf16, prefill B={b} Hq/Hkv={hq}/{hkv} L={L} d={d};"
         f" decode B={DECODE_B} Lk={DECODE_LK} kv_len {kv_len.tolist()}; "
         f"prefix Lq={SERVE_CHUNK} Lk={SERVE_MAX_LEN} kv_len {PREFIX_LEN}")
-    return timed, prefix
+    return timed, prefix, lens112
 
 
 # -- the attention backward (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq) ----------
@@ -1539,15 +1564,16 @@ def hold_backward_kernels(torch) -> dict:
     """Phase 1 for the three backward kernels, through the autograd
     wrapper, against flash_attention_tiles_bwd_plain on the same o, lse and
     dO: causal tiles at the training shape (B 4, Hq/Hkv 16/8, L 512, d 128)
-    in bf16 and f32, d 96 (32/32) and d 256 (8/1), a ragged L of 777, a
-    windowed band, a bias layout and the dense grid; in bf16 (the wgmma
-    kernels) every layout kind at every head_dim (B 1, Hq 8, L 384, GQA
-    groups 1, 2 and 8 in turn); then the same bits from two backward
-    passes at the training shape in both dtypes, and a ValueError at head
-    dim 112, where the kernels are not built.  Each check prints its
-    largest error beside its bar.  Returns each kernel's largest error in
-    bf16 at the training shape (D against its plain sum, dK and dV for
-    dkdv, dQ for dq)."""
+    in bf16 and f32, d 96 and 112 (32/32) and d 256 (8/1), a ragged L of
+    777, a windowed band, a bias layout and the dense grid (f32 also at
+    d 112); in bf16 (the wgmma kernels) every layout kind at every head_dim
+    (B 1, Hq 8, L 384, GQA groups 1, 2 and 8 in turn); at d 112 a dO that
+    is zero but in columns 96-111 (a lane's fourth column: a delta loop or
+    an accumulator that stops at 3 x 32 columns fails there, in both
+    dtypes); then the same bits from two backward passes at the training
+    shape in both dtypes.  Each check prints its largest error beside its
+    bar.  Returns each kernel's largest error in bf16 at the training
+    shape (D against its plain sum, dK and dV for dkdv, dQ for dq)."""
     from repro_torch.kernels import flash_attention as fa_k
 
     b, hq, hkv, L, d = ATTN_SHAPE
@@ -1555,6 +1581,9 @@ def hold_backward_kernels(torch) -> dict:
              ("causal", torch.float32, b, hq, hkv, L, d),
              ("causal", torch.bfloat16, 1, 32, 32, L, 96),
              ("causal", torch.float32, 1, 32, 32, L, 96),
+             ("causal", torch.bfloat16, 1, 32, 32, L, 112),
+             ("causal", torch.float32, 1, 32, 32, L, 112),
+             ("grid", torch.float32, 1, 32, 32, 300, 112),
              ("causal", torch.bfloat16, 1, 8, 1, L, 256),
              ("causal", torch.float32, 1, 8, 1, L, 256),
              ("causal", torch.bfloat16, 2, hq, hkv, 777, d),
@@ -1566,13 +1595,18 @@ def hold_backward_kernels(torch) -> dict:
     kinds = ("causal", "window", "bias", "grid", "deadrow")
     cases += [(kind, torch.bfloat16, 1, 8, (8, 4, 1)[n % 3], 384, hd)
               for n, (kind, hd) in enumerate(
-                  (kind, hd) for kind in kinds for hd in fa_k.BWD_HEAD_DIMS)]
+                  (kind, hd) for kind in kinds for hd in fa_k.HEAD_DIMS)]
+    # dO zero but in columns 96-111 at d 112
+    cases += [("causal", dt, 1, 8, 4, 256, 112, slice(96, 112))
+              for dt in (torch.bfloat16, torch.float32)]
     errs = {}
     wrappers = [getattr(fa_k, n) for n in BWD_KERNELS]
-    for kind, dtype, bsz, h, hk, n, hd in cases:
+    for kind, dtype, bsz, h, hk, n, hd, *cols in cases:
         q, k, v = attn_inputs(torch, dtype, bsz, h, hk, n, n, hd, n + hd)
         g = torch.Generator(device="cuda").manual_seed(hd)
         do = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+        if cols:
+            do[..., :cols[0].start] = 0
         lay, call = bwd_layout(kind, n)
         with torch.no_grad():
             o, m, l = call(q, k, v, return_state=True)
@@ -1592,6 +1626,11 @@ def hold_backward_kernels(torch) -> dict:
                                  f"o differs from the forward's")
         rtol, atol = bwd_tol(torch, dtype)
         what = f"{kind} {str(dtype)[6:]} B={bsz} Hq/Hkv={h}/{hk} L={n} d={hd}"
+        if cols:
+            what += f" dO in columns {cols[0].start}-{cols[0].stop - 1} only"
+            if not all(float(w.float().abs().max()) > 0 for w in want):
+                raise AssertionError(f"backward {what}: a plain gradient "
+                                     f"is zero")
         found = {}
         for grad, ref, name in zip((t.grad for t in leaves), want,
                                    ("dq", "dk", "dv")):
@@ -1603,7 +1642,8 @@ def hold_backward_kernels(torch) -> dict:
         log(f"backward {what}: max |err| dq {found['dq']:.3g} dk "
             f"{found['dk']:.3g} dv {found['dv']:.3g} D {found['delta']:.3g} "
             f"(bar rtol {rtol:.3g}, atol {atol:g} x max |grad|; D 1e-5)")
-        if (kind, dtype, hd, n) == ("causal", torch.bfloat16, d, L):
+        if (kind, dtype, hd, n) == ("causal", torch.bfloat16, d, L) \
+                and not cols:
             errs = {"fa_bwd_delta": found["delta"],
                     "fa_bwd_dkdv": max(found["dk"], found["dv"]),
                     "fa_bwd_dq": found["dq"]}
@@ -1618,43 +1658,115 @@ def hold_backward_kernels(torch) -> dict:
         if not all(torch.equal(x, y) for x, y in zip(*runs)):
             raise AssertionError(f"backward: two passes differ in {dtype}")
     log("backward: dQ, dK, dV bitwise equal over two passes in bf16 and f32")
-    # the backward kernels are not built at zamba2's head_dim 112 (ROADMAP
-    # queue 1 item 6a): a backward there raises before any launch
-    q, k, v = (t.requires_grad_() for t in attn_inputs(
-        torch, torch.bfloat16, 1, 4, 4, 128, 128, 112, 6))
-    out = fa_k.flash_attention(q, k, v, causal=True)
-    before = [w.launches for w in wrappers]
-    try:
-        out.float().sum().backward()
-    except ValueError as exc:
-        if "item 6a" not in str(exc):
-            raise
-    else:
-        raise AssertionError("backward at head_dim 112 did not raise")
-    if [w.launches for w in wrappers] != before:
-        raise AssertionError("backward at head_dim 112 launched a kernel")
-    log("backward: at head_dim 112 it raises ValueError before any launch")
+    hold_training_bitwise(torch)
     return errs
 
 
-def time_backward_kernels(torch, kernels, cold_ms) -> dict:
-    """Phase 3 for the backward kernels at the training shape, bf16, causal
-    tiles: each wrapper's time (cold L2); the plain version (the whole
-    plain backward for dkdv and dq, the plain sum for delta); the library
-    call, SDPA's backward (causal, GQA expanded, pinned to SDPA_BACKEND,
-    whose name goes beside it, and cuDNN's under ``library_cudnn_ms``;
-    timed only, on dkdv and dq's records); each kernel's bound (its own
-    bytes once at the HBM rate, its products at the bf16 tensor-core rate)
-    and the bound of the whole backward (q, k, v, o, dO, dQ, dK, dV, lse
-    and D once, against 10 * B * Hq * live pairs * d flops).  Returns the
-    call of each."""
+#: The training families' backward checked bitwise from run to run in
+#: phase 1: moe_apply at qwen3-moe-30b-a3b's width on MOE_BITWISE_TOKENS
+#: tokens, ssd_chunked at zamba2-7b's on SSD_BITWISE_SHAPE (B, L).
+MOE_BITWISE_TOKENS = (4, 512)
+SSD_BITWISE_SHAPE = (4, 512)
+
+
+def grads_twice(torch, fn, inputs) -> list:
+    """The gradients of every input of ``fn(*inputs)`` (a tuple of
+    outputs, each given a seeded random output gradient) from two
+    backward passes on the same inputs."""
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        outs = [o for o in fn(*leaves) if o.requires_grad]
+        g = torch.Generator(device="cuda").manual_seed(1)
+        gys = [torch.randn(o.shape, device="cuda", generator=g).to(o.dtype)
+               for o in outs]
+        runs.append(torch.autograd.grad(outs, leaves, gys))
+    torch.cuda.synchronize()
+    return runs
+
+
+def hold_training_bitwise(torch) -> None:
+    """The two backward passes of phase 2g's families that are not kernels
+    of the port but must sum in a fixed order for check (e): moe_apply at
+    qwen3-moe-30b-a3b's width in bf16 (d 2048, 128 experts, top-8, the
+    router f32; its token gather and combine gather have accumulating
+    index_put_ backwards) and ssd_chunked at zamba2-7b's (112 heads of 64
+    sharing one SSM group, state 64; the head repeat's backward sums over
+    112), each twice on the same inputs: every gradient the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe_mod.moe_init(gen, cfg)
+    x = torch.randn(*MOE_BITWISE_TOKENS, cfg.d_model, device="cuda",
+                    generator=gen).to(cfg.pdtype)
+    names = sorted(p)
+
+    def moe(x, *w):
+        y, aux = moe_mod.moe_apply(x, dict(zip(names, w)), cfg)
+        return y, aux["aux_lb"], aux["aux_z"]
+
+    a, b = grads_twice(torch, moe, (x, *(p[n] for n in names)))
+    for ga, gb, what in zip(a, b, ("x", *names)):
+        if not (torch.equal(ga, gb) and float(ga.abs().max()) > 0):
+            raise AssertionError(f"moe_apply backward: d{what} differs "
+                                 f"between two passes, or is zero")
+    moe_what = (f"d {cfg.d_model}, {cfg.num_experts} experts, top-"
+                f"{cfg.experts_per_token}")
+    del p, x, a, b
+    cfg = get_config("zamba2-7b")
+    B, L = SSD_BITWISE_SHAPE
+    H, P, G, N = (cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_groups,
+                  cfg.ssm_state)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    inputs = (randn(B, L, H, P).bfloat16(),
+              torch.nn.functional.softplus(randn(B, L, H) - 2.0),
+              torch.log(torch.rand(H, device="cuda", generator=gen) * 15 + 1),
+              randn(B, L, G, N).bfloat16(), randn(B, L, G, N).bfloat16())
+    a, b = grads_twice(torch, lambda *t: ssm_mod.ssd_chunked(*t, cfg),
+                       inputs)
+    for ga, gb, what in zip(a, b, ("x", "dt", "a_log", "bmat", "cmat")):
+        if not (torch.equal(ga, gb) and bool(torch.isfinite(ga).all())):
+            raise AssertionError(f"ssd_chunked backward: d{what} differs "
+                                 f"between two passes, or is not finite")
+    log(f"training backward bitwise over two passes: moe_apply ({MOE_ARCH}"
+        f", bf16, {moe_what}, {MOE_BITWISE_TOKENS[0]} x "
+        f"{MOE_BITWISE_TOKENS[1]} tokens) and ssd_chunked (zamba2-7b, {H} "
+        f"heads of {P}, {G} SSM group, state {N}, B={B} L={L})")
+
+
+
+#: zamba2-7b's training attention (phase 2g's shared block): B 4, Hq/Hkv
+#: 32/32, L 512, d 112; the backward kernels are timed there too, under
+#: ``d112_*``.
+BWD_D112_SHAPE = (4, 32, 32, 512, 112)
+
+
+def time_backward_kernels(torch, kernels, cold_ms, shape=ATTN_SHAPE,
+                          key: str = "") -> dict:
+    """Phase 3 for the backward kernels at ``shape`` (the training shape by
+    default), bf16, causal tiles, each number under ``key`` + its name:
+    each wrapper's time (cold L2); the plain version (the whole plain
+    backward for dkdv and dq, the plain sum for delta); the library call,
+    SDPA's backward (causal, GQA expanded, pinned to SDPA_BACKEND, whose
+    name goes beside it, and cuDNN's under ``library_cudnn_ms``; timed
+    only, on dkdv and dq's records); each kernel's bound (its own bytes
+    once at the HBM rate, its products at the bf16 tensor-core rate) and
+    the bound of the whole backward (q, k, v, o, dO, dQ, dK, dV, lse and D
+    once, against 10 * B * Hq * live pairs * d flops).  Returns the call
+    of each."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.sparse.maskcompiler import causal_layout
 
-    b, hq, hkv, L, d = ATTN_SHAPE
+    b, hq, hkv, L, d = shape
     q, k, v = attn_inputs(torch, torch.bfloat16, b, hq, hkv, L, L, d, 31)
     do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
     lay = causal_layout(L, L, 128, 128)
@@ -1695,25 +1807,25 @@ def time_backward_kernels(torch, kernels, cold_ms) -> dict:
                         10.0 * b * hq * pairs * d, PEAK_BF16_FLOP_PER_S)
     for name, (kern, plain, nbytes, flops) in calls.items():
         rec = kernels[name]
-        rec["ms"] = cold_ms(kern, 50)
-        rec["plain_ms"] = cold_ms(plain, 3)
+        rec[key + "ms"] = cold_ms(kern, 50)
+        rec[key + "plain_ms"] = cold_ms(plain, 3)
         if name == "fa_bwd_delta":
-            rec["library_ms"] = None
+            rec[key + "library_ms"] = None
         else:
-            rec["library_ms"] = sdpa_bwd[SDPA_BACKEND]
-            rec["library_backend"] = SDPA_BACKEND
-            rec["library_cudnn_ms"] = sdpa_bwd["CUDNN_ATTENTION"]
-        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops,
-                                                    PEAK_BF16_FLOP_PER_S)
-        rec["backward_bound_ms"] = whole
+            rec[key + "library_ms"] = sdpa_bwd[SDPA_BACKEND]
+            rec[key + "library_backend"] = SDPA_BACKEND
+            rec[key + "library_cudnn_ms"] = sdpa_bwd["CUDNN_ATTENTION"]
+        rec[key + "bound_ms"], rec[key + "bound_by"] = bound_ms(
+            nbytes, flops, PEAK_BF16_FLOP_PER_S)
+        rec[key + "backward_bound_ms"] = whole
     rec = kernels["fa_bwd_dq"]
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = fa_k.flash_attention_tiles(*leaves, lay)
-    rec["backward_ms"] = cold_ms(lambda: torch.autograd.grad(
+    rec[key + "backward_ms"] = cold_ms(lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True), 50)
     log(f"attention backward timed: bf16, causal tiles, B={b} Hq/Hkv="
         f"{hq}/{hkv} L={L} d={d}: the three kernels through autograd "
-        f"{rec['backward_ms']:.4f} ms, SDPA backward "
+        f"{rec[key + 'backward_ms']:.4f} ms, SDPA backward "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in sdpa_bwd.items())
         + f", the whole backward's bound {whole:.4f} ms")
     return {name: c[0] for name, c in calls.items()}
@@ -1721,8 +1833,9 @@ def time_backward_kernels(torch, kernels, cold_ms) -> dict:
 
 def time_backward_only(torch) -> int:
     """``--backward-shapes``: build, print the card, ptxas's report of the
-    backward kernels, and their times at the training shape as phase 3
-    takes them (``kernel_ms`` too), as one JSON line.  A copy of this
+    backward kernels, and their times at the training shape and at
+    zamba2's (BWD_D112_SHAPE, under ``d112_*``) as phase 3 takes them
+    (``kernel_ms`` too), as one JSON line.  A copy of this
     script in a checkout of an older commit runs it to time that tree's
     kernels."""
     from repro_torch.kernels import _lib
@@ -1738,11 +1851,13 @@ def time_backward_only(torch) -> int:
                 f"{r['spill_loads']} bytes of spill stores / loads")
     scrub = scrub_buffer(torch)
     kernels = {k: {"name": k} for k in BWD_KERNELS}
-    timed = time_backward_kernels(
-        torch, kernels, lambda fn, iters: time_ms(torch, fn, iters, scrub))
-    for name, fn in timed.items():
-        kernels[name]["kernel_ms"] = kernel_ms(torch, fn, 20,
-                                               BWD_SYMBOLS[name], scrub)
+    for shape, key in ((ATTN_SHAPE, ""), (BWD_D112_SHAPE, "d112_")):
+        timed = time_backward_kernels(
+            torch, kernels, lambda fn, iters: time_ms(torch, fn, iters,
+                                                      scrub), shape, key)
+        for name, fn in timed.items():
+            kernels[name][key + "kernel_ms"] = kernel_ms(
+                torch, fn, 20, BWD_SYMBOLS[name], scrub)
     print(json.dumps(kernels))
     return 0
 
@@ -1777,17 +1892,8 @@ def run_train_path(torch, wrappers) -> dict:
     bitwise equal to an uninterrupted run.  Returns the path's numbers,
     with a profile of one more step under ``profile`` (a closure, which
     keeps the trained state until it is dropped)."""
-    import tempfile
-
-    from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
-    from repro_torch.core import registry
     from repro_torch.launch.train import Trainer
-    from repro_torch.models.lm import LM
-    from repro_torch.runtime import TrainingSupervisor
-    from repro_torch.train import create
-    from repro_torch.train.step import value_and_grad
-    from repro_torch.utils.tree import tree_leaves, tree_paths
 
     cfg = get_config(ARCH)
     data = learnable_data(TRAIN_BATCH, TRAIN_SEQ)
@@ -1833,28 +1939,9 @@ def run_train_path(torch, wrappers) -> dict:
         raise AssertionError(f"(c) losses {losses}")
 
     # (d) f32 at full width, 2 layers: cuda plane against the torch plane
-    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
-                                param_dtype="float32")
-    lm32 = LM(cfg32)
-    p32 = lm32.init(0, device="cuda")
     batch = data.batch(0)
-    before = wrappers["fa_bwd_dq"].launches
-    (_, _), g_cuda = value_and_grad(lm32.loss, p32, batch)
-    if wrappers["fa_bwd_dq"].launches != before + 2:
-        raise AssertionError("(d) the cuda plane's gradients did not run "
-                             "the backward kernels")
-    with registry.use_backend("torch"):
-        (_, _), g_torch = value_and_grad(lm32.loss, p32, batch)
-    out["d_rel"] = {
-        path: float((gc - gt).abs().max() / gt.abs().max().clamp_min(1e-30))
-        for (path, gc), (_, gt) in zip(tree_paths(g_cuda),
-                                       tree_paths(g_torch))}
-    worst = max(out["d_rel"].values())
-    if not worst <= D_REL_TOL:
-        raise AssertionError(f"(d) gradients cuda vs torch plane: "
-                             f"{out['d_rel']}")
-    del p32, g_cuda, g_torch
-    torch.cuda.empty_cache()
+    out["d_rel"], _ = check_gradient_planes(
+        torch, dataclasses.replace(cfg, num_layers=2), batch, wrappers)
 
     # the embedding's backward, twice on the same inputs: the same bits
     emb = torch.randn(cfg.padded_vocab, cfg.d_model, device="cuda",
@@ -1869,17 +1956,91 @@ def run_train_path(torch, wrappers) -> dict:
     del emb, ge
 
     # (e) 2 layers: save at 3, crash at 5, resume in a fresh state, finish
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    lm2 = LM(cfg2)
-    trainer2 = Trainer(cfg2, lr=TRAIN_LR, total_steps=6, seed=0,
-                       device="cuda")
-    step_fn, opt = trainer2.step_fn, trainer2.opt
-    ref = trainer2.state
+    out.update(check_resume(torch, dataclasses.replace(cfg, num_layers=2),
+                            data))
+    return out
+
+
+def attention_sites(lm) -> int:
+    """The attention blocks one forward of ``lm`` runs: one a layer (dense
+    and MoE), one a shared-block site (hybrid), none (SSM)."""
+    if lm.cfg.family == "hybrid":
+        return lm._hybrid_split()[0]
+    return lm.cfg.num_layers if lm.cfg.has_attention else 0
+
+
+def check_gradient_planes(torch, cfg, batch, wrappers) -> tuple[dict, tuple]:
+    """Check (d): ``cfg`` in f32 (full width, cut in depth), every
+    parameter's gradient of LM.loss on ``batch`` on the cuda plane against
+    the torch plane, max |diff| / max |grad| each within D_REL_TOL; the
+    cuda plane's backward launches each backward kernel once per attention
+    site (none for the SSM family); for the MoE family every top-k set of
+    every moe_apply call (the forward's and remat's recompute's) agrees
+    between the planes first.  Returns (the ratio by parameter path, the
+    MoE's (agreeing, all) top-k sets)."""
+    from repro_torch.core import registry
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.utils.tree import tree_paths
+
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype="float32"))
+    p32 = lm32.init(0, device="cuda")
+    sites = attention_sites(lm32)
+    before = {k: wrappers[k].launches for k in BWD_KERNELS}
+    with moe_mod.record_routing() as rc:
+        (_, _), g_cuda = value_and_grad(lm32.loss, p32, batch)
+    moved = {k: wrappers[k].launches - before[k] for k in BWD_KERNELS}
+    if moved != dict.fromkeys(BWD_KERNELS, sites):
+        raise AssertionError(f"(d) {cfg.name}: the cuda plane's backward "
+                             f"launched {moved}, want {sites} each")
+    with registry.use_backend("torch"), moe_mod.record_routing() as rt:
+        (_, _), g_torch = value_and_grad(lm32.loss, p32, batch)
+    sets = (sum(int((torch.sort(a, -1).values == torch.sort(b, -1).values)
+                    .all(-1).sum()) for a, b in zip(rc, rt)),
+            sum(a.shape[0] * a.shape[1] for a in rc))
+    if cfg.family == "moe" and (not rc or len(rc) != len(rt)
+                                or sets[0] != sets[1]):
+        raise AssertionError(f"(d) {cfg.name}: top-k sets agree on "
+                             f"{sets[0]}/{sets[1]} tokens of {len(rc)} / "
+                             f"{len(rt)} calls")
+    rel = {path: float((gc - gt).abs().max()
+                       / gt.abs().max().clamp_min(1e-30))
+           for (path, gc), (_, gt) in zip(tree_paths(g_cuda),
+                                          tree_paths(g_torch))}
+    if not max(rel.values()) <= D_REL_TOL:
+        raise AssertionError(f"(d) {cfg.name}: gradients cuda vs torch "
+                             f"plane: {rel}")
+    del p32, g_cuda, g_torch, rc, rt
+    free_card(torch)
+    return rel, sets
+
+
+def check_resume(torch, cfg, data) -> dict:
+    """Check (e): ``cfg`` (its own dtypes) through TrainingSupervisor,
+    saving every 3 steps with a crash injected at step 5, then resumed in a
+    fresh state from another seed and run to step 6: every parameter
+    bitwise equal to an uninterrupted 6-step run."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.train import Trainer
+    from repro_torch.runtime import TrainingSupervisor
+    from repro_torch.train import create
+    from repro_torch.utils.tree import tree_leaves
+
+    trainer = Trainer(cfg, lr=TRAIN_LR, total_steps=6, seed=0,
+                      device="cuda")
+    lm, step_fn, opt = trainer.lm, trainer.step_fn, trainer.opt
+    ref = trainer.state
+    del trainer
     for i in range(6):
         ref, _ = step_fn(ref, data.batch(i))
+    out = {}
     with tempfile.TemporaryDirectory() as d:
         sup = TrainingSupervisor(Checkpointer(d),
-                                 create(lm2, opt, 0, device="cuda"),
+                                 create(lm, opt, 0, device="cuda"),
                                  save_every=3)
         try:
             sup.run(step_fn, data, 6, fail_at=5)
@@ -1889,19 +2050,21 @@ def run_train_path(torch, wrappers) -> dict:
                 raise
         del sup
         sup2 = TrainingSupervisor(Checkpointer(d),
-                                  create(lm2, opt, 1, device="cuda"),
+                                  create(lm, opt, 1, device="cuda"),
                                   save_every=3)
         out["e_resumed_at"] = int(sup2.state.step)
         final, _ = sup2.run(step_fn, data, 6)
+        del sup2
     pairs = list(zip(tree_leaves(final.params), tree_leaves(ref.params)))
     out["e_equal"] = sum(torch.equal(a, b) for a, b in pairs)
     out["e_leaves"] = len(pairs)
     if out["e_resumed_at"] != 3 or out["e_equal"] != len(pairs):
-        raise AssertionError(f"(e) resumed at {out['e_resumed_at']}, "
-                             f"{out['e_equal']}/{len(pairs)} parameters "
-                             f"bitwise equal to the uninterrupted run")
-    del trainer2, ref, final
-    torch.cuda.empty_cache()
+        raise AssertionError(f"(e) {cfg.name}: resumed at "
+                             f"{out['e_resumed_at']}, {out['e_equal']}/"
+                             f"{len(pairs)} parameters bitwise equal to the "
+                             f"uninterrupted run")
+    del ref, final, pairs
+    free_card(torch)
     return out
 
 
@@ -2296,7 +2459,7 @@ def run_ssm_path(torch, wrappers) -> dict:
                 or int(toks.max()) >= cfg.vocab_size:
             raise AssertionError(f"{arch} Engine.generate: bad tokens "
                                  f"{tuple(toks.shape)}")
-        sites = lm._hybrid_split()[0] if cfg.family == "hybrid" else 0
+        sites = attention_sites(lm)
         want = {"tiles": sites, "tiles_state": 0, "lens_decode": 0,
                 "lens_prefix": 0, "flash_attention": 0}
         if rec["launches"] != want:
@@ -2309,6 +2472,108 @@ def run_ssm_path(torch, wrappers) -> dict:
         del lm, params, leaves, layer0, emb, eng, first, toks
         free_card(torch)
         rec["s_all"] = time.perf_counter() - clock
+        out[arch] = rec
+    return out
+
+
+# -- phase 2g: training the MoE, SSM and hybrid families ---------------------
+
+#: Each config at full width through Trainer.fit (TRAIN_STEPS steps of
+#: TRAIN_BATCH x TRAIN_SEQ tokens of the learnable pattern at TRAIN_LR; the
+#: config's dtypes, bf16 activations; f32 AdamW moments; remat), cut in
+#: depth to what one card holds beside the gradients and moments
+#: (launch.train.train_state_bytes): qwen3-moe-30b-a3b to 3 of its 48
+#: layers (2.49 B parameters; all 30.5 B need 427 GB), mamba2-370m whole
+#: (None), zamba2-7b to 21 of its 81 (3 groups of 6 mamba layers with the
+#: shared block after each, and a tail of 3; 2.07 B parameters; all 6.75 B
+#: need 94.5 GB).
+FAMILY_TRAIN = {"qwen3-moe-30b-a3b": 3, "mamba2-370m": None,
+                "zamba2-7b": 21}
+#: (d) (f32) and (e)'s depths: 2 layers; zamba2 7, a group of 6 and a tail
+#: of 1, so that one shared-block site runs the attention backward at d 112.
+FAMILY_CHECK_LAYERS = {"qwen3-moe-30b-a3b": 2, "mamba2-370m": 2,
+                       "zamba2-7b": 7}
+
+
+def run_train_families(torch, wrappers) -> dict:
+    """Phase 2g: for each config of FAMILY_TRAIN, Trainer.fit at full width
+    with the launch counts reset just before the measured steps and read
+    just after, held to the count reckoned from the code and printed
+    before the run (with remat, per attention site and step: the tiles
+    forward twice, each backward kernel once); the step times, tokens/s,
+    peak memory, and one more step profiled; then (c) losses finite and
+    falling, (d) at FAMILY_CHECK_LAYERS in f32 the gradients cuda vs torch
+    plane (check_gradient_planes), (e) at the same depth in the config's
+    dtypes a crash and resume bitwise (check_resume).  Returns the
+    phase's numbers by config."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    data = learnable_data(TRAIN_BATCH, TRAIN_SEQ)
+    out = {"free_gb": free_card(torch)[0]}
+    for arch, layers in FAMILY_TRAIN.items():
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, num_layers=layers or base.num_layers)
+        rec: dict = {"layers": cfg.num_layers}
+        clock = {"start": time.perf_counter()}
+
+        def lap(name):
+            clock[name] = time.perf_counter() - clock.pop("start")
+            clock["start"] = time.perf_counter()
+
+        trainer = Trainer(cfg, lr=TRAIN_LR, total_steps=TRAIN_STEPS, seed=0,
+                          device="cuda")
+        torch.cuda.synchronize()
+        rec["params"] = sum(x.numel() for x in
+                            tree_leaves(trainer.state.params))
+        sites = attention_sites(trainer.lm)
+        want = {"flash_attention_tiles": 2 * sites * TRAIN_STEPS,
+                **{k: sites * TRAIN_STEPS for k in BWD_KERNELS},
+                "flash_attention": 0, "flash_attention_lens": 0}
+        log(f"phase 2g: {arch} at {cfg.num_layers} of {base.num_layers} "
+            f"layers ({rec['params']} parameters, {sites} attention sites): "
+            f"launches reckoned over {TRAIN_STEPS} steps {want}")
+        lap("init")
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        hist = trainer.fit(data, TRAIN_STEPS, log_every=1)["history"]
+        torch.cuda.synchronize()
+        rec["launches"] = {k: w.launches for k, w in wrappers.items()}
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["history"] = hist
+        times = [h["time_s"] for h in hist]
+        rec["step_s"] = [b - a for a, b in zip([0.0] + times, times)]
+        steady = rec["step_s"][1:]
+        rec["tok_s"] = TRAIN_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
+        if rec["launches"] != want:
+            raise AssertionError(f"{arch} training launches "
+                                 f"{rec['launches']}, reckoned {want}")
+        # (c) every loss finite, the last below the first
+        losses = [h["loss"] for h in hist]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"(c) {arch} losses {losses}")
+        lap("fit")
+
+        def one_step():
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in data.batch(TRAIN_STEPS).items()}
+            trainer.step_fn(trainer.state, batch)
+
+        rec["profile"] = device_breakdown(torch, one_step)
+        del trainer
+        free_card(torch)
+        lap("profile")
+
+        check = dataclasses.replace(base, num_layers=FAMILY_CHECK_LAYERS[arch])
+        rec["d_rel"], rec["d_sets"] = check_gradient_planes(
+            torch, check, data.batch(0), wrappers)
+        lap("(d)")
+        rec.update(check_resume(torch, check, data))
+        lap("(e)")
+        clock.pop("start")
+        rec["seconds"] = clock
         out[arch] = rec
     return out
 
@@ -2739,9 +3004,11 @@ def main() -> int:
         rec = shapes[f"path {name}"]
         kernels[name]["path_device_ms"] = rec["ms"]
         kernels[name]["path_traced_launches"] = rec["launches"]
-    timed_attn, lens_prefix = time_attention_kernels(torch, kernels,
-                                                     cold_ms)
+    timed_attn, lens_prefix, lens112 = time_attention_kernels(
+        torch, kernels, cold_ms)
     timed_bwd = time_backward_kernels(torch, kernels, cold_ms)
+    timed_bwd112 = time_backward_kernels(torch, kernels, cold_ms,
+                                         BWD_D112_SHAPE, "d112_")
 
     routes = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
@@ -2788,6 +3055,11 @@ def main() -> int:
             kernels[name].get("launches_per_call", 1))
     kernels["flash_attention_lens"]["prefix_kernel_ms"] = kernel_ms(
         torch, lens_prefix, 20, "flash_attention_lens_prefix_kernel", scrub)
+    kernels["flash_attention_lens"]["d112_kernel_ms"] = kernel_ms(
+        torch, lens112, 20, "flash_attention_lens_decode_kernel", scrub)
+    for name, fn in timed_bwd112.items():
+        kernels[name]["d112_kernel_ms"] = kernel_ms(torch, fn, 20,
+                                                    BWD_SYMBOLS[name], scrub)
     fixed_prof, cont_prof = serve.pop("profile")()
     log(f"{ARCH} device time by kernel group on {smi[0]}:")
     log(f"  Engine, {PROFILE_NEW} new tokens: {fmt_breakdown(fixed_prof)}")
@@ -2799,7 +3071,8 @@ def main() -> int:
     # -- phase 2e: the MoE serve path, counted ------------------------------
     # after phase 3, whose profiles keep phase 2c's and 2d's models: the
     # card must hold qwen3-moe-30b-a3b's 61 GB of weights alone
-    del timed, timed_attn, timed_bwd, timed_sparse, lens_prefix, scrub
+    del timed, timed_attn, timed_bwd, timed_bwd112, timed_sparse, scrub
+    del lens_prefix, lens112
     del sparse_in, A, B, Z, XS, BCG, a, b, ab, ab16, ar, br, zd, tangled
     del re0, im0, vals, x, lib_as, lib_cg, xcg, tri, xtri, y_cg, xsm
     t_path = time.perf_counter()
@@ -2885,6 +3158,38 @@ def main() -> int:
             f"{r['checks_s']:.1f} s, the config's run {r['s_all']:.1f} s")
         log(f"  device time by kernel group, Engine, {PROFILE_NEW} new "
             f"tokens: {fmt_breakdown(r['profile'])}")
+
+    # -- phase 2g: training the MoE, SSM and hybrid families, counted -------
+    # after phase 2f, whose models run_ssm_path has dropped
+    t_path = time.perf_counter()
+    fam = run_train_families(torch, train_wrappers)
+    log(f"phase 2g: training {', '.join(FAMILY_TRAIN)} and their checks in "
+        f"{time.perf_counter() - t_path:.2f} s; free on the card before it "
+        f"{fam['free_gb']:.2f} GB")
+    for arch in FAMILY_TRAIN:
+        r = fam[arch]
+        for k in ("flash_attention_tiles", *BWD_KERNELS):
+            launches[k] += r["launches"][k]
+        log(f"{arch} training at {r['layers']} layers ({r['params']} "
+            f"parameters; peak memory allocated {r['peak_gb']:.2f} GB) on "
+            f"{smi[0]}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+            f"tokens, lr {TRAIN_LR}; kernel launches {r['launches']}")
+        for h, dt in zip(r["history"], r["step_s"]):
+            log(f"  step {h['step']}: loss {h['loss']:.4f}, grad_norm "
+                f"{h['grad_norm']:.4f}, {dt * 1e3:.1f} ms")
+        log(f"  {r['tok_s']:.1f} tokens/s over steps 2-{TRAIN_STEPS}; one "
+            f"more step: {fmt_breakdown(r['profile'])}")
+        log(f"  (d) f32, {FAMILY_CHECK_LAYERS[arch]} layers, gradients cuda "
+            f"vs torch plane, max |diff| / max |grad| (bar {D_REL_TOL}): "
+            f"worst {max(r['d_rel'].values()):.3g}"
+            + (f"; top-k sets agree on {r['d_sets'][0]}/{r['d_sets'][1]} "
+               f"(token, call) pairs" if r["d_sets"][1] else ""))
+        log(f"  (e) {FAMILY_CHECK_LAYERS[arch]} layers, save at 3, crash at "
+            f"5: resumed at step {r['e_resumed_at']}, {r['e_equal']}/"
+            f"{r['e_leaves']} parameters bitwise equal to the uninterrupted "
+            f"run")
+        log(f"  wall time by step: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in r["seconds"].items()))
     KEYS = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernel_ms")
     out = []

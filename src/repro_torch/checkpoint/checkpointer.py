@@ -13,8 +13,10 @@ Leaves come in the JAX package's order under its paths
 (``jax.tree_util.keystr``: ``.params['layers']['attn']['wq']``), so a
 checkpoint moves between the two packages in both directions.  The port
 keeps a list of per-layer dicts where the JAX package stacks every layer
-leaf along a leading ``num_layers`` dim: ``save`` stacks them and
-``restore`` takes them apart again.  A bf16 leaf is written as the JAX
+leaf along a leading ``num_layers`` dim, and a list of such lists (the
+hybrid's ``groups``) where it stacks along two, (ngroups, attn_every):
+``save`` stacks them and ``restore`` takes them apart again.  A bf16
+leaf is written as the JAX
 package writes it: raw 2-byte values under the ``.npy`` descr ``<V2`` with
 ``"dtype": "bfloat16"`` in the manifest; ``restore`` reads it by the
 manifest's dtype.  ``restore`` casts each leaf to the template's dtype and
@@ -51,18 +53,23 @@ _BF16_DESCR = "<V2"
 
 
 def _is_layer_list(x) -> bool:
-    return isinstance(x, list) and bool(x) and all(isinstance(e, dict)
-                                                   for e in x)
+    """A non-empty list of per-layer dicts, or of such lists (a stack of
+    stacks, as the hybrid's ``groups``)."""
+    return isinstance(x, list) and bool(x) and (
+        all(isinstance(e, dict) for e in x)
+        or all(_is_layer_list(e) for e in x))
 
 
 def _paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
     """``[(path, leaf)]`` in the JAX package's leaf order, where a list of
     per-layer dicts counts as one dict of stacked leaves: its entries are
-    ``(path, [layer 0's leaf, layer 1's, ...])``."""
+    ``(path, [layer 0's leaf, layer 1's, ...])``, and a list of such lists
+    ``(path, [[group 0 layer 0's leaf, ...], ...])``."""
     if tree is None:
         return []
     if _is_layer_list(tree):
-        layers = [tree_paths(x) for x in tree]
+        layers = [_paths(x) if isinstance(x, list) else tree_paths(x)
+                  for x in tree]
         return [(prefix + p, [lay[j][1] for lay in layers])
                 for j, (p, _) in enumerate(layers[0])]
     if isinstance(tree, dict):
@@ -77,12 +84,17 @@ def _paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def _stack(leaf) -> torch.Tensor:
+    """A leaf on the host; a (nested) list of layers' leaves stacked, one
+    leading dim a level."""
+    if isinstance(leaf, list):
+        return torch.stack([_stack(x) for x in leaf])
+    return torch.as_tensor(leaf).detach().cpu()
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(array, manifest dtype) of a leaf; a list of layers is stacked."""
-    if isinstance(leaf, list):
-        t = torch.stack([x.detach().cpu() for x in leaf])
-    else:
-        t = torch.as_tensor(leaf).detach().cpu()
+    t = _stack(leaf)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy(), "bfloat16"
     arr = t.numpy()
@@ -108,14 +120,14 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
-def _rebuild(tree, prefix: str, get, layer: Optional[int] = None):
-    """``tree``'s structure with each leaf replaced by ``get(path)`` (row
-    ``layer`` of it inside a list of layers), in the leaf's dtype and on
-    its device."""
+def _rebuild(tree, prefix: str, get, layer: Optional[tuple] = None):
+    """``tree``'s structure with each leaf replaced by ``get(path)`` (entry
+    ``layer`` of it, an index a stacked dim, inside a list of layers), in
+    the leaf's dtype and on its device."""
     if tree is None:
         return None
     if layer is None and _is_layer_list(tree):
-        return [_rebuild(x, prefix, get, i) for i, x in enumerate(tree)]
+        return _rebuild_layers(tree, prefix, get, ())
     if isinstance(tree, dict):
         return {k: _rebuild(v, f"{prefix}[{k!r}]", get, layer)
                 for k, v in tree.items()}
@@ -129,6 +141,14 @@ def _rebuild(tree, prefix: str, get, layer: Optional[int] = None):
     if layer is not None:
         t = t[layer]
     return t.to(device=tree.device, dtype=tree.dtype)
+
+
+def _rebuild_layers(tree: list, prefix: str, get, index: tuple) -> list:
+    """A layer list (or a list of them) rebuilt from the stacked leaves:
+    entry i of the list at ``index`` takes index + (i,)."""
+    return [_rebuild_layers(x, prefix, get, index + (i,))
+            if isinstance(x, list) else _rebuild(x, prefix, get, index + (i,))
+            for i, x in enumerate(tree)]
 
 
 def _mesh_scope(what: str) -> NotImplementedError:

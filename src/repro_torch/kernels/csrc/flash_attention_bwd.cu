@@ -48,7 +48,9 @@
 //                 dS rounded to bf16, round to nearest even), B row-major
 //                 [reduction x d] in shared memory read as the transposed
 //                 operand, m64n{d}k16: dV += P^T dO, dK += dS^T q (dK/dV),
-//                 dQ += dS K (dQ).
+//                 dQ += dS K (dQ).  At d = 112 a row is 14 column blocks
+//                 of 8, so the score products take 7 k16 steps, the value
+//                 products run m64n112k16 and the TMA box is (8, 64, 14).
 // A warpgroup owns 64 keys (dK/dV) or 64 rows (dQ): wgmma's M.  The CTA's
 // own operand (K and V, or q and dO) is staged once by cp.async; the walked
 // sub-tiles, 64 rows (dK/dV: q and dO, with lse and D) or 64 keys (dQ: K
@@ -81,7 +83,9 @@
 // hit different banks), q and dO row-major, all f32; about 140 KB at
 // d = 256.  In the score phase lane l owns key l of the sub-tile and a
 // warp RPW rows; in the accumulate phase lane l owns columns l, l + 32,
-// ... and a warp KS / WARPS keys (dK/dV) or RPW rows (dQ).
+// ... (ceil(D / 32) of them: at d = 112 lanes 0-15 own a fourth, as in the
+// forward's fa::State) and a warp KS / WARPS keys (dK/dV) or RPW rows (dQ).
+// The delta kernel gives a lane the same columns.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <limits.h>
@@ -271,7 +275,8 @@ __global__ void __launch_bounds__(THREADS)
   if (row >= rows) return;
   float acc = 0.f;
 #pragma unroll
-  for (int u = 0; u < D / 32; ++u) {
+  for (int u = 0; u < fa::State<D>::CPL; ++u) {
+    if (!fa::State<D>::owns(lane, u)) continue;
     const size_t at = (size_t)row * D + lane + 32 * u;
     acc = fmaf(to_f(dout[at]), to_f(o[at]), acc);
   }
@@ -284,7 +289,7 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(THREADS)
     fa_bwd_dkdv_kernel(BwdArgs<T> a) {
-  constexpr int CPL = D / 32;
+  constexpr int CPL = fa::State<D>::CPL;  // ceil(D / 32) columns a lane
   extern __shared__ __align__(16) float sm[];
   float* kt = sm;
   float* vt = kt + D * TSTRIDE;
@@ -351,6 +356,7 @@ __global__ void __launch_bounds__(THREADS)
             const float dsv = dss[r * KS + warp * KPW + kk];
 #pragma unroll
             for (int u = 0; u < CPL; ++u) {
+              if (!fa::State<D>::owns(lane, u)) continue;
               const int col = lane + 32 * u;
               dv_acc[kk][u] = fmaf(pv, dos[r * D + col], dv_acc[kk][u]);
               dk_acc[kk][u] = fmaf(dsv, qs[r * D + col], dk_acc[kk][u]);
@@ -367,6 +373,7 @@ __global__ void __launch_bounds__(THREADS)
     const size_t at = (bhk * a.lk + key) * D;
 #pragma unroll
     for (int u = 0; u < CPL; ++u) {
+      if (!fa::State<D>::owns(lane, u)) continue;
       a.dk[at + lane + 32 * u] =
           from_f<T>(__fmul_rn(dk_acc[kk][u], a.scale));
       a.dv[at + lane + 32 * u] = from_f<T>(dv_acc[kk][u]);
@@ -376,7 +383,7 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(THREADS) fa_bwd_dq_kernel(BwdArgs<T> a) {
-  constexpr int CPL = D / 32;
+  constexpr int CPL = fa::State<D>::CPL;  // ceil(D / 32) columns a lane
   extern __shared__ __align__(16) float sm[];
   float* kt = sm;
   float* vt = kt + D * TSTRIDE;
@@ -439,7 +446,10 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq_kernel(BwdArgs<T> a) {
       for (int j = 0; j < nkeys; ++j) {
         float kv[CPL];
 #pragma unroll
-        for (int u = 0; u < CPL; ++u) kv[u] = kt[(lane + 32 * u) * TSTRIDE + j];
+        for (int u = 0; u < CPL; ++u)
+          kv[u] = fa::State<D>::owns(lane, u)
+                      ? kt[(lane + 32 * u) * TSTRIDE + j]
+                      : 0.f;
 #pragma unroll
         for (int r = 0; r < RPW; ++r) {
           const float dsv = dss[(warp * RPW + r) * KS + j];
@@ -457,7 +467,8 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq_kernel(BwdArgs<T> a) {
     const size_t at = (bh * a.lq + row) * D;
 #pragma unroll
     for (int u = 0; u < CPL; ++u)
-      a.dq[at + lane + 32 * u] = from_f<T>(__fmul_rn(dq_acc[r][u], a.scale));
+      if (fa::State<D>::owns(lane, u))
+        a.dq[at + lane + 32 * u] = from_f<T>(__fmul_rn(dq_acc[r][u], a.scale));
   }
 }
 
@@ -1257,6 +1268,8 @@ int launch_dims(const BwdArgs<T>& a, int batch, int d, bool band, int which,
       return launch_band<T, 64>(a, batch, band, which, s);
     case 96:
       return launch_band<T, 96>(a, batch, band, which, s);
+    case 112:
+      return launch_band<T, 112>(a, batch, band, which, s);
     case 128:
       return launch_band<T, 128>(a, batch, band, which, s);
     case 256:
@@ -1276,6 +1289,8 @@ int launch_delta_dims(const void* o, const void* dout, void* delta,
       return launch_delta<T, 64>(o, dout, delta, rows, s);
     case 96:
       return launch_delta<T, 96>(o, dout, delta, rows, s);
+    case 112:
+      return launch_delta<T, 112>(o, dout, delta, rows, s);
     case 128:
       return launch_delta<T, 128>(o, dout, delta, rows, s);
     case 256:
@@ -1350,7 +1365,7 @@ int grad_launch(int which, const void* rowp, const void* mid,
 }  // namespace
 
 // o, dout (rows, d) contiguous in dtype (0 = f32, 1 = bf16); delta (rows,)
-// f32.  d in {32, 64, 96, 128, 256}.
+// f32.  d in {32, 64, 96, 112, 128, 256}.
 extern "C" int fa_bwd_delta_launch(const void* o, const void* dout,
                                    void* delta, long long rows, int d,
                                    int dtype, void* stream) {

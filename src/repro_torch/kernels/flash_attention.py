@@ -71,8 +71,7 @@ on CUDA tensors (:func:`fa_bwd_delta`, :func:`fa_bwd_dkdv`,
 :func:`fa_bwd_dq`, each counting its launches), the plain
 :func:`flash_attention_tiles_bwd_plain` on host tensors.  A row with no
 live key gets no gradient, as its output is 0.  The backward kernels take
-the head_dims of :data:`BWD_HEAD_DIMS`, which lacks 112: on the card a
-backward at 112 raises ValueError (ROADMAP queue 1 item 6a).
+the head_dims of :data:`HEAD_DIMS`, as the forward ones do.
 ``flash_attention_lens`` (serving) has no backward and raises when asked
 for one.
 """
@@ -95,16 +94,11 @@ __all__ = ["NEG_INF", "merge_states", "flash_attention",
            "fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq", "softmax_lse",
            "column_walk", "CardLayout",
            "LensPartition", "lens_partition", "lens_blocks", "HEAD_DIMS",
-           "BWD_HEAD_DIMS",
            "MAX_BLOCK_K"]
 
-#: head_dim values the forward kernels (dense grid, tiles, lens) are
-#: compiled for.
+#: head_dim values the kernels (dense grid, tiles, lens and the three
+#: backward kernels) are compiled for.
 HEAD_DIMS = (32, 64, 96, 112, 128, 256)
-#: head_dim values the backward kernels are compiled for: not 112 (zamba2's
-#: shared attention block), which serving needs and training does not yet
-#: (ROADMAP queue 1 item 6a).
-BWD_HEAD_DIMS = (32, 64, 96, 128, 256)
 #: The largest K tile the kernels take.
 MAX_BLOCK_K = 128
 #: The lens decode kernel's largest row block; a bf16 group with more rows
@@ -738,13 +732,6 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _check_bwd_head_dim(what: str, d: int) -> None:
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {d} not in {BWD_HEAD_DIMS}: the "
-                         f"backward kernels are not built at this width "
-                         f"(ROADMAP queue 1 item 6a)")
-
-
 def fa_bwd_delta(o, do):
     """``D = rowsum(dO * o)`` in f32, (B, Hq, Lq): one launch of
     ``fa_bwd_delta_kernel`` on CUDA tensors, the plain sum on host ones."""
@@ -754,7 +741,9 @@ def fa_bwd_delta(o, do):
     _lib.require_cuda("fa_bwd_delta", o, do)
     _lib.require_dtypes("fa_bwd_delta", (o, do), (),
                         allowed=tuple(_DTYPE_CODE))
-    _check_bwd_head_dim("fa_bwd_delta", o.shape[-1])
+    if o.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"fa_bwd_delta: head_dim {o.shape[-1]} not in "
+                         f"{HEAD_DIMS}")
     if o.shape != do.shape:
         raise ValueError(f"fa_bwd_delta: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}")
@@ -778,7 +767,6 @@ def _grad_args(what, q, k, v, do, lse, delta, layout):
     one is copied into a fresh tensor, which the caching allocator
     aligns), the layout on the card and the launch's shape arguments."""
     _check(what, q, k, v)
-    _check_bwd_head_dim(what, q.shape[3])
     _lib.require_cuda(what, q, do, lse, delta)
     if do.shape != q.shape or do.dtype != q.dtype \
             or lse.shape != q.shape[:3] or delta.shape != q.shape[:3] \
@@ -847,14 +835,13 @@ def flash_attention_tiles_bwd(q, k, v, o, lse, do, layout, *,
     On host tensors the plain version; on CUDA tensors three launches
     (:func:`fa_bwd_delta`, :func:`fa_bwd_dkdv`, :func:`fa_bwd_dq`), or
     none for an empty layout, whose gradients are 0.  On the card the
-    head_dim must be in :data:`BWD_HEAD_DIMS` (112 raises ValueError)."""
+    head_dim must be in :data:`HEAD_DIMS`."""
     scale = scale if scale is not None else q.shape[3] ** -0.5
     if layout.ntiles == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     if _lib.on_host(q, k, v, o, lse, do):
         return flash_attention_tiles_bwd_plain(q, k, v, o, lse, do, layout,
                                                scale=scale)
-    _check_bwd_head_dim("flash_attention_tiles_bwd", q.shape[3])
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     delta = fa_bwd_delta(o, do)
     dk, dv = fa_bwd_dkdv(q, k, v, do, lse, delta, layout, scale)

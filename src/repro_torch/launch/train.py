@@ -5,10 +5,15 @@
         --scale 1.0 --steps 8 --batch 4 --seq 512
 
 It runs on the card unless ``--device cpu`` is given (then with a small
-``--scale``, e.g. 0.05).  The mesh (``Trainer(mesh=...)``, ZeRO-1 moment
-sharding) is mesh scope (ROADMAP queue 1 item 10): ``mesh`` raises and
-the JAX Trainer's ``zero1`` is not taken; the clock is
-``time.perf_counter`` until ``obs`` is ported (queue 1 item 8).
+``--scale``, e.g. 0.05).  Every family the port serves trains: dense,
+MoE (``--arch qwen3-moe-30b-a3b``), SSM (``--arch mamba2-370m``) and
+hybrid (``--arch zamba2-7b``).  On the card a config whose parameters,
+gradients and AdamW moments do not fit the card's memory raises before
+anything is allocated (qwen3-moe-30b-a3b and zamba2-7b at scale 1), and
+says how many of its layers would.  The mesh (``Trainer(mesh=...)``,
+ZeRO-1 moment sharding) is mesh scope (ROADMAP queue 1 item 10):
+``mesh`` raises and the JAX Trainer's ``zero1`` is not taken; the clock
+is ``time.perf_counter`` until ``obs`` is ported (queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -31,9 +36,22 @@ from repro_torch.optim.schedules import cosine, wsd
 from repro_torch.runtime import HeartbeatStore, Monitor
 from repro_torch.train import create, make_train_step
 
-__all__ = ["reduce_config", "Trainer", "main"]
+__all__ = ["reduce_config", "Trainer", "main", "train_state_bytes"]
 
 clock = time.perf_counter
+
+#: Bytes a parameter needs beyond its own while it trains: its gradient
+#: (at most f32, the dtype microbatches sum it in) and the two f32 AdamW
+#: moments.
+GRAD_AND_MOMENT_BYTES = 4 + 2 * 4
+
+
+def train_state_bytes(cfg: ModelConfig) -> int:
+    """The least memory that training ``cfg`` holds: every parameter in
+    ``cfg.pdtype``, its gradient and its two moments (activations, the
+    optimizer's transient copies and the allocator's slack come on top)."""
+    size = torch.empty((), dtype=cfg.pdtype).element_size()
+    return cfg.param_count() * (size + GRAD_AND_MOMENT_BYTES)
 
 
 def reduce_config(cfg: ModelConfig, scale: float, *,
@@ -162,6 +180,18 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.scale != 1.0:
         cfg = reduce_config(cfg, args.scale, seq_len=args.seq)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        have = torch.cuda.get_device_properties(dev).total_memory
+        need = train_state_bytes(cfg)
+        if need > have:
+            fit = max((n for n in range(1, cfg.num_layers) if
+                       train_state_bytes(dataclasses.replace(
+                           cfg, num_layers=n)) <= have), default=0)
+            ap.error(f"{cfg.name}: {need / 1e9:.1f} GB of parameters, "
+                     f"gradients and AdamW moments do not fit the card's "
+                     f"{have / 1e9:.1f} GB (at full width {fit} of its "
+                     f"{cfg.num_layers} layers would); pass --scale below 1")
     print(f"training {cfg.name}: {cfg.param_count()/1e6:.1f}M params")
 
     if args.corpus:
@@ -175,7 +205,7 @@ def main(argv=None) -> int:
 
     trainer = Trainer(cfg, ckpt_dir=args.ckpt_dir,
                       microbatches=args.microbatches, lr=args.lr,
-                      total_steps=args.steps, device=args.device)
+                      total_steps=args.steps, device=dev)
     out = trainer.fit(data, args.steps)
     print(f"final loss: {out['final_loss']}")
     return 0

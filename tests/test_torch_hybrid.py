@@ -6,7 +6,8 @@ tests/test_torch_models.py): forward, loss, prefill and decode with groups
 and a tail and with a tail only; carry_params keeping A_log, D and dt_bias
 f32 in a bf16 config; the plain flash-attention versions at zamba2's
 head_dim 112 against the JAX kernels in interpret mode and the JAX
-entry point; the ContinuousEngine's refusal; configs and reduce_config.
+entry point, and the backward there; the ContinuousEngine's refusal;
+configs and reduce_config.
 """
 import dataclasses
 
@@ -207,7 +208,20 @@ def test_plain_attention_matches_jax_at_head_dim_112():
     with jops.backend("xla"):
         want = jops.flash_attention(jq, jk, jv, causal=True)
     _close(ops.flash_attention(tq, tk, tv, causal=True), want)
-    assert 112 in fa.HEAD_DIMS and 112 not in fa.BWD_HEAD_DIMS
+    # the backward takes every width of HEAD_DIMS, 112 among them: the
+    # autograd wrapper's gradients (the plain backward on host tensors)
+    # against jax.vjp of the JAX entry point
+    assert 112 in fa.HEAD_DIMS and not hasattr(fa, "BWD_HEAD_DIMS")
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    with jops.backend("xla"):
+        _, vjp = jax.vjp(lambda a, b, c: jops.flash_attention(
+            a, b, c, causal=True), jq, jk, jv)
+        want = vjp(jnp.asarray(do))
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    fa.flash_attention(*leaves, causal=True, block_q=16,
+                       block_k=16).backward(torch.as_tensor(do))
+    for g, w in zip(leaves, want):
+        _close(g.grad, w)
 
 
 def test_configs_param_counts_and_reduce_config_match_jax():

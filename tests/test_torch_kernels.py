@@ -2028,14 +2028,20 @@ def _close_grad(got, want, dtype, what):
                                msg=lambda m: f"{what}: {m}")
 
 
-def _bwd_run(kind, dtype, b, hq, hkv, L, d, card, bq=128, bk=128):
+def _bwd_run(kind, dtype, b, hq, hkv, L, d, card, bq=128, bk=128,
+             do_cols=None):
     """(got, want): the wrapper's gradients through autograd on the card,
-    and the plain backward's on the same o, lse and dO."""
+    and the plain backward's on the same o, lse and dO (zero outside the
+    columns ``do_cols`` where given)."""
     q, k, v = _attn_inputs(card, dtype, b=b, hq=hq, hkv=hkv, lq=L, lk=L, d=d,
                            seed=L + d)
     lay = _bwd_layout(kind, L, bq, bk)
     g = torch.Generator(device=card).manual_seed(d)
     do = torch.randn(q.shape, device=card, generator=g).to(dtype)
+    if do_cols is not None:
+        keep = torch.zeros(d, dtype=torch.bool, device=card)
+        keep[do_cols] = True
+        do = torch.where(keep, do, torch.zeros_like(do))
     with torch.no_grad():
         if kind.startswith("grid"):
             o, m, l = fa_k.flash_attention(
@@ -2112,28 +2118,34 @@ SDPA_BACKEND = "FLASH_ATTENTION"
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_backward_at_head_dim_112_raises(dtype, card):
-    """The backward kernels are not built at 112 (training the hybrid
-    family is ROADMAP queue 1 item 6a): the forward at 112 runs under
-    autograd, its backward raises ValueError before any launch, and so do
-    the three kernel wrappers."""
-    q, k, v = (t.requires_grad_() for t in _attn_inputs(
-        card, dtype, hq=4, hkv=4, lq=64, lk=64, d=112))
-    o = fa_k.flash_attention(q, k, v, causal=True)
-    before = [getattr(fa_k, n).launches for n in
-              ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")]
-    with pytest.raises(ValueError, match="item 6a"):
-        o.float().sum().backward()
-    assert [getattr(fa_k, n).launches for n in
-            ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")] == before
-    qd, kd, vd, od = (t.detach() for t in (q, k, v, o))
-    lse = torch.zeros(q.shape[:3], device=card)
-    layout = causal_layout(64, 64, 64, 64)
-    with pytest.raises(ValueError, match="item 6a"):
-        fa_k.fa_bwd_delta(od, od)
-    for fn in (fa_k.fa_bwd_dkdv, fa_k.fa_bwd_dq):
-        with pytest.raises(ValueError, match="item 6a"):
-            fn(qd, kd, vd, od, lse, lse, layout, 112 ** -0.5)
+@pytest.mark.parametrize("kind,hq,hkv,L", [
+    ("causal", 32, 32, 512), ("causal", 4, 2, 300), ("window", 4, 4, 384),
+    ("globals", 4, 2, 256), ("grid", 4, 4, 200)])
+def test_attention_backward_at_head_dim_112(kind, hq, hkv, L, dtype, card):
+    """zamba2's head_dim 112, where 32 does not divide d (the f32 kernels'
+    lanes 0-15 own a fourth column, the bf16 ones run m64n112k16): the
+    three launches against the plain backward, at zamba2's 32/32 heads and
+    at a ragged length, a window, global tokens and the dense grid."""
+    got, want = _bwd_run(kind, dtype, 1, hq, hkv, L, 112, card)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g).all(), what
+        _close_grad(g, w, dtype, f"{kind} {dtype} d=112 {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_at_head_dim_112_last_columns(dtype, card):
+    """dO zero except in columns 96-111, the columns of a lane's fourth:
+    a delta loop that stopped at 3 x 32 columns would give D = 0, and
+    accumulators that stopped there would leave columns 96-111 of dQ, dK
+    and dV unwritten; dV would be zero everywhere.  A random dO could hide
+    the first inside the tolerance."""
+    got, want = _bwd_run("causal", dtype, 1, 4, 2, 256, 112, card,
+                         do_cols=slice(96, 112))
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert float(w.float().abs().max()) > 0, what
+        _close_grad(g, w, dtype, f"d=112 columns 96-111 {dtype} {what}")
+    assert not got[2][..., :96].any()  # dV = P^T dO has dO's columns
 
 
 @pytest.mark.cuda
@@ -2294,3 +2306,79 @@ def test_lens_and_tiles_kernels_at_the_moe_heads(dtype, hq, hkv, card):
         for g_, w, what in zip(got, want, "oml"):
             _close(g_, w, ATTN_TOL[dtype] * (L if what == "l" else 1),
                    f"tiles {what} {b}x{L}")
+
+
+# ---------------------------------------------------------------------------
+# the training families' backward on the card, bitwise from run to run
+# (a resume bitwise equal to an uninterrupted run rests on it)
+# ---------------------------------------------------------------------------
+
+def _grads_twice(card, fn, inputs):
+    """The gradients of every input of ``fn(*inputs)`` (a tuple of outputs,
+    each given a seeded random output gradient) from two backward passes on
+    the same inputs."""
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        outs = [o for o in fn(*leaves) if o.requires_grad]
+        g = torch.Generator(device=card).manual_seed(1)
+        gys = [torch.randn(o.shape, device=card, generator=g).to(o.dtype)
+               for o in outs]
+        runs.append(torch.autograd.grad(outs, leaves, gys))
+    torch.cuda.synchronize()
+    return runs
+
+
+@pytest.mark.cuda
+def test_moe_backward_is_bitwise_run_to_run(card):
+    """moe_apply at qwen3-moe-30b-a3b's width in bf16 (d 2048, 128 experts,
+    top-8, moe_d_ff 768, the router f32) on 4 x 512 tokens: two backward
+    passes give the same bits in every gradient.  The token gather
+    ``xt[:, tok]`` has an accumulating index_put_ for its backward, and
+    the combine's gather another."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    gen = torch.Generator(device=card).manual_seed(0)
+    p = moe_mod.moe_init(gen, cfg)
+    x = torch.randn(4, 512, cfg.d_model, device=card, generator=gen).to(
+        cfg.pdtype)
+    names = sorted(p)
+
+    def fn(x, *w):
+        y, aux = moe_mod.moe_apply(x, dict(zip(names, w)), cfg)
+        return y, aux["aux_lb"], aux["aux_z"]
+
+    a, b = _grads_twice(card, fn, (x, *(p[n] for n in names)))
+    for ga, gb, what in zip(a, b, ("x", *names)):
+        assert ga.abs().max() > 0, what
+        assert torch.equal(ga, gb), what
+
+
+@pytest.mark.cuda
+def test_ssd_backward_is_bitwise_run_to_run(card):
+    """ssd_chunked at zamba2-7b's widths (112 heads of 64, one SSM group,
+    state 64) on 4 x 512 tokens, x, B and C in bf16 as mamba2 gives them:
+    two backward passes give the same bits.  One SSM group shared by 112
+    heads makes the head repeat's backward a sum over 112."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as ssm_mod
+
+    cfg = get_config("zamba2-7b")
+    B, L, H, P = 4, 512, cfg.ssm_heads, cfg.ssm_headdim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=card, generator=gen)
+
+    x = randn(B, L, H, P).bfloat16()
+    dt = torch.nn.functional.softplus(randn(B, L, H) - 2.0)
+    a_log = torch.log(torch.rand(H, device=card, generator=gen) * 15 + 1)
+    bmat, cmat = randn(B, L, G, N).bfloat16(), randn(B, L, G, N).bfloat16()
+    a, b = _grads_twice(card, lambda *t: ssm_mod.ssd_chunked(*t, cfg),
+                        (x, dt, a_log, bmat, cmat))
+    for ga, gb, what in zip(a, b, ("x", "dt", "a_log", "bmat", "cmat")):
+        assert bool(torch.isfinite(ga).all()), what
+        assert torch.equal(ga, gb), what
