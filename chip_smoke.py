@@ -27,7 +27,10 @@
    (32/4 and 56/8, d 128) at the serve paths' shapes.  The three forward
    attention kernels at every head_dim a config needs: 128, phi3-mini's 96,
    zamba2's 112 (32/32) and gemma's 256, each with the tiles == dense
-   causal bitwise check in f32 and bf16.
+   causal bitwise check in f32 and bf16.  The tiles forward and the three
+   backward kernels at the frontend configs' attention, in f32 and bf16:
+   musicgen-medium's (24/24, GQA group 1, d 64, 768 positions) and
+   qwen2-vl-72b's heads (64/8, d 128) over 1536 positions.
 3. Run the paths of the port, each with data made from fixed seeds and
    validated as benchmarks/*.py does, and each with the launch counts set
    to 0 just before it and read just after; every kernel of a path must
@@ -106,6 +109,30 @@
       mamba2).  Checks (c), (d) and (e) as in d, at 2 layers (zamba2: 7, a
       group of 6 and a tail of 1, so that the f32 backward runs at d 112);
       for the MoE (d) first holds every top-k set equal on both planes.
+   h. The VLM and audio families (after g, once its models are dropped),
+      each behind its stub frontend (seeded standard-normal embeddings
+      for the first frontend_len positions): qwen2-vl-72b (M-RoPE over a
+      32 x 32 patch raster, 64/8 heads of 128) at full width, cut to the
+      depth that the card's free memory holds beside the embeddings, two
+      K/V caches and the largest transient of its checks (34-38 of 80
+      layers on an H100 80GB HBM3, by what the earlier phases leave free;
+      the depth and its terms are printed), and musicgen-medium
+      (48 layers, 24/24 heads of 64) whole, each through the Engine on 4
+      requests of the frontend (1024 patches, 256 frames) + 512 tokens,
+      32 new, greedy: tok/s, time to first token, decode step against its
+      weight-read bound, peak memory, a profile, tiles launches equal to
+      the layers (one prefill).  Checks: (a) bf16 prefill logits cuda vs
+      torch plane within 8 bf16 ulps; (a-f32) the same in f32 at 2
+      layers within 1e-3 of the largest; (g-frontend) in f32 at 2 layers
+      the frontend + 256 tokens' prefill and 256 teacher-forced decode
+      steps against the frontend + 512 tokens' prefill, last logits within
+      1e-3 (the M-RoPE decode offset).  Then musicgen-medium trains whole
+      as in d (8 steps of 4 x (256 frames + 512 tokens)) with (c), (d) and
+      (e), launches reckoned as there; qwen2-vl-72b's training path gets
+      (d) alone, in f32 at 2 layers on 2 x (1024 + 512) positions (one of
+      its layers with the embeddings is 3.37 B parameters, 87.6 GB at the
+      26 bytes a parameter a training step holds: no depth trains on one
+      card).
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
@@ -119,9 +146,11 @@
    checkout of an older commit runs to time that tree's kernels);
    the attention forward kernels also at d 96, 112 and 256 (lens decode's
    kernel time at 112 too);
-   the backward kernels at the training shape and at zamba2's (B 4, 32/32,
-   L 512, d 112) beside SDPA's backward pinned to one backend (also alone
-   with --backward-shapes, the same A/B hook for them);
+   the backward kernels at the training shape, at zamba2's (B 4, 32/32,
+   L 512, d 112) and at musicgen-medium's (B 4, 24/24, L 768, d 64, with
+   the tiles forward beside SDPA causal) beside SDPA's backward pinned to
+   one backend, and the delta kernel beside torch.linalg.vecdot (also
+   alone with --backward-shapes, the same A/B hook for them);
    print what ptxas said of the kernels' registers and spills; profile a
    short window of each engine's work (device time by kernel group, the
    device's idle share); print one JSON line of kernel records.
@@ -1087,6 +1116,44 @@ def hold_moe_heads(torch, heads) -> None:
     torch.cuda.synchronize()
 
 
+#: The frontend configs' attention (B, Hq, Hkv, L, d): musicgen-medium's
+#: training shape (24/24, GQA group 1, 256 frame + 512 text positions, d 64)
+#: and qwen2-vl-72b's prefill heads (64/8 over 1024 patch + 512 text
+#: positions, d 128; B 1 keeps the f32 plain backward small).
+FRONTEND_ATTN = ((4, 24, 24, 768, 64), (1, 64, 8, 1536, 128))
+
+
+def hold_frontend_heads(torch) -> None:
+    """Phase 1 for the tiles forward at the frontend configs' attention
+    (FRONTEND_ATTN), in f32 and bf16: over causal_layout with state, one
+    launch a call, o, m and l against the plain version (their backward is
+    among hold_backward_kernels' cases)."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import causal_layout
+
+    for b, hq, hkv, n, d in FRONTEND_ATTN:
+        lay = causal_layout(n, n, 128, 128)
+        for dtype in (torch.float32, torch.bfloat16):
+            rtol, atol = attn_tol(torch, dtype)
+            q, k, v = attn_inputs(torch, dtype, b, hq, hkv, n, n, d, hq + d)
+            before = fa_k.flash_attention_tiles.launches
+            got = fa_k.flash_attention_tiles(q, k, v, lay, return_state=True)
+            if fa_k.flash_attention_tiles.launches != before + 1:
+                raise AssertionError("flash_attention_tiles: not one launch")
+            want = fa_k.flash_attention_tiles_plain(q, k, v, lay,
+                                                    return_state=True)
+            e = max_err(torch, got[0].float(), want[0].float(), rtol, atol,
+                        f"flash_attention_tiles {dtype} {hq}/{hkv} B={b} "
+                        f"L={n} d={d}")
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got[2], want[2], rtol=1e-5,
+                                       atol=1e-5 * n)
+            log(f"tiles forward {str(dtype)[6:]} {hq}/{hkv} B={b} L={n} "
+                f"d={d}: max |err| o {e:.3g} (bar rtol {rtol:.3g}, atol "
+                f"{atol:g})")
+    torch.cuda.synchronize()
+
+
 def serve_requests(vocab: int):
     rng = np.random.default_rng(13)
     return [(rng.integers(0, vocab, size=n).astype(np.int32), m)
@@ -1504,6 +1571,36 @@ def time_attention_kernels(torch, kernels, cold_ms):
     return timed, prefix, lens112
 
 
+def time_tiles_d64(torch, kernels, cold_ms):
+    """Phase 3 for the tiles forward at musicgen-medium's training
+    attention (D64_SHAPE: B 4, 24/24, L 768, d 64), bf16, causal, under
+    ``d64_*`` on its record: the wrapper, the plain version, SDPA causal
+    (timed only) and the bound (q, k, v, o once at the HBM rate against 4
+    flops a live pair and d at the bf16 tensor-core rate).  Returns the
+    wrapper's call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import causal_layout
+
+    b, hq, hkv, L, d = D64_SHAPE
+    q, k, v = attn_inputs(torch, torch.bfloat16, b, hq, hkv, L, L, d, 24)
+    lay = causal_layout(L, L, 128, 128)
+    rec = kernels["flash_attention_tiles"]
+
+    def kern():
+        return fa_k.flash_attention_tiles(q, k, v, lay)
+
+    rec["d64_ms"] = cold_ms(kern, 50)
+    rec["d64_plain_ms"] = cold_ms(
+        lambda: fa_k.flash_attention_tiles_plain(q, k, v, lay), 5)
+    rec["d64_library_ms"] = cold_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 50)
+    rec["d64_bound_ms"], rec["d64_bound_by"] = bound_ms(
+        2 * (2 * q.numel() + k.numel() + v.numel()),
+        4.0 * b * hq * (L * (L + 1) // 2) * d, PEAK_BF16_FLOP_PER_S)
+    return kern
+
+
 # -- the attention backward (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq) ----------
 
 BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")
@@ -1564,10 +1661,12 @@ def hold_backward_kernels(torch) -> dict:
     """Phase 1 for the three backward kernels, through the autograd
     wrapper, against flash_attention_tiles_bwd_plain on the same o, lse and
     dO: causal tiles at the training shape (B 4, Hq/Hkv 16/8, L 512, d 128)
-    in bf16 and f32, d 96 and 112 (32/32) and d 256 (8/1), a ragged L of
-    777, a windowed band, a bias layout and the dense grid (f32 also at
-    d 112); in bf16 (the wgmma kernels) every layout kind at every head_dim
-    (B 1, Hq 8, L 384, GQA groups 1, 2 and 8 in turn); at d 112 a dO that
+    in bf16 and f32, d 96 and 112 (32/32) and d 256 (8/1), the frontend
+    configs' attention (FRONTEND_ATTN: 24/24 at d 64 over 768 positions,
+    64/8 at d 128 over 1536), a ragged L of 777, a windowed band, a bias
+    layout and the dense grid (f32 also at d 112); in bf16 (the wgmma
+    kernels) every layout kind at every head_dim (B 1, Hq 8, L 384, GQA
+    groups 1, 2 and 8 in turn); at d 112 a dO that
     is zero but in columns 96-111 (a lane's fourth column: a delta loop or
     an accumulator that stops at 3 x 32 columns fails there, in both
     dtypes); then the same bits from two backward passes at the training
@@ -1592,6 +1691,10 @@ def hold_backward_kernels(torch) -> dict:
              ("bias", torch.float32, 1, hq, hkv, L, d),
              ("grid", torch.bfloat16, 2, hq, hkv, L, d),
              ("grid", torch.float32, 1, hq, hkv, 300, d)]
+    # the frontend configs' attention: musicgen's training, qwen2-vl's
+    # heads over its 1536 positions
+    cases += [("causal", dt, *shape) for shape in FRONTEND_ATTN
+              for dt in (torch.bfloat16, torch.float32)]
     kinds = ("causal", "window", "bias", "grid", "deadrow")
     cases += [(kind, torch.bfloat16, 1, 8, (8, 4, 1)[n % 3], 384, hd)
               for n, (kind, hd) in enumerate(
@@ -1745,6 +1848,10 @@ def hold_training_bitwise(torch) -> None:
 #: 32/32, L 512, d 112; the backward kernels are timed there too, under
 #: ``d112_*``.
 BWD_D112_SHAPE = (4, 32, 32, 512, 112)
+#: musicgen-medium's training attention (phase 2h): B 4, 24/24, 256 frame +
+#: 512 text positions, d 64; the tiles forward and the backward kernels are
+#: timed there, under ``d64_*``.
+D64_SHAPE = FRONTEND_ATTN[0]
 
 
 def time_backward_kernels(torch, kernels, cold_ms, shape=ATTN_SHAPE,
@@ -1755,11 +1862,12 @@ def time_backward_kernels(torch, kernels, cold_ms, shape=ATTN_SHAPE,
     backward for dkdv and dq, the plain sum for delta); the library call,
     SDPA's backward (causal, GQA expanded, pinned to SDPA_BACKEND, whose
     name goes beside it, and cuDNN's under ``library_cudnn_ms``; timed
-    only, on dkdv and dq's records); each kernel's bound (its own bytes
-    once at the HBM rate, its products at the bf16 tensor-core rate) and
-    the bound of the whole backward (q, k, v, o, dO, dQ, dK, dV, lse and D
-    once, against 10 * B * Hq * live pairs * d flops).  Returns the call
-    of each."""
+    only, on dkdv and dq's records) and, for delta, torch.linalg.vecdot(dO,
+    o) (the same rowsum in one call; timed only); each kernel's bound (its
+    own bytes once at the HBM rate, its products at the bf16 tensor-core
+    rate) and the bound of the whole backward (q, k, v, o, dO, dQ, dK, dV,
+    lse and D once, against 10 * B * Hq * live pairs * d flops).  Returns
+    the call of each."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1810,7 +1918,9 @@ def time_backward_kernels(torch, kernels, cold_ms, shape=ATTN_SHAPE,
         rec[key + "ms"] = cold_ms(kern, 50)
         rec[key + "plain_ms"] = cold_ms(plain, 3)
         if name == "fa_bwd_delta":
-            rec[key + "library_ms"] = None
+            rec[key + "library_ms"] = cold_ms(
+                lambda: torch.linalg.vecdot(do, o, dim=-1), 50)
+            rec[key + "library_call"] = "torch.linalg.vecdot(dO, o, dim=-1)"
         else:
             rec[key + "library_ms"] = sdpa_bwd[SDPA_BACKEND]
             rec[key + "library_backend"] = SDPA_BACKEND
@@ -1833,8 +1943,9 @@ def time_backward_kernels(torch, kernels, cold_ms, shape=ATTN_SHAPE,
 
 def time_backward_only(torch) -> int:
     """``--backward-shapes``: build, print the card, ptxas's report of the
-    backward kernels, and their times at the training shape and at
-    zamba2's (BWD_D112_SHAPE, under ``d112_*``) as phase 3 takes them
+    backward kernels, and their times at the training shape, at zamba2's
+    (BWD_D112_SHAPE, under ``d112_*``) and at musicgen's (D64_SHAPE, under
+    ``d64_*``) as phase 3 takes them
     (``kernel_ms`` too), as one JSON line.  A copy of this
     script in a checkout of an older commit runs it to time that tree's
     kernels."""
@@ -1851,7 +1962,8 @@ def time_backward_only(torch) -> int:
                 f"{r['spill_loads']} bytes of spill stores / loads")
     scrub = scrub_buffer(torch)
     kernels = {k: {"name": k} for k in BWD_KERNELS}
-    for shape, key in ((ATTN_SHAPE, ""), (BWD_D112_SHAPE, "d112_")):
+    for shape, key in ((ATTN_SHAPE, ""), (BWD_D112_SHAPE, "d112_"),
+                       (D64_SHAPE, "d64_")):
         timed = time_backward_kernels(
             torch, kernels, lambda fn, iters: time_ms(torch, fn, iters,
                                                       scrub), shape, key)
@@ -2495,86 +2607,340 @@ FAMILY_CHECK_LAYERS = {"qwen3-moe-30b-a3b": 2, "mamba2-370m": 2,
                        "zamba2-7b": 7}
 
 
-def run_train_families(torch, wrappers) -> dict:
-    """Phase 2g: for each config of FAMILY_TRAIN, Trainer.fit at full width
-    with the launch counts reset just before the measured steps and read
-    just after, held to the count reckoned from the code and printed
-    before the run (with remat, per attention site and step: the tiles
-    forward twice, each backward kernel once); the step times, tokens/s,
-    peak memory, and one more step profiled; then (c) losses finite and
-    falling, (d) at FAMILY_CHECK_LAYERS in f32 the gradients cuda vs torch
-    plane (check_gradient_planes), (e) at the same depth in the config's
-    dtypes a crash and resume bitwise (check_resume).  Returns the
-    phase's numbers by config."""
-    from repro_torch.configs import get_config
+def train_config(torch, base, layers, check_layers, data, wrappers,
+                 phase: str) -> dict:
+    """``base`` at full width, cut to ``layers`` (None: whole), through
+    Trainer.fit (TRAIN_STEPS steps of ``data`` at TRAIN_LR), with the
+    launch counts reset just before the measured steps and read just
+    after, held to the count reckoned from the code and printed before the
+    run (with remat, per attention site and step: the tiles forward
+    twice, each backward kernel once); the step times, text tokens/s and
+    positions/s (the frontend's counted), peak memory, and one more step
+    profiled; then (c) losses finite and falling, (d) at ``check_layers``
+    in f32 the gradients cuda vs torch plane (check_gradient_planes), (e)
+    at the same depth in the config's dtypes a crash and resume bitwise
+    (check_resume).  Returns the config's numbers."""
     from repro_torch.launch.train import Trainer
     from repro_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(base, num_layers=layers or base.num_layers)
+    rec: dict = {"layers": cfg.num_layers}
+    clock = {"start": time.perf_counter()}
+
+    def lap(name):
+        clock[name] = time.perf_counter() - clock.pop("start")
+        clock["start"] = time.perf_counter()
+
+    trainer = Trainer(cfg, lr=TRAIN_LR, total_steps=TRAIN_STEPS, seed=0,
+                      device="cuda")
+    torch.cuda.synchronize()
+    rec["params"] = sum(x.numel() for x in
+                        tree_leaves(trainer.state.params))
+    sites = attention_sites(trainer.lm)
+    want = {"flash_attention_tiles": 2 * sites * TRAIN_STEPS,
+            **{k: sites * TRAIN_STEPS for k in BWD_KERNELS},
+            "flash_attention": 0, "flash_attention_lens": 0}
+    log(f"phase {phase}: {cfg.name} at {cfg.num_layers} of "
+        f"{base.num_layers} layers ({rec['params']} parameters, {sites} "
+        f"attention sites): launches reckoned over {TRAIN_STEPS} steps "
+        f"{want}")
+    lap("init")
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    hist = trainer.fit(data, TRAIN_STEPS, log_every=1)["history"]
+    torch.cuda.synchronize()
+    rec["launches"] = {k: w.launches for k, w in wrappers.items()}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["history"] = hist
+    times = [h["time_s"] for h in hist]
+    rec["step_s"] = [b - a for a, b in zip([0.0] + times, times)]
+    steady = sum(rec["step_s"][1:]) / (len(hist) - 1)
+    front = cfg.frontend_len if cfg.frontend is not None else 0
+    rec["tok_s"] = TRAIN_BATCH * TRAIN_SEQ / steady
+    rec["pos_s"] = TRAIN_BATCH * (front + TRAIN_SEQ) / steady
+    if rec["launches"] != want:
+        raise AssertionError(f"{cfg.name} training launches "
+                             f"{rec['launches']}, reckoned {want}")
+    # (c) every loss finite, the last below the first
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(c) {cfg.name} losses {losses}")
+    lap("fit")
+
+    def one_step():
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in data.batch(TRAIN_STEPS).items()}
+        trainer.step_fn(trainer.state, batch)
+
+    rec["profile"] = device_breakdown(torch, one_step)
+    del trainer
+    free_card(torch)
+    lap("profile")
+
+    check = dataclasses.replace(base, num_layers=check_layers)
+    rec["d_rel"], rec["d_sets"] = check_gradient_planes(
+        torch, check, data.batch(0), wrappers)
+    lap("(d)")
+    rec.update(check_resume(torch, check, data))
+    lap("(e)")
+    clock.pop("start")
+    rec["seconds"] = clock
+    return rec
+
+
+def run_train_families(torch, wrappers) -> dict:
+    """Phase 2g: each config of FAMILY_TRAIN through :func:`train_config`
+    on the learnable pattern, (d) and (e) at FAMILY_CHECK_LAYERS.  Returns
+    the phase's numbers by config."""
+    from repro_torch.configs import get_config
 
     data = learnable_data(TRAIN_BATCH, TRAIN_SEQ)
     out = {"free_gb": free_card(torch)[0]}
     for arch, layers in FAMILY_TRAIN.items():
+        out[arch] = train_config(torch, get_config(arch), layers,
+                                 FAMILY_CHECK_LAYERS[arch], data, wrappers,
+                                 "2g")
+    return out
+
+
+# -- phase 2h: the VLM and audio families ------------------------------------
+
+VLM_ARCH, AUDIO_ARCH = "qwen2-vl-72b", "musicgen-medium"
+#: The Engine runs phase 2c's FIXED_BATCH x FIXED_PROMPT tokens, FIXED_NEW
+#: new, behind the config's frontend (qwen2-vl 1024 patch embeddings,
+#: musicgen 256 frame embeddings; seeded standard normals, as SyntheticLM
+#: draws them); musicgen trains on TRAIN_BATCH x (256 + TRAIN_SEQ).
+#: (a-f32), (g-frontend) and (d)'s depth in f32 at full width.
+FRONT_CHECK_LAYERS = 2
+#: (a-f32) and (g-frontend)'s bar: the largest |difference| of the logits
+#: over their largest entry (f32, TF32 off).
+FRONT_REL_TOL = 1e-3
+#: qwen2-vl's (d) batch: 2 x (1024 + 512) positions (f32 parameters and two
+#: planes' gradients of 2 layers, 17 GB each, stay far from the card's
+#: size).
+VLM_GRAD_BATCH = 2
+#: What the allocator and the residual stream take beside the largest
+#: transient of check (a) (vlm_serve_layers): at 3 GB, 38 layers of
+#: qwen2-vl-72b left check (a)'s peak 2.3 GB below the free memory on an
+#: H100 80GB HBM3; 5 GB keeps it about 5 GB below.
+SERVE_SLACK_BYTES = 5e9
+
+
+def vlm_serve_layers(cfg, free_bytes: float) -> tuple[int, dict]:
+    """The depth at which qwen2-vl-72b serves at full width on the card:
+    what ``free_bytes`` holds beside the embedding and unembedding (bf16)
+    and the largest transient of the serve phase, check (a)'s torch-plane
+    prefill attention (scores, their masked copy and P, f32, B x Hq x L x
+    L each) or an MLP's (gate, up, their f32 copies, the product: 14 bytes
+    an element of B x L x d_ff), with SERVE_SLACK_BYTES on top; each layer
+    costs its bf16 weights and two K/V caches of F + FIXED_PROMPT +
+    FIXED_NEW positions (check (a) holds one while the other is made).
+    Returns (layers, the terms in bytes)."""
+    B, L = FIXED_BATCH, cfg.frontend_len + FIXED_PROMPT
+    bf16 = 2
+    fixed = dataclasses.replace(cfg, num_layers=0).param_count() * bf16
+    layer = dataclasses.replace(cfg, num_layers=1).param_count() * bf16 \
+        - fixed
+    kv = 2 * 2 * B * cfg.num_kv_heads * (L + FIXED_NEW) * cfg.head_dim * bf16
+    attn = 3 * 4 * B * cfg.num_heads * L * L
+    mlp = 14 * B * L * cfg.d_ff
+    transient = max(attn, mlp) + SERVE_SLACK_BYTES
+    layers = int((free_bytes - fixed - transient) // (layer + kv))
+    return min(cfg.num_layers, layers), {
+        "free": free_bytes, "embeddings": fixed, "transient": transient,
+        "layer": layer, "kv_per_layer": kv}
+
+
+def frontend_data(B: int, S: int, F: int, d_model: int, n_batches: int = 64):
+    """learnable_data's next-token pattern on S text tokens behind F seeded
+    standard-normal frontend embeddings (B, F, d_model), as SyntheticLM
+    draws them."""
+    text = learnable_data(B, S, n_batches)
+
+    class DS:
+        def batch(self, i):
+            out = text.batch(i)
+            rng = np.random.default_rng(10_000 + i % n_batches)
+            out["frontend_embeds"] = rng.standard_normal(
+                (B, F, d_model)).astype(np.float32)
+            return out
+    return DS()
+
+
+def hold_frontend_planes(torch, cfg, prompts, fe) -> dict:
+    """(a-f32) and (g-frontend) for ``cfg`` at full width in f32 with
+    FRONT_CHECK_LAYERS layers: the prefill logits of the cuda plane against
+    the torch plane; and a prefill of the frontend + FIXED_PROMPT / 2
+    tokens, then FIXED_PROMPT / 2 teacher-forced decode steps (M-RoPE's
+    decode offset: cache slot F + i is text position i + F // grid_hw),
+    against the whole prompt's prefill, last logits.  Each within
+    FRONT_REL_TOL of the largest logit."""
+    from repro_torch.core import registry
+    from repro_torch.models.lm import LM
+
+    lm32 = LM(dataclasses.replace(cfg, num_layers=FRONT_CHECK_LAYERS,
+                                  dtype="float32", param_dtype="float32"))
+    p32 = lm32.init(0, device="cuda")
+    lc, _ = lm32.prefill(p32, prompts, fe)
+    with registry.use_backend("torch"):
+        lt, _ = lm32.prefill(p32, prompts, fe)
+    rec = {"a32_rel": float((lc - lt).abs().max() / lt.abs().max())}
+    half = FIXED_PROMPT // 2
+    F = cfg.frontend_len
+    _, cache = lm32.prefill(p32, prompts[:, :half], fe,
+                            max_len=F + FIXED_PROMPT)
+    for i in range(half, FIXED_PROMPT):
+        lg, cache = lm32.decode_step(p32, cache, prompts[:, i:i + 1])
+    rec["g_rel"] = float((lg - lc).abs().max() / lc.abs().max())
+    if not (rec["a32_rel"] <= FRONT_REL_TOL and rec["g_rel"] <= FRONT_REL_TOL
+            and bool(torch.isfinite(lc).all())
+            and cache["cur_len"] == F + FIXED_PROMPT):
+        raise AssertionError(f"{cfg.name}: (a-f32) {rec['a32_rel']}, "
+                             f"(g-frontend) {rec['g_rel']} (bar "
+                             f"{FRONT_REL_TOL})")
+    del lm32, p32, lc, lt, lg, cache
+    free_card(torch)
+    return rec
+
+
+def serve_frontend(torch, cfg, prompts, fe, wrappers) -> dict:
+    """``cfg`` (bf16, seeded random weights) through the Engine on
+    ``prompts`` behind ``fe``, FIXED_NEW new tokens, max_len exactly F +
+    FIXED_PROMPT + FIXED_NEW: time to first token, the measured run with
+    the launch counts reset just before it and read just after (the tiles
+    kernel once a layer, for the one prefill; the decode steps are the
+    plain einsum), the decode step beside its weight-read bound, peak
+    memory, a profile of a PROFILE_NEW-token run, then (a) the prefill
+    logits of the cuda plane against the torch plane within 8 bf16 ulps of
+    their scale."""
+    from repro_torch.core import registry
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import Engine, SamplingParams
+    from repro_torch.utils.tree import tree_leaves
+
+    lm = LM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = lm.init(0, device="cuda")
+    torch.cuda.synchronize()
+    rec: dict = {"layers": cfg.num_layers,
+                 "init_s": time.perf_counter() - t}
+    leaves = tree_leaves(params)
+    rec["params"] = sum(x.numel() for x in leaves)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    rec["param_gb"] = nbytes / 1e9
+    # a decode step reads every weight once but the (untied) embedding's
+    emb = params["embed"]
+    rec["step_bound_ms"] = (nbytes - emb.numel() * emb.element_size()) \
+        / PEAK_BYTES_PER_S * 1e3
+    del leaves, emb
+    F = cfg.frontend_len
+    eng = Engine(lm, params, max_len=F + FIXED_PROMPT + FIXED_NEW,
+                 sampling=SamplingParams(greedy=True))
+    eng.generate(prompts[:, :64], max_new_tokens=2, frontend_embeds=fe)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = eng.generate(prompts, max_new_tokens=1, frontend_embeds=fe)
+    torch.cuda.synchronize()
+    rec["ttft_s"] = time.perf_counter() - t
+    reset_attention_counts(wrappers)
+    t = time.perf_counter()
+    toks = eng.generate(prompts, max_new_tokens=FIXED_NEW,
+                        frontend_embeds=fe)
+    torch.cuda.synchronize()
+    rec["s"] = time.perf_counter() - t
+    rec["launches"] = read_attention_counts(wrappers)
+    rec["step_s"] = (rec["s"] - rec["ttft_s"]) / (FIXED_NEW - 1)
+    rec["tok_s"] = FIXED_BATCH * FIXED_NEW / rec["s"]
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if toks.shape != (FIXED_BATCH, FIXED_NEW) or not torch.equal(
+            toks[:, :1], first) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name} Engine.generate: bad tokens "
+                             f"{tuple(toks.shape)}")
+    want = {"tiles": cfg.num_layers, "tiles_state": 0, "lens_decode": 0,
+            "lens_prefix": 0, "flash_attention": 0}
+    if rec["launches"] != want:
+        raise AssertionError(f"{cfg.name} Engine: launches "
+                             f"{rec['launches']}, reckoned {want} (the tiles "
+                             f"kernel once a layer, in the one prefill)")
+    rec["profile"] = device_breakdown(torch, lambda: eng.generate(
+        prompts, max_new_tokens=PROFILE_NEW, frontend_embeds=fe))
+    logits, _ = lm.prefill(params, prompts, fe)
+    with registry.use_backend("torch"):
+        plain, _ = lm.prefill(params, prompts, fe)
+    rec["a_max_abs"] = float((logits.float() - plain.float()).abs().max())
+    rec["a_scale"] = float(plain.float().abs().max())
+    rec["a_argmax_agree"] = float(
+        (logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    if not rec["a_max_abs"] <= 8 * 2.0 ** -8 * rec["a_scale"]:
+        raise AssertionError(f"{cfg.name} (a) prefill logits: max |cuda - "
+                             f"torch| {rec['a_max_abs']} above 8 bf16 ulps "
+                             f"of {rec['a_scale']}")
+    rec["peak_gb_all"] = torch.cuda.max_memory_allocated() / 1e9
+    del lm, params, eng, first, toks, logits, plain
+    free_card(torch)
+    return rec
+
+
+def run_frontend_path(torch, wrappers, train_wrappers) -> dict:
+    """Phase 2h: the VLM and audio families.  For qwen2-vl-72b and
+    musicgen-medium: (a-f32) and (g-frontend) at full width in f32
+    (hold_frontend_planes), then the config through the Engine
+    (serve_frontend): qwen2-vl at full width cut to the depth the card's
+    free memory holds (vlm_serve_layers), musicgen whole.  Then musicgen
+    trains whole (train_config, as phase 2g trains, on the learnable
+    pattern behind frame embeddings), and qwen2-vl's training path is held by
+    (d) alone, in f32 at FRONT_CHECK_LAYERS layers on VLM_GRAD_BATCH x
+    (1024 + 512) positions: M-RoPE through the tiles backward at 64/8, d
+    128 (its parameters, gradients and moments fit one card at no depth: a
+    layer is 3.37 B parameters with the embeddings, 26 bytes each at the
+    update's peak).  Returns the phase's numbers by config."""
+    from repro_torch.configs import get_config
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    out = {"free_gb": free_card(torch)[0]}
+    for arch in (VLM_ARCH, AUDIO_ARCH):
         base = get_config(arch)
-        cfg = dataclasses.replace(base, num_layers=layers or base.num_layers)
-        rec: dict = {"layers": cfg.num_layers}
-        clock = {"start": time.perf_counter()}
-
-        def lap(name):
-            clock[name] = time.perf_counter() - clock.pop("start")
-            clock["start"] = time.perf_counter()
-
-        trainer = Trainer(cfg, lr=TRAIN_LR, total_steps=TRAIN_STEPS, seed=0,
-                          device="cuda")
-        torch.cuda.synchronize()
-        rec["params"] = sum(x.numel() for x in
-                            tree_leaves(trainer.state.params))
-        sites = attention_sites(trainer.lm)
-        want = {"flash_attention_tiles": 2 * sites * TRAIN_STEPS,
-                **{k: sites * TRAIN_STEPS for k in BWD_KERNELS},
-                "flash_attention": 0, "flash_attention_lens": 0}
-        log(f"phase 2g: {arch} at {cfg.num_layers} of {base.num_layers} "
-            f"layers ({rec['params']} parameters, {sites} attention sites): "
-            f"launches reckoned over {TRAIN_STEPS} steps {want}")
-        lap("init")
-        for w in wrappers.values():
-            w.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        hist = trainer.fit(data, TRAIN_STEPS, log_every=1)["history"]
-        torch.cuda.synchronize()
-        rec["launches"] = {k: w.launches for k, w in wrappers.items()}
-        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        rec["history"] = hist
-        times = [h["time_s"] for h in hist]
-        rec["step_s"] = [b - a for a, b in zip([0.0] + times, times)]
-        steady = rec["step_s"][1:]
-        rec["tok_s"] = TRAIN_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
-        if rec["launches"] != want:
-            raise AssertionError(f"{arch} training launches "
-                                 f"{rec['launches']}, reckoned {want}")
-        # (c) every loss finite, the last below the first
-        losses = [h["loss"] for h in hist]
-        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            raise AssertionError(f"(c) {arch} losses {losses}")
-        lap("fit")
-
-        def one_step():
-            batch = {k: torch.as_tensor(v, device="cuda")
-                     for k, v in data.batch(TRAIN_STEPS).items()}
-            trainer.step_fn(trainer.state, batch)
-
-        rec["profile"] = device_breakdown(torch, one_step)
-        del trainer
-        free_card(torch)
-        lap("profile")
-
-        check = dataclasses.replace(base, num_layers=FAMILY_CHECK_LAYERS[arch])
-        rec["d_rel"], rec["d_sets"] = check_gradient_planes(
-            torch, check, data.batch(0), wrappers)
-        lap("(d)")
-        rec.update(check_resume(torch, check, data))
-        lap("(e)")
-        clock.pop("start")
-        rec["seconds"] = clock
+        clock = time.perf_counter()
+        prompts = torch.randint(0, base.vocab_size,
+                                (FIXED_BATCH, FIXED_PROMPT), generator=g,
+                                device="cuda")
+        fe = torch.randn((FIXED_BATCH, base.frontend_len, base.d_model),
+                         generator=g, device="cuda")
+        rec = hold_frontend_planes(torch, base, prompts, fe)
+        rec["checks_s"] = time.perf_counter() - clock
+        rec["frontend_len"] = base.frontend_len
+        cfg = base
+        if arch == VLM_ARCH:
+            layers, terms = vlm_serve_layers(base, free_card(torch)[0] * 1e9)
+            rec["depth_terms"] = terms
+            log(f"phase 2h: {arch} serves at {layers} of {base.num_layers} "
+                f"layers: {terms['free'] / 1e9:.2f} GB free, less "
+                f"{terms['embeddings'] / 1e9:.2f} GB of embeddings and "
+                f"{terms['transient'] / 1e9:.2f} GB for the largest "
+                f"transient and slack, over {terms['layer'] / 1e9:.3f} GB a "
+                f"layer and {terms['kv_per_layer'] / 1e9:.3f} GB of K/V")
+            cfg = dataclasses.replace(base, num_layers=layers)
+        rec.update(serve_frontend(torch, cfg, prompts, fe, wrappers))
+        rec["s_all"] = time.perf_counter() - clock
         out[arch] = rec
+        del prompts, fe
+    t = time.perf_counter()
+    audio = get_config(AUDIO_ARCH)
+    out["train"] = train_config(
+        torch, audio, None, FRONT_CHECK_LAYERS,
+        frontend_data(TRAIN_BATCH, TRAIN_SEQ, audio.frontend_len,
+                      audio.d_model), train_wrappers, "2h")
+    out["train"]["s_all"] = time.perf_counter() - t
+    t = time.perf_counter()
+    vlm = dataclasses.replace(get_config(VLM_ARCH),
+                              num_layers=FRONT_CHECK_LAYERS)
+    batch = frontend_data(VLM_GRAD_BATCH, TRAIN_SEQ, vlm.frontend_len,
+                          vlm.d_model).batch(0)
+    rel, _ = check_gradient_planes(torch, vlm, batch, train_wrappers)
+    out["vlm_d"] = {"d_rel": rel, "s": time.perf_counter() - t}
     return out
 
 
@@ -2761,6 +3127,7 @@ def main() -> int:
         hold_attention_kernels(torch, heads)
     for heads in MOE_HEADS:
         hold_moe_heads(torch, heads)
+    hold_frontend_heads(torch)
     for name, e in hold_backward_kernels(torch).items():
         kernels[name]["max_abs_err"] = e
     torch.cuda.synchronize()
@@ -3009,6 +3376,9 @@ def main() -> int:
     timed_bwd = time_backward_kernels(torch, kernels, cold_ms)
     timed_bwd112 = time_backward_kernels(torch, kernels, cold_ms,
                                          BWD_D112_SHAPE, "d112_")
+    tiles64 = time_tiles_d64(torch, kernels, cold_ms)
+    timed_bwd64 = time_backward_kernels(torch, kernels, cold_ms, D64_SHAPE,
+                                        "d64_")
 
     routes = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
@@ -3060,6 +3430,11 @@ def main() -> int:
     for name, fn in timed_bwd112.items():
         kernels[name]["d112_kernel_ms"] = kernel_ms(torch, fn, 20,
                                                     BWD_SYMBOLS[name], scrub)
+    for name, fn in timed_bwd64.items():
+        kernels[name]["d64_kernel_ms"] = kernel_ms(torch, fn, 20,
+                                                   BWD_SYMBOLS[name], scrub)
+    kernels["flash_attention_tiles"]["d64_kernel_ms"] = kernel_ms(
+        torch, tiles64, 20, symbols["flash_attention_tiles"], scrub)
     fixed_prof, cont_prof = serve.pop("profile")()
     log(f"{ARCH} device time by kernel group on {smi[0]}:")
     log(f"  Engine, {PROFILE_NEW} new tokens: {fmt_breakdown(fixed_prof)}")
@@ -3071,7 +3446,8 @@ def main() -> int:
     # -- phase 2e: the MoE serve path, counted ------------------------------
     # after phase 3, whose profiles keep phase 2c's and 2d's models: the
     # card must hold qwen3-moe-30b-a3b's 61 GB of weights alone
-    del timed, timed_attn, timed_bwd, timed_bwd112, timed_sparse, scrub
+    del timed, timed_attn, timed_bwd, timed_bwd112, timed_bwd64, tiles64
+    del timed_sparse, scrub
     del lens_prefix, lens112
     del sparse_in, A, B, Z, XS, BCG, a, b, ab, ab16, ar, br, zd, tangled
     del re0, im0, vals, x, lib_as, lib_cg, xcg, tri, xtri, y_cg, xsm
@@ -3190,6 +3566,69 @@ def main() -> int:
             f"run")
         log(f"  wall time by step: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in r["seconds"].items()))
+
+    # -- phase 2h: the VLM and audio families, counted ----------------------
+    # after phase 2g, whose models run_train_families has dropped
+    t_path = time.perf_counter()
+    front = run_frontend_path(torch, attn_wrappers, train_wrappers)
+    log(f"phase 2h: {VLM_ARCH} and {AUDIO_ARCH} serve paths, {AUDIO_ARCH} "
+        f"training and their checks in {time.perf_counter() - t_path:.2f} s; "
+        f"free on the card before it {front['free_gb']:.2f} GB")
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        r = front[arch]
+        launches["flash_attention_tiles"] += r["launches"]["tiles"]
+        log(f"{arch} at {r['layers']} layers ({r['params']} parameters, "
+            f"{r['param_gb']:.2f} GB, init {r['init_s']:.2f} s, peak memory "
+            f"allocated {r['peak_gb']:.2f} GB serving, {r['peak_gb_all']:.2f}"
+            f" GB with check (a)) on {smi[0]}:")
+        log(f"  Engine: {FIXED_BATCH} x ({r['frontend_len']} frontend "
+            f"+ {FIXED_PROMPT} prompt tokens), {FIXED_NEW} new: "
+            f"{r['tok_s']:.1f} tok/s, time to first token "
+            f"{r['ttft_s'] * 1e3:.1f} ms, {r['step_s'] * 1e3:.2f} ms per "
+            f"decode step (bound {r['step_bound_ms']:.2f} ms: every weight "
+            f"but the embedding read once at {PEAK_BYTES_PER_S / 1e12:.2f} "
+            f"TB/s); kernel launches {r['launches']}")
+        log(f"  (a) prefill logits cuda vs torch plane: max abs diff "
+            f"{r['a_max_abs']:.4g} (logit scale {r['a_scale']:.4g}), argmax "
+            f"agreement {r['a_argmax_agree']:.3f}; (a-f32) "
+            f"{FRONT_CHECK_LAYERS} layers: max |cuda - torch| / max |torch| "
+            f"{r['a32_rel']:.3g}; (g-frontend) {FIXED_PROMPT // 2}-token "
+            f"prefill + {FIXED_PROMPT // 2} decode steps against a "
+            f"{FIXED_PROMPT}-token prefill, behind the frontend: last logits "
+            f"{r['g_rel']:.3g} (bar {FRONT_REL_TOL}); checks "
+            f"{r['checks_s']:.1f} s, the config's run {r['s_all']:.1f} s")
+        log(f"  device time by kernel group, Engine, {PROFILE_NEW} new "
+            f"tokens: {fmt_breakdown(r['profile'])}")
+    r = front["train"]
+    for k in ("flash_attention_tiles", *BWD_KERNELS):
+        launches[k] += r["launches"][k]
+    log(f"{AUDIO_ARCH} training at {r['layers']} layers ({r['params']} "
+        f"parameters; peak memory allocated {r['peak_gb']:.2f} GB) on "
+        f"{smi[0]}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"({front[AUDIO_ARCH]['frontend_len']} frame embeddings + "
+        f"{TRAIN_SEQ} tokens), lr {TRAIN_LR}; kernel launches "
+        f"{r['launches']}")
+    for h, dt in zip(r["history"], r["step_s"]):
+        log(f"  step {h['step']}: loss {h['loss']:.4f}, grad_norm "
+            f"{h['grad_norm']:.4f}, {dt * 1e3:.1f} ms")
+    log(f"  {r['tok_s']:.1f} text tokens/s ({r['pos_s']:.1f} positions/s) "
+        f"over steps 2-{TRAIN_STEPS}; one more step: "
+        f"{fmt_breakdown(r['profile'])}")
+    log(f"  (d) f32, {FRONT_CHECK_LAYERS} layers, gradients cuda vs torch "
+        f"plane, max |diff| / max |grad| (bar {D_REL_TOL}): worst "
+        f"{max(r['d_rel'].values()):.3g}")
+    log(f"  (e) {FRONT_CHECK_LAYERS} layers, save at 3, crash at 5: resumed "
+        f"at step {r['e_resumed_at']}, {r['e_equal']}/{r['e_leaves']} "
+        f"parameters bitwise equal to the uninterrupted run")
+    log(f"  wall time by step: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in r["seconds"].items()))
+    vd = front["vlm_d"]["d_rel"]
+    log(f"{VLM_ARCH} (d) f32, {FRONT_CHECK_LAYERS} layers, {VLM_GRAD_BATCH} x "
+        f"({front[VLM_ARCH]['frontend_len']} + {TRAIN_SEQ}) positions, "
+        f"gradients cuda vs torch plane, max |diff| / max |grad| (bar "
+        f"{D_REL_TOL}): worst {max(vd.values()):.3g}; wq "
+        f"{max(v for k, v in vd.items() if 'wq' in k):.3g}; in "
+        f"{front['vlm_d']['s']:.1f} s")
     KEYS = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernel_ms")
     out = []

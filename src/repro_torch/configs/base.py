@@ -1,17 +1,17 @@
-"""ModelConfig: the architecture schema of the dense, MoE, SSM and hybrid
-families + registry (counterpart of ``repro.configs.base``, a copy: the
-port imports nothing of the JAX package).
+"""ModelConfig: the architecture schema of every family + registry
+(counterpart of ``repro.configs.base``, a copy: the port imports nothing of
+the JAX package).
 
-Every field is a static (hashable) property.  Only the fields these four
-families read are here; the frontends' and M-RoPE's fields (the VLM and
-audio families) come with their slice (ROADMAP queue 1 item 7).
-``dtype`` / ``param_dtype`` keep the JAX package's names;
+Every field is a static (hashable) property.  Families: dense | moe | ssm
+| hybrid | vlm | audio (vlm/audio are dense backbones + a stubbed modality
+frontend).  ``dtype`` / ``param_dtype`` keep the JAX package's names;
 :attr:`ModelConfig.act_dtype` and :attr:`ModelConfig.pdtype` are the
 ``torch.dtype`` s.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -21,7 +21,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs", "REGISTRY"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid (ported)
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     vocab_size: int
@@ -32,6 +32,8 @@ class ModelConfig:
     head_dim: int = 0
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    m_rope: bool = False
+    mrope_sections: tuple[int, ...] = ()     # splits head_dim/2 across t/h/w
     # sparse attention pattern (LongFormer/BigBird-shaped archs): a causal
     # sliding window plus optional global-attention token positions, lowered
     # to a MaskSpec and dispatched to the block-sparse tile-skipping kernel
@@ -67,6 +69,12 @@ class ModelConfig:
 
     # hybrid (zamba2): one weight-shared attention block every N ssm layers
     attn_every: int = 0
+
+    # modality frontend stub (vlm/audio): frontend_len positions arrive as
+    # precomputed d_model embeddings instead of token ids
+    frontend: Optional[str] = None           # None | "vision" | "audio"
+    frontend_len: int = 0
+    grid_hw: int = 32                        # vlm patch raster width (M-RoPE)
 
     # dtypes / execution
     dtype: str = "bfloat16"                  # activations
@@ -131,8 +139,9 @@ class ModelConfig:
         return self.d_inner // self.ssm_headdim
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense, MoE, SSM and hybrid
-        families (the hybrid's shared attention block counted once)."""
+        """Analytic parameter count of every family (the hybrid's shared
+        attention block counted once; vlm and audio count as dense: their
+        frontends are stubs and hold no parameters)."""
         d, v = self.d_model, self.vocab_size
         attn = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim * d \
             + self.num_heads * self.head_dim * d
@@ -148,7 +157,7 @@ class ModelConfig:
                 + (di + 2 * g * ns) * self.conv_width
             shared = attn + 3 * d * self.d_ff \
                 if self.family == "hybrid" and self.attn_every else 0
-        else:
+        else:                        # dense, vlm, audio
             per, shared = attn + 3 * d * self.d_ff, 0
         return v * d * (1 if self.tie_embeddings else 2) \
             + self.num_layers * per + shared

@@ -11,7 +11,11 @@ parameters do not fit the card (arctic-480b: 476.8 B) raises unless it is
 shrunk.  ``--arch qwen3-moe-30b-a3b --scale 1.0`` serves the whole MoE
 model (61 GB in bf16) on one 80 GB card; ``--arch mamba2-370m`` (SSM) and
 ``--arch zamba2-7b`` (hybrid) serve those families (a prompt longer than
-256 tokens must be a multiple of 256, the SSD chunk).  ``--ckpt-dir`` loads
+256 tokens must be a multiple of 256, the SSD chunk).  ``--arch
+qwen2-vl-72b`` (VLM, M-RoPE) and ``--arch musicgen-medium`` (audio) take
+seeded standard-normal frontend embeddings for their ``frontend_len``
+positions ahead of the prompt; qwen2-vl-72b (145.4 GB in bf16) raises at
+scale 1 and says how many of its layers would fit.  ``--ckpt-dir`` loads
 the parameters of the newest checkpoint there (written by either package's
 ``Checkpointer``; the scale must match the one it was trained at).  The
 execution levels of the JAX version are not ported.
@@ -19,6 +23,7 @@ execution levels of the JAX version are not ported.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -55,13 +60,17 @@ def main(argv=None) -> int:
         cfg = reduce_config(cfg, args.scale)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        need = cfg.param_count() * torch.empty((), dtype=cfg.pdtype
-                                               ).element_size()
+        size = torch.empty((), dtype=cfg.pdtype).element_size()
+        need = cfg.param_count() * size
         have = torch.cuda.get_device_properties(dev).total_memory
         if need > have:
+            fit = max((n for n in range(1, cfg.num_layers) if
+                       dataclasses.replace(cfg, num_layers=n).param_count()
+                       * size <= have), default=0)
             ap.error(f"{cfg.name}: {need / 1e9:.1f} GB of parameters do not "
-                     f"fit the card's {have / 1e9:.1f} GB; pass --scale "
-                     f"below 1")
+                     f"fit the card's {have / 1e9:.1f} GB (at full width "
+                     f"{fit} of its {cfg.num_layers} layers would, beside "
+                     f"nothing else); pass --scale below 1")
     lm = LM(cfg)
     if args.ckpt_dir:
         from repro_torch.optim import adamw
@@ -75,15 +84,21 @@ def main(argv=None) -> int:
         params = lm.init(args.seed, device=dev)
     sp = SamplingParams(greedy=args.temperature == 0.0,
                         temperature=max(args.temperature, 1e-6))
-    max_len = args.max_len or (args.prompt_len + args.new_tokens + 8)
+    # the cache holds the frontend's positions ahead of the prompt's
+    front = cfg.frontend_len if cfg.frontend is not None else 0
+    max_len = args.max_len or (front + args.prompt_len + args.new_tokens + 8)
     engine = Engine(lm, params, max_len=max_len, sampling=sp)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
+    fe = None
+    if front:
+        fe = torch.randn((args.batch, front, cfg.d_model), generator=gen,
+                         device=dev)
     t0 = time.perf_counter()
     out = engine.generate(prompts, max_new_tokens=args.new_tokens,
-                          seed=args.seed)
+                          seed=args.seed, frontend_embeds=fe)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

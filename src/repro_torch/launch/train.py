@@ -5,15 +5,18 @@
         --scale 1.0 --steps 8 --batch 4 --seq 512
 
 It runs on the card unless ``--device cpu`` is given (then with a small
-``--scale``, e.g. 0.05).  Every family the port serves trains: dense,
-MoE (``--arch qwen3-moe-30b-a3b``), SSM (``--arch mamba2-370m``) and
-hybrid (``--arch zamba2-7b``).  On the card a config whose parameters,
-gradients and AdamW moments do not fit the card's memory raises before
-anything is allocated (qwen3-moe-30b-a3b and zamba2-7b at scale 1), and
-says how many of its layers would.  The mesh (``Trainer(mesh=...)``,
-ZeRO-1 moment sharding) is mesh scope (ROADMAP queue 1 item 10):
-``mesh`` raises and the JAX Trainer's ``zero1`` is not taken; the clock
-is ``time.perf_counter`` until ``obs`` is ported (queue 1 item 8).
+``--scale``, e.g. 0.05).  Every family trains: dense, MoE (``--arch
+qwen3-moe-30b-a3b``), SSM (``--arch mamba2-370m``), hybrid (``--arch
+zamba2-7b``), VLM (``--arch qwen2-vl-72b``) and audio (``--arch
+musicgen-medium``, whole on the card); the last two on synthetic batches
+with seeded standard-normal frontend embeddings.  On the card a config
+whose parameters, gradients and AdamW moments do not fit the card's
+memory raises before anything is allocated (qwen3-moe-30b-a3b, zamba2-7b
+and qwen2-vl-72b at scale 1), and says how many of its layers would.
+The mesh (``Trainer(mesh=...)``, ZeRO-1 moment sharding) is mesh scope
+(ROADMAP queue 1 item 10): ``mesh`` raises and the JAX Trainer's
+``zero1`` is not taken; the clock is ``time.perf_counter`` until ``obs``
+is ported (queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -57,14 +60,15 @@ def train_state_bytes(cfg: ModelConfig) -> int:
 def reduce_config(cfg: ModelConfig, scale: float, *,
                   seq_len: int = 256) -> ModelConfig:
     """Shrink an assigned architecture into a CPU-runnable sibling (same
-    family, same block structure, fewer/narrower layers): the dense, MoE,
-    SSM and hybrid branches of the JAX package's ``reduce_config`` (MoE: at
-    most 8 experts and top-2, ``moe_d_ff`` scaled, capacity factor 4,
-    ``d_ff`` only with a dense residual; SSM and hybrid: ``ssm_state`` and
-    ``ssm_headdim`` at most 32, one group, ``d_model`` at least 64 (after
-    the heads are sized from the narrower width, as there); hybrid:
-    ``attn_every`` clamped to 2-3).  ``seq_len`` sizes the JAX package's
-    frontends, which these families have none of."""
+    family, same block structure, fewer/narrower layers), as the JAX
+    package's ``reduce_config`` does (MoE: at most 8 experts and top-2,
+    ``moe_d_ff`` scaled, capacity factor 4, ``d_ff`` only with a dense
+    residual; SSM and hybrid: ``ssm_state`` and ``ssm_headdim`` at most 32,
+    one group, ``d_model`` at least 64 (after the heads are sized from the
+    narrower width, as there); hybrid: ``attn_every`` clamped to 2-3; VLM
+    and audio: ``frontend_len`` at most ``seq_len // 4``, ``grid_hw`` 4,
+    and M-RoPE's sections recut to the narrower head, a quarter of
+    ``head_dim / 2`` each for h and w and the rest for t)."""
     def s(x, lo=1, mult=1):
         v = max(lo, int(round(x * scale)))
         return -(-v // mult) * mult
@@ -94,6 +98,12 @@ def reduce_config(cfg: ModelConfig, scale: float, *,
         kw["d_model"] = max(64, kw["d_model"])
     if cfg.family == "hybrid":
         kw.update(attn_every=max(2, min(cfg.attn_every, 3)))
+    if cfg.frontend:
+        kw.update(frontend_len=min(cfg.frontend_len, seq_len // 4),
+                  grid_hw=4)
+        if cfg.m_rope:
+            hd2 = kw["head_dim"] // 2
+            kw["mrope_sections"] = (hd2 - 2 * (hd2 // 4), hd2 // 4, hd2 // 4)
     return dataclasses.replace(cfg, name=f"{cfg.name}-x{scale}", **kw)
 
 
@@ -201,7 +211,9 @@ def main(argv=None) -> int:
         data = ByteCorpus(blob, seq_len=args.seq, global_batch=args.batch)
     else:
         data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                           global_batch=args.batch)
+                           global_batch=args.batch,
+                           frontend_len=cfg.frontend_len if cfg.frontend
+                           else 0, d_model=cfg.d_model)
 
     trainer = Trainer(cfg, ckpt_dir=args.ckpt_dir,
                       microbatches=args.microbatches, lr=args.lr,

@@ -54,10 +54,11 @@ def _project_qkv(x, p, cfg):
     return q, k, v
 
 
-def _rope_qk(q, k, cos, sin):
-    # (B, L, H, D) -> (B, H, L, D)
-    q = apply_rope(q.transpose(1, 2), cos, sin)
-    k = apply_rope(k.transpose(1, 2), cos, sin)
+def _rope_qk(q, k, cos, sin, cfg):
+    # (B, L, H, D) -> (B, H, L, D); M-RoPE stitches its three streams
+    sections = cfg.mrope_sections if cfg.m_rope else None
+    q = apply_rope(q.transpose(1, 2), cos, sin, sections)
+    k = apply_rope(k.transpose(1, 2), cos, sin, sections)
     return q, k
 
 
@@ -71,7 +72,7 @@ def attention_apply_kv(x, p: Params, cfg, cos, sin):
     cache layout (B, hk, L, hd): the prefill path of the fixed engine."""
     B, L, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
-    q, k = _rope_qk(q, k, cos, sin)
+    q, k = _rope_qk(q, k, cos, sin, cfg)
     v = v.transpose(1, 2)
     out = dispatch("flash_attention", q, k, v, causal=True,
                    mask=cfg.attn_mask_spec())                # (B, H, L, D)
@@ -87,7 +88,7 @@ def attention_decode(x, p: Params, cfg, cache_k, cache_v, cur_len: int,
     B = x.shape[0]
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(x, p, cfg)                     # (B, 1, ., hd)
-    q, k = _rope_qk(q, k, cos, sin)                       # (B, ., 1, hd)
+    q, k = _rope_qk(q, k, cos, sin, cfg)                  # (B, ., 1, hd)
     cache_k[:, :, cur_len] = k[:, :, 0].to(cache_k.dtype)
     cache_v[:, :, cur_len] = v[:, 0].to(cache_v.dtype)
 
@@ -121,7 +122,7 @@ def attention_decode_paged(x, p: Params, cfg, kpages, vpages, table, lens,
     B = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(x, p, cfg)                     # (B, 1, ., hd)
-    q, k = _rope_qk(q, k, cos, sin)                       # (B, ., 1, hd)
+    q, k = _rope_qk(q, k, cos, sin, cfg)                  # (B, ., 1, hd)
     wp, wo = write_page.long(), write_off.long()
     kpages[wp, :, wo, :] = k[:, :, 0].to(kpages.dtype)    # (B, hk, hd)
     vpages[wp, :, wo, :] = v[:, 0].to(vpages.dtype)
@@ -142,7 +143,7 @@ def attention_chunk(x, p: Params, cfg, kpages, vpages, table_row, start: int,
     _, C, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(x, p, cfg)                     # (1, C, ., hd)
-    q, k = _rope_qk(q, k, cos, sin)                       # (1, ., C, hd)
+    q, k = _rope_qk(q, k, cos, sin, cfg)                  # (1, ., C, hd)
     v = v.transpose(1, 2)
     pi, wo = page_idx.long(), write_off.long()
     kpages[pi, :, wo, :] = k[0].transpose(0, 1).to(kpages.dtype)

@@ -4,7 +4,7 @@
 Parameters are plain dicts of tensors, as the JAX package keeps pytrees.
 dtype policy: parameters are stored in ``cfg.pdtype``, activations in
 ``cfg.act_dtype``; norm variance, rope trig and the MLP activation run in
-f32.  M-RoPE (qwen2-vl) is not ported yet (ROADMAP queue 1 item 7, the VLM family).
+f32.
 """
 from __future__ import annotations
 
@@ -14,8 +14,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rms_norm_init", "rope", "apply_rope", "mlp",
-           "mlp_init", "dense_init", "linear"]
+__all__ = ["rms_norm", "rms_norm_init", "rope", "mrope_positions",
+           "apply_rope", "mlp", "mlp_init", "dense_init", "linear"]
 
 Params = dict[str, Any]
 
@@ -72,7 +72,7 @@ def rms_norm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (RoPE + qwen2-vl's M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope(positions: torch.Tensor, head_dim: int, theta: float
@@ -85,9 +85,41 @@ def rope(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(angles), torch.sin(angles)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+def mrope_positions(seq_len: int, frontend_len: int, grid_hw: int,
+                    device=None) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): 3 position streams (temporal, height, width).
+
+    Patch positions (first ``frontend_len`` slots): t = 0, (h, w) from a
+    square ``grid_hw`` raster.  Text positions: all three streams advance
+    together, offset past the visual block.  Returns (3, seq_len) int32.
+    """
+    idx = torch.arange(seq_len, dtype=torch.int32, device=device)
+    vis = idx < frontend_len
+    zero = torch.zeros_like(idx)
+    text = (idx - frontend_len).clamp_min(0) \
+        + frontend_len // max(grid_hw, 1)
+    return torch.stack([
+        torch.where(vis, zero, text),
+        torch.where(vis, idx // grid_hw, text),
+        torch.where(vis, idx % grid_hw, text),
+    ])
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               mrope_sections: tuple[int, ...] | None = None
                ) -> torch.Tensor:
-    """Rotate pairs.  x: (B, H, L, D); cos/sin: (B, L, D/2)."""
+    """Rotate pairs.  x: (B, H, L, D); cos/sin: (B, L, D/2), or (3, B, L,
+    D/2) for M-RoPE, where ``mrope_sections`` splits D/2 across the 3
+    streams."""
+    if mrope_sections is not None:
+        # stitch per-stream cos/sin along the feature dim
+        bounds = [0]
+        for sec in mrope_sections:
+            bounds.append(bounds[-1] + sec)
+        cos = torch.cat([cos[s, ..., a:b] for s, (a, b) in
+                         enumerate(zip(bounds, bounds[1:]))], dim=-1)
+        sin = torch.cat([sin[s, ..., a:b] for s, (a, b) in
+                         enumerate(zip(bounds, bounds[1:]))], dim=-1)
     cos = cos[:, None, :, :]
     sin = sin[:, None, :, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,5 +1,5 @@
-"""LM: the architecture facade, dense, MoE, SSM and hybrid families
-(counterpart of ``repro.models.lm``, chip scope).
+"""LM: the architecture facade of every family: dense, MoE, SSM, hybrid,
+VLM and audio (counterpart of ``repro.models.lm``, chip scope).
 
     init               seeded random weights on the card (or the CPU)
     forward            full-sequence logits (through ``stack_apply``, with
@@ -33,8 +33,19 @@ the JAX package does.  Nothing is masked before the router: an inactive
 decode slot's token and a chunk's padding are routed and take capacity
 like any other, so capacity couples the requests of a batch.
 
-The other families (vlm, audio) raise NotImplementedError until their
-slice ports them (ROADMAP queue 1 item 7).
+The VLM and audio families are dense backbones behind a stubbed modality
+frontend: ``forward``, ``loss`` (``batch["frontend_embeds"]``) and
+``prefill`` take ``frontend_embeds`` (B, ``cfg.frontend_len``, d_model),
+precomputed patch or frame embeddings that fill the first
+``frontend_len`` positions ahead of the tokens' (a frontend config raises
+ValueError without them).  Positions count the frontend's: a prefill of S
+tokens fills ``frontend_len + S`` cache slots, and ``loss`` drops the
+frontend positions' logits.  With ``cfg.m_rope`` (qwen2-vl) the rotary
+tables come from three position streams (``layers.mrope_positions``:
+patches at t = 0 on a ``grid_hw`` raster, text advancing in all three
+from ``frontend_len // grid_hw``), stitched along the feature dim by
+``cfg.mrope_sections``; the decode step's text position is ``cur_len -
+frontend_len + frontend_len // grid_hw`` in all three streams.
 """
 from __future__ import annotations
 
@@ -50,7 +61,8 @@ from repro_torch.core.containers import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (dense_init, linear, mlp, rms_norm,
+from repro_torch.models.layers import (dense_init, linear, mlp,
+                                       mrope_positions, rms_norm,
                                        rms_norm_init, rope)
 
 Params = dict[str, Any]
@@ -82,10 +94,9 @@ class LM:
 
     def _check_family(self) -> None:
         cfg = self.cfg
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(ROADMAP queue 1 item 7 ports the other families)")
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm",
+                              "audio"):
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
     # ------------------------------------------------------------------
     # init
@@ -133,12 +144,26 @@ class LM:
     # ------------------------------------------------------------------
     # embedding / positions
     # ------------------------------------------------------------------
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               frontend_embeds=None, *, prompt: bool = True) -> torch.Tensor:
+        """The tokens' embeddings in ``cfg.act_dtype``; for a prompt of a
+        frontend config, ``frontend_embeds`` (B, frontend_len, d_model)
+        ahead of them.  Both are scaled where the config scales."""
         cfg = self.cfg
         # F.embedding: its backward adds the rows' gradients in a fixed
         # order on the card (a sort, then segment sums), so training steps
         # give the same bits from run to run
         x = F.embedding(tokens.long(), params["embed"]).to(cfg.act_dtype)
+        if prompt and cfg.frontend is not None:
+            want = (x.shape[0], cfg.frontend_len, cfg.d_model)
+            if frontend_embeds is None:
+                raise ValueError(f"{cfg.name} requires frontend_embeds "
+                                 f"{want} (the stub modality input)")
+            fe = torch.as_tensor(frontend_embeds, device=x.device)
+            if tuple(fe.shape) != want:
+                raise ValueError(f"{cfg.name}: frontend_embeds of shape "
+                                 f"{tuple(fe.shape)}, want {want}")
+            x = torch.cat([fe.to(cfg.act_dtype), x], dim=1)
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.act_dtype,
                                  device=x.device)
@@ -159,20 +184,45 @@ class LM:
         return logits
 
     def _rope_tables(self, batch: int, seq_len: int, device):
-        if not self.cfg.has_attention:
+        """cos/sin (B, L, hd/2) f32 of positions 0..L-1, or (3, B, L,
+        hd/2) of the M-RoPE streams."""
+        cfg = self.cfg
+        if not cfg.has_attention:
             return None, None
-        positions = torch.arange(seq_len, dtype=torch.int32,
-                                 device=device).expand(batch, seq_len)
-        return rope(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        if cfg.m_rope:
+            pos = mrope_positions(seq_len, cfg.frontend_len, cfg.grid_hw,
+                                  device)
+            positions = pos[:, None, :].expand(3, batch, seq_len)
+        else:
+            positions = torch.arange(seq_len, dtype=torch.int32,
+                                     device=device).expand(batch, seq_len)
+        return rope(positions, cfg.head_dim, cfg.rope_theta)
+
+    def _step_rope(self, batch: int, cur: int, device):
+        """cos/sin of a decode step's one position ``cur`` (slots already
+        in the cache, the frontend's included): (B, 1, hd/2), or (3, B,
+        1, hd/2) for M-RoPE, whose text streams advance from the visual
+        block's offset, as ``mrope_positions`` has them."""
+        cfg = self.cfg
+        if cfg.m_rope:
+            pos = cur - cfg.frontend_len \
+                + cfg.frontend_len // max(cfg.grid_hw, 1)
+            shape = (3, batch, 1)
+        else:
+            pos, shape = cur, (batch, 1)
+        positions = torch.full(shape, pos, dtype=torch.int32, device=device)
+        return rope(positions, cfg.head_dim, cfg.rope_theta)
 
     # ------------------------------------------------------------------
     # full-sequence forward and prefill
     # ------------------------------------------------------------------
-    def forward(self, params: Params, tokens: torch.Tensor):
-        """Full-sequence forward -> (logits (B, S, V), aux)."""
+    def forward(self, params: Params, tokens: torch.Tensor,
+                frontend_embeds=None):
+        """Full-sequence forward -> (logits (B, S, V), aux); S counts the
+        frontend's positions."""
         self._check_family()
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, frontend_embeds)
         B, S, _ = x.shape
         cos, sin = self._rope_tables(B, S, x.device)
         if cfg.family == "hybrid":
@@ -203,15 +253,20 @@ class LM:
 
     def loss(self, params: Params, batch: dict):
         """``(loss, metrics)`` of a batch ``{"tokens", "labels"}`` (B, S)
-        int (tensors, or host arrays moved to the parameters' device):
-        token-mean cross entropy of the next-token logits, in f32.  The MoE
-        family adds ``0.01 * aux_lb / L + 1e-3 * aux_z / L`` over its L
-        layers and reports ``metrics["aux_lb"]``."""
+        int (tensors, or host arrays moved to the parameters' device), with
+        ``"frontend_embeds"`` for a frontend config: token-mean cross
+        entropy of the next-token logits, in f32, the frontend positions'
+        logits dropped (they predict no token).  The MoE family adds
+        ``0.01 * aux_lb / L + 1e-3 * aux_z / L`` over its L layers and
+        reports ``metrics["aux_lb"]``."""
         cfg = self.cfg
         dev = params["embed"].device
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)
-        logits, aux = self.forward(params, tokens)
+        logits, aux = self.forward(params, tokens,
+                                   batch.get("frontend_embeds"))
+        if cfg.frontend is not None:
+            logits = logits[:, cfg.frontend_len:, :]
         loss, n = cross_entropy_loss(logits, labels)
         metrics = {"loss": loss, "tokens": n}
         if cfg.family == "moe":
@@ -221,16 +276,17 @@ class LM:
         return loss, metrics
 
     def prefill(self, params: Params, tokens: torch.Tensor,
-                max_len: Optional[int] = None):
+                frontend_embeds=None, max_len: Optional[int] = None):
         """Process the prompt; returns (last-position logits (B, V), cache)
-        with the K/V cache padded to ``max_len`` positions (the SSM family
-        keeps no K/V: its cache is the layers' ``{conv, ssm}`` states; the
-        hybrid's holds both, K/V for each shared-block site).  A prompt of
-        an SSM or hybrid config longer than ``models.ssm.CHUNK`` tokens must
-        be a multiple of it (ValueError otherwise)."""
+        with the K/V cache padded to ``max_len`` positions, which count a
+        frontend config's ``frontend_len`` ahead of the tokens (the SSM
+        family keeps no K/V: its cache is the layers' ``{conv, ssm}``
+        states; the hybrid's holds both, K/V for each shared-block site).
+        A prompt of an SSM or hybrid config longer than ``models.ssm.CHUNK``
+        tokens must be a multiple of it (ValueError otherwise)."""
         self._check_family()
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, frontend_embeds)
         B, S, _ = x.shape
         max_len = max(max_len or S, S)
         cos, sin = self._rope_tables(B, S, x.device)
@@ -328,11 +384,10 @@ class LM:
         cfg = self.cfg
         B = tokens.shape[0]
         cur = int(cache["cur_len"])
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, prompt=False)
         cos = sin = None
         if cfg.has_attention:
-            pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
-            cos, sin = rope(pos, cfg.head_dim, cfg.rope_theta)
+            cos, sin = self._step_rope(B, cur, x.device)
         if cfg.family == "ssm":
             x = self._ssm_decode_stack(params["layers"], x, cache["ssm"], 0)
         elif cfg.family == "hybrid":
@@ -391,6 +446,9 @@ class LM:
         if cfg.family not in ("dense", "moe"):
             raise ValueError(f"paged serving supports dense/moe families, "
                              f"not {cfg.family!r}")
+        if cfg.m_rope or cfg.frontend is not None:
+            raise ValueError("paged serving does not take frontend/m-rope "
+                             "configs")
         if cfg.attn_window:
             raise ValueError("paged serving does not express attn_window "
                              "masks")
@@ -428,7 +486,7 @@ class LM:
         cfg = self.cfg
         lens = state["lens"]
         active = active.to(torch.int32)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, prompt=False)
         cos, sin = rope(lens[:, None], cfg.head_dim, cfg.rope_theta)
 
         table = state["table"]
@@ -463,7 +521,7 @@ class LM:
         self._check_paged()
         cfg = self.cfg
         C = chunk.shape[0]
-        x = self._embed(params, chunk[None])
+        x = self._embed(params, chunk[None], prompt=False)
         dev = x.device
         gpos = start + torch.arange(C, dtype=torch.int32, device=dev)
         cos, sin = rope(gpos[None], cfg.head_dim, cfg.rope_theta)

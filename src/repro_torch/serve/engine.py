@@ -1,19 +1,21 @@
 """Serving engines: the fixed-slot batch and the continuous-batching tier
 (counterpart of ``repro.serve.engine``, chip scope).
 
-:class:`Engine` runs one batched request: a prefill over the padded batch,
-then one decode step per token against a fixed-size cache (K/V, the SSM
-family's recurrent states, or both for the hybrid family), with an EOS
-check lagged by a window so the host does not wait on every step.
+:class:`Engine` runs one batched request: a prefill over the padded batch
+(behind the frontend embeddings of a VLM or audio config), then one decode
+step per token against a fixed-size cache (K/V, the SSM family's recurrent
+states, or both for the hybrid family), with an EOS check lagged by a
+window so the host does not wait on every step.
 
 :class:`ContinuousEngine` (DESIGN.md §13) serves a stream of requests over
 a paged KV cache (``serve/kvcache.py``; the dense and MoE families only,
-as in the JAX package): host-side admission and page accounting
-(``serve/scheduler.py``), one prefill chunk per iteration interleaved
-with one batched decode step over the active slots, and a
-lagged demux of the emitted tokens.  Slot recycling rewrites the
-*contents* of the device-side table/lens/active buffers, never their
-shapes or storage, so the decode step sees the same input tensors for the
+as in the JAX package: the SSM, hybrid, VLM and audio ones raise):
+host-side admission and page accounting (``serve/scheduler.py``), one
+prefill chunk per iteration interleaved with one batched decode step over
+the active slots, and a lagged demux of the emitted tokens.  Slot
+recycling rewrites the *contents* of the device-side table/lens/active
+buffers, never their shapes or storage, so the decode step sees the same
+input tensors for the
 life of the engine (what a captured CUDA graph needs; the JAX engine's
 single jit cache entry plays that part there).
 
@@ -89,18 +91,34 @@ class Engine:
         self.active_backend = registry.requested_backend()
 
     def generate(self, tokens: torch.Tensor, *, max_new_tokens: int = 32,
-                 eos_id: Optional[int] = None, seed: int = 0
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 frontend_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
         """tokens (B, S) prompt on the params' device -> (B, max_new_tokens)
-        generated ids (int32)."""
+        generated ids (int32).  A VLM or audio config takes
+        ``frontend_embeds`` (B, frontend_len, d_model) ahead of the prompt.
+        Raises ValueError, before any work, when the frontend, the prompt
+        and the new tokens do not fit ``max_len`` cache slots (a config
+        with a K/V cache)."""
+        cfg = self.lm.cfg
+        front = cfg.frontend_len if cfg.frontend is not None else 0
+        need = front + tokens.shape[1] + max_new_tokens
+        if cfg.has_attention and need > self.max_len:
+            raise ValueError(
+                f"{cfg.name}: {front} frontend + {tokens.shape[1]} prompt + "
+                f"{max_new_tokens} new positions exceed the engine's max_len "
+                f"{self.max_len}")
         if self.active_backend is None:
-            return self._generate(tokens, max_new_tokens, eos_id, seed)
+            return self._generate(tokens, max_new_tokens, eos_id, seed,
+                                  frontend_embeds)
         with registry.use_backend(self.active_backend):
-            return self._generate(tokens, max_new_tokens, eos_id, seed)
+            return self._generate(tokens, max_new_tokens, eos_id, seed,
+                                  frontend_embeds)
 
-    def _generate(self, tokens, max_new_tokens, eos_id, seed):
+    def _generate(self, tokens, max_new_tokens, eos_id, seed,
+                  frontend_embeds):
         B = tokens.shape[0]
-        logits, cache = self.lm.prefill(self.params, tokens,
+        logits, cache = self.lm.prefill(self.params, tokens, frontend_embeds,
                                         max_len=self.max_len)
         gen = _generator(logits.device, seed)
         nxt = sample_token(gen, logits, self.sampling)

@@ -2148,6 +2148,48 @@ def test_attention_backward_at_head_dim_112_last_columns(dtype, card):
     assert not got[2][..., :96].any()  # dV = P^T dO has dO's columns
 
 
+#: The frontend configs' attention: musicgen-medium's training shape (B 4,
+#: 24/24 heads, GQA group 1, 768 = 256 frame + 512 text positions, d 64)
+#: and qwen2-vl-72b's prefill (64/8, d 128, 1536 = 1024 patch + 512 text
+#: positions; B 1 here).
+FRONTEND_ATTN = [(4, 24, 24, 768, 64), (1, 64, 8, 1536, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,L,d", FRONTEND_ATTN)
+def test_tiles_kernel_at_the_frontend_configs_heads(b, hq, hkv, L, d, dtype,
+                                                    card):
+    """The tiles forward over causal_layout with state, one launch, against
+    its plain version at the two frontend configs' heads."""
+    q, k, v = _attn_inputs(card, dtype, b=b, hq=hq, hkv=hkv, lq=L, lk=L,
+                           d=d, seed=hq)
+    layout = causal_layout(L, L, 128, 128)
+    before = fa_k.flash_attention_tiles.launches
+    got = fa_k.flash_attention_tiles(q, k, v, layout, return_state=True)
+    assert fa_k.flash_attention_tiles.launches == before + 1
+    want = fa_k.flash_attention_tiles_plain(q, k, v, layout,
+                                            return_state=True)
+    for g, w, what in zip(got, want, "oml"):
+        _close(g, w, ATTN_TOL[dtype] * (L if what == "l" else 1),
+               f"{hq}/{hkv} d={d} {dtype} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,L,d", FRONTEND_ATTN)
+def test_attention_backward_at_the_frontend_configs_heads(b, hq, hkv, L, d,
+                                                          dtype, card):
+    """dQ, dK, dV through the autograd wrapper (three launches) against the
+    plain backward at the two frontend configs' heads: GQA group 1 at d 64
+    (musicgen's training) and group 8 at d 128 over 1536 positions
+    (qwen2-vl's gradient check)."""
+    got, want = _bwd_run("causal", dtype, b, hq, hkv, L, d, card)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g).all(), what
+        _close_grad(g, w, dtype, f"{hq}/{hkv} d={d} {dtype} {what}")
+
+
 @pytest.mark.cuda
 def test_attention_backward_bf16_error_within_twice_sdpas(card):
     """At the training attention (bf16, causal tiles, B 4, Hq/Hkv 16/8, L

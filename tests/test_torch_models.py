@@ -251,12 +251,17 @@ def test_prefill_chunk_and_paged_decode_match_jax(models):
 
 
 def test_other_families_raise_not_implemented():
-    """The families not ported yet (vlm, audio; the SSM and hybrid ones
-    have their own tests, test_torch_ssm.py and test_torch_hybrid.py)."""
+    """No family of the JAX package raises NotImplementedError any more:
+    the vlm and audio ones (tests/test_torch_frontends.py) build the dense
+    pytree; a family neither package knows raises ValueError."""
+    base = TLM(TCfg(**SERVE_KW)).init(0, device="cpu")
     for family in ("vlm", "audio"):
         cfg = dataclasses.replace(TCfg(**SERVE_KW), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TLM(cfg).init(0, device="cpu")
+        p = TLM(cfg).init(0, device="cpu")
+        assert sorted(p) == sorted(base) and len(p["layers"]) == 2
+    with pytest.raises(ValueError, match="unknown family"):
+        TLM(dataclasses.replace(TCfg(**SERVE_KW), family="diffusion")).init(
+            0, device="cpu")
 
 
 def test_init_goes_to_the_card_unless_asked(monkeypatch):
