@@ -59,7 +59,16 @@
       Engine's prefill logits on the cuda plane against the torch plane on
       the same tensors; and, at full width in f32 with 2 layers, the
       ContinuousEngine's greedy tokens equal the fixed Engine's per request
-      (a differing token must sit at a top-2 logit margin <= 1e-3).
+      (a differing token must sit at a top-2 logit margin <= 1e-3).  Then
+      the ContinuousEngine serves the same requests again under the span
+      tracer (repro_torch.obs) with the serve and dispatch metrics reset
+      and a heartbeat store: the four serve spans, serve.tokens equal to
+      the tokens emitted, 8 submitted, admitted, recycled and first-token
+      times, the heartbeat's step equal to the loop's iterations, the
+      dispatch counters of paged_attention, chunk_attention and
+      flash_attention_state equal to the lens and tiles launches, and the
+      tokens bitwise equal to the untraced run's; tok/s traced and
+      untraced in turns; the Chrome trace goes to chiprun_out/.
    d. Training qwen3-1.7b at full width (28 layers, bf16 parameters, f32
       AdamW moments, remat): Trainer.fit for 8 steps of 4 x 512 tokens of
       the learnable next-token pattern at lr 3e-4, each step's loss,
@@ -133,6 +142,28 @@
       its layers with the embeddings is 3.37 B parameters, 87.6 GB at the
       26 bytes a parameter a training step holds: no depth trains on one
       card).
+   i. Measured dispatch (last; REPRO_TORCH_* point into a temporary
+      directory for the phase only): (i1) repro_torch.launch.calibrate's
+      autotune sweep at the sources' sizes (matmul n 1024, spmv_ell at
+      mod2as n 10240, spmv_dia and solver_spmv on CG's conf 18 in each
+      container, fft 2^20, spmm n 1024 at k 8 and 64, spgemm n 2048 bs 8,
+      flash_attention at the training shape causal, with a window of L/4
+      and a 16-block pattern, over every candidate block the kernels
+      take), printed with the H100-predicted seconds; (i2) for every
+      case explain's selected variant is the one dispatch ran (its
+      counter), and where calibration ranks two variants (no oracle) the
+      pick is re-timed against the runner-up in turns: confirmed when it
+      wins by more than the margin and the spreads, unresolved when
+      neither does, and the phase fails when the runner-up does; (i3) CG
+      through the calibrated formulation within phase a's residual bar, and
+      attention at the measured blocks against its plain version at those
+      blocks (attn_tol) and against the torch plane; (i4) every case
+      re-dispatched 5 times under drift.collect() flags nothing at ratio
+      4, and a matmul entry made 100x slower is flagged; (i5) host
+      microseconds per dispatch (no model, a memoised model, the tracer
+      on) against calling the variant's impl, and per block resolve (a
+      cache hit; no cache with autotune off).
+      At most 60 s.
 4. Time each kernel, its plain version and the library call (CUDA events
    around each call, with the L2 scrubbed between calls so that inputs come
    from HBM), read the kernel's own device time from a torch.profiler
@@ -166,8 +197,10 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -177,9 +210,9 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
 # float32 FMA rate outside the tensor cores, the bf16 tensor-core rate.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
+# load_peaks() reads them from repro_torch.utils.roofline.H100, their one
+# source, once the port is importable.
+PEAK_BYTES_PER_S = PEAK_F32_FLOP_PER_S = PEAK_BF16_FLOP_PER_S = None
 L2_SCRUB_BYTES = 256 << 20
 #: Kernels whose ptxas report (registers, spills) the build prints; a
 #: name with "Li256" or "Li112" is that head_dim's instantiations alone
@@ -220,10 +253,21 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+def load_peaks() -> None:
+    global PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S, PEAK_BF16_FLOP_PER_S
+    from repro_torch.utils.roofline import H100
+
+    PEAK_BYTES_PER_S = H100.hbm_bw
+    PEAK_F32_FLOP_PER_S = H100.peak_flops_f32
+    PEAK_BF16_FLOP_PER_S = H100.peak_flops
+
+
 def bound_ms(nbytes: float, flops: float,
-             peak_flops: float = PEAK_F32_FLOP_PER_S) -> tuple[float, str]:
+             peak_flops: float | None = None) -> tuple[float, str]:
+    """The larger of the bytes' time at the HBM rate and the operations'
+    at ``peak_flops`` (the f32 FMA rate unless given), in ms."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = flops / (peak_flops or PEAK_F32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1315,6 +1359,123 @@ def fmt_breakdown(b: dict) -> str:
                if host else ""))
 
 
+#: Where phase 2c's traced run saves its Chrome trace (gitignored).
+TRACE_PATH = ROOT / "chiprun_out" / "phase2c_serve_trace.json"
+
+
+def trace_serve(torch, lm, params, reqs, untraced, untraced_s, wrappers,
+                reset, read) -> dict:
+    """Phase 2c's second ContinuousEngine run: the same requests under
+    ``TRACER.tracing()``, the serve and dispatch metrics reset, a heartbeat
+    store.  Checks the span names, the serve counters against the requests,
+    the heartbeat step against the loop's iterations, the dispatch counters
+    against the kernel launch counts, and the tokens bitwise against the
+    untraced run; then serves once more untraced and traced, for tok/s in
+    turns.  Returns the runs' numbers."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.runtime.fault_tolerance import HeartbeatStore
+    from repro_torch.serve import ContinuousEngine, SamplingParams
+
+    tracer, m = obs_trace.TRACER, obs_metrics.METRICS
+
+    def serve_once(traced: bool, beats=None):
+        ce = ContinuousEngine(lm, params, num_slots=SERVE_SLOTS,
+                              max_len=SERVE_MAX_LEN, chunk_size=SERVE_CHUNK,
+                              sampling=SamplingParams(greedy=True),
+                              heartbeats=beats)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with tracer.tracing() if traced else contextlib.nullcontext():
+            got, stats = ce.serve(reqs, collect_stats=True)
+            torch.cuda.synchronize()
+        return got, stats, time.perf_counter() - t
+
+    beats = HeartbeatStore()
+    tracer.clear()
+    m.reset("serve.")
+    m.reset("dispatch.")
+    lens_kernels = wrappers["flash_attention_lens"].kernels
+    reset()
+    got, stats, traced_s = serve_once(True, beats)
+    out = {"s": traced_s, "launches": read(),
+           "lens_kernels": dict(lens_kernels), "events": len(tracer),
+           "dropped": tracer.dropped}
+    ntok = sum(len(x) for x in got)
+    out["iters"] = len(stats.iter_times)
+    TRACE_PATH.parent.mkdir(parents=True, exist_ok=True)
+    tracer.save(str(TRACE_PATH))
+    names = {e["name"] for e in tracer.events()}
+    snap = m.snapshot()
+    tracer.clear()
+    # tok/s in turns: the measured untraced run, the checked traced one,
+    # then one more of each (fresh engines; the host's clock moves between
+    # runs more than the tracer costs)
+    again = [serve_once(False), serve_once(True)]
+    tracer.clear()
+    out["untraced_tok_s"] = [ntok / untraced_s, ntok / again[0][2]]
+    out["tok_s"] = [ntok / traced_s, ntok / again[1][2]]
+    count = {k: int(v["value"]) for k, v in snap.items()
+             if k.startswith("dispatch.") and v["type"] == "counter"}
+    out["dispatch"] = count
+    bad = []
+    spans = ("serve.admit", "serve.prefill_chunk", "serve.decode",
+             "serve.demux")
+    bad += [f"span {n} missing" for n in spans if n not in names]
+    if out["dropped"]:
+        bad.append(f"{out['dropped']} trace events dropped")
+    if int(snap["serve.tokens"]["value"]) != ntok:
+        bad.append(f"serve.tokens {snap['serve.tokens']['value']} != {ntok}")
+    for name in ("serve.submitted", "serve.admitted", "serve.recycled"):
+        if int(snap[name]["value"]) != len(reqs):
+            bad.append(f"{name} {snap[name]['value']} != {len(reqs)}")
+    if snap["serve.ttft_s"]["count"] != len(reqs):
+        bad.append(f"serve.ttft_s count {snap['serve.ttft_s']['count']}")
+    beat = beats.all()[0]
+    if beat.step != out["iters"] or beat.occupancy is None:
+        bad.append(f"heartbeat step {beat.step} != {out['iters']} "
+                   f"iterations")
+    # models/attention.py: the ContinuousEngine's decode dispatches
+    # paged_attention once a layer (gather: flash_attention_state pinned
+    # to cuda with kv_len, the lens decode kernel); its prefill chunks
+    # dispatch chunk_attention once a layer (merge: two pinned
+    # flash_attention_state calls, the lens prefix kernel for the prefix
+    # and the tiles state kernel for the chunk); it never dispatches the
+    # full-sequence flash_attention.
+    lens = out["lens_kernels"]
+    tiles = out["launches"]["flash_attention_tiles"]
+    relation = {
+        "dispatch.paged_attention.gather == lens decode":
+            (count.get("dispatch.paged_attention.gather", 0),
+             lens["decode"]),
+        "dispatch.chunk_attention.merge == lens prefix":
+            (count.get("dispatch.chunk_attention.merge", 0), lens["prefix"]),
+        "dispatch.chunk_attention.merge == tiles":
+            (count.get("dispatch.chunk_attention.merge", 0), tiles),
+        "dispatch.flash_attention_state.cuda == lens + tiles":
+            (count.get("dispatch.flash_attention_state.cuda", 0),
+             out["launches"]["flash_attention_lens"] + tiles),
+        "dispatch.flash_attention.* == dense grid launches":
+            (sum(v for k, v in count.items()
+                 if k.startswith("dispatch.flash_attention.")),
+             out["launches"]["flash_attention"]),
+    }
+    out["relation"] = relation
+    bad += [f"{k}: {a} != {b}" for k, (a, b) in relation.items() if a != b]
+    if any(v == 0 for v, _ in list(relation.values())[:3]):
+        bad.append("a serve attention op was never dispatched")
+    out["bitwise"] = min(sum(np.array_equal(a, b) for a, b in
+                             zip(run, untraced))
+                         for run in (got, again[0][0], again[1][0]))
+    if out["bitwise"] != len(reqs):
+        bad.append(f"traced tokens equal the untraced run on "
+                   f"{out['bitwise']}/{len(reqs)} requests")
+    if bad:
+        raise AssertionError("phase 2c traced run: " + "; ".join(bad))
+    return out
+
+
+
 def run_serve_path(torch, wrappers) -> dict:
     """Phase 2c: qwen3-1.7b at full width in bf16 through both engines
     (launch counts reset just before each engine's measured run and read
@@ -1401,6 +1562,10 @@ def run_serve_path(torch, wrappers) -> dict:
     out["cont_iters"] = len(stats.iter_times)
     out["launches"] = {k: out["fixed_launches"][k] + out["cont_launches"][k]
                        for k in wrappers}
+    out["traced"] = trace_serve(torch, lm, params, reqs, got, out["cont_s"],
+                                wrappers, reset, read)
+    out["launches"] = {k: out["launches"][k]
+                       + out["traced"]["launches"][k] for k in wrappers}
 
     # where the device time goes, on a shorter window of each engine's
     # work (a trace of the whole serve holds ~10^5 kernels and takes
@@ -2593,8 +2758,8 @@ def run_ssm_path(torch, wrappers) -> dict:
 #: Each config at full width through Trainer.fit (TRAIN_STEPS steps of
 #: TRAIN_BATCH x TRAIN_SEQ tokens of the learnable pattern at TRAIN_LR; the
 #: config's dtypes, bf16 activations; f32 AdamW moments; remat), cut in
-#: depth to what one card holds beside the gradients and moments
-#: (launch.train.train_state_bytes): qwen3-moe-30b-a3b to 3 of its 48
+#: depth to what one card holds at the update's peak
+#: (launch.train.update_peak_bytes): qwen3-moe-30b-a3b to 3 of its 48
 #: layers (2.49 B parameters; all 30.5 B need 427 GB), mamba2-370m whole
 #: (None), zamba2-7b to 21 of its 81 (3 groups of 6 mamba layers with the
 #: shared block after each, and a tail of 3; 2.07 B parameters; all 6.75 B
@@ -2944,6 +3109,353 @@ def run_frontend_path(torch, wrappers, train_wrappers) -> dict:
     return out
 
 
+# -- phase 2i: measured dispatch ---------------------------------------------
+
+#: The variables phase 2i points into a temporary directory, and restores.
+MEASURED_ENV = ("REPRO_TORCH_COSTMODEL", "REPRO_TORCH_AUTOTUNE_CACHE",
+                "REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_DRIFT_RATIO")
+#: (i4): re-dispatches of each swept call under drift.collect(), the ratio
+#: that flags, and the factor of the injected stale entry.
+DRIFT_CALLS, DRIFT_RATIO, DRIFT_INJECT = 5, 4.0, 100.0
+#: (i5): calls per host-cost measurement, and rounds of them.
+HOST_CALLS, HOST_ROUNDS = 2000, 5
+#: (i2): rounds of re-timing a calibrated choice against its runner-up.
+RETIME_ROUNDS = 3
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds per call of ``fn`` (enqueue time: no sync in the
+    loop; the card keeps up with these small calls), the garbage collector
+    paused."""
+    from repro_torch.launch.calibrate import gc_paused
+
+    fn()
+    torch.cuda.synchronize()
+    with gc_paused():
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def retime(torch, op, case, chosen: str, runner: str) -> tuple[str, dict]:
+    """(i2)'s second look at a calibrated choice: ``chosen`` (what dispatch
+    runs) and ``runner`` (the fastest other variant calibration ranks)
+    timed in turns, RETIME_ROUNDS times each, as the sweep times them.
+    'confirmed' when the chosen one wins by more than the registry's
+    margin and both spreads, 'contradicted' when the runner-up does,
+    'unresolved' otherwise.  Returns the verdict and each one's median
+    and spread (seconds)."""
+    from repro_torch.core import registry
+    from repro_torch.launch import calibrate
+
+    samples: dict = {chosen: [], runner: []}
+    for _ in range(RETIME_ROUNDS):
+        for name in (chosen, runner):
+            samples[name] += calibrate.timings(
+                lambda: registry.dispatch(op, *case.args, variant=name,
+                                          **case.kwargs), True)
+    stats = {}
+    for name, ts in samples.items():
+        ts.sort()
+        stats[name] = (calibrate.median(ts), calibrate.spread(ts))
+    (c, c_sp), (r, r_sp) = stats[chosen], stats[runner]
+    margin = max(registry.CALIBRATION_MARGIN * min(c, r), c_sp, r_sp)
+    verdict = "confirmed" if r - c > margin else \
+        "contradicted" if c - r > margin else "unresolved"
+    return verdict, stats
+
+
+def run_measured_dispatch(torch, wrappers) -> dict:
+    """Phase 2i: the calibration sweep at the sources' sizes into a
+    temporary cost model and block cache, then (i2) explain and dispatch
+    against each other and a calibrated choice re-timed against its
+    runner-up, (i3) the calibrated choices'
+    results, (i4) drift, (i5) host cost.  Launch counts are reset just
+    before the sweep and read just after (i2).  Returns the phase's
+    numbers."""
+    from repro_torch.core import blocking, costmodel, registry
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ops
+    from repro_torch.launch import calibrate
+    from repro_torch.numerics import solvers
+    from repro_torch.obs import drift
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.sparse.maskcompiler import MaskSpec, compile_layout
+
+    saved = {k: os.environ.get(k) for k in MEASURED_ENV}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_2i_")
+    out: dict = {"seconds": {}}
+    try:
+        os.environ["REPRO_TORCH_COSTMODEL"] = os.path.join(tmp, "cm.json")
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(tmp,
+                                                                "at.json")
+        os.environ["REPRO_TORCH_AUTOTUNE"] = "1"
+        os.environ["REPRO_TORCH_DRIFT_RATIO"] = str(DRIFT_RATIO)
+        t = time.perf_counter()
+        cases = calibrate.default_cases(device="cuda")
+        torch.cuda.synchronize()
+        out["seconds"]["inputs"] = time.perf_counter() - t
+
+        # (i1) the sweep
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        rows = calibrate.autotune_sweep(cases)
+        torch.cuda.synchronize()
+        out["seconds"]["sweep"] = time.perf_counter() - t
+        out["rows"] = rows
+        model = costmodel.get_model()
+
+        # (i2) explain's pick == the dispatched variant; where calibration
+        # had two variants to rank, the pick re-timed against the
+        # runner-up, in turns
+        t = time.perf_counter()
+        m = obs_metrics.METRICS
+        picks = []
+        for op, op_cases in cases.items():
+            for case in op_cases:
+                timed = {r["variant"]: r["seconds"] for r in rows
+                         if r.get("case") == case.label and r["op"] == op
+                         and "blocks" not in r and "seconds" in r}
+                sel = [r["variant"] for r in registry.explain(
+                    op, *case.args, **case.kwargs) if r["selected"]]
+                m.reset(f"dispatch.{op}.")
+                registry.dispatch(op, *case.args, **case.kwargs)
+                ran = [k.rsplit(".", 1)[1] for k, v in
+                       m.snapshot(f"dispatch.{op}.").items()
+                       if v["value"] > 0]
+                if not (len(ran) == 1 and sel == ran and ran[0] in timed):
+                    raise AssertionError(
+                        f"(i2) {op} {case.label}: explain selects {sel}, "
+                        f"dispatch ran {ran}, the sweep timed {timed}")
+                # the variants calibration ranks on the card: no oracle
+                ranked = [n for n in timed
+                          if not registry.REGISTRY.get(op, n).oracle]
+                verdict, again = "static", {}
+                if len(ranked) >= 2:
+                    runner = min((n for n in ranked if n != ran[0]),
+                                 key=timed.get)
+                    verdict, again = retime(torch, op, case, ran[0], runner)
+                    if verdict == "contradicted":
+                        raise AssertionError(
+                            f"(i2) {op} {case.label}: dispatch runs "
+                            f"{ran[0]}, but {runner} beats it re-timed "
+                            f"beyond the margin and the spreads: {again}")
+                picks.append((op, case.label, ran[0], verdict, timed, again))
+        torch.cuda.synchronize()
+        out["launches"] = {k: w.launches for k, w in wrappers.items()}
+        out["picks"] = picks
+        out["seconds"]["i2"] = time.perf_counter() - t
+
+        # (i3) the calibrated choices compute the same function
+        t = time.perf_counter()
+        csr = next(c for c in cases["solver_spmv"]
+                   if c.label.startswith("csr")).args[0]
+        spd_np = csr.todense().astype(np.float64)
+        n_cg = csr.shape[0]
+        b_np = np.random.default_rng(18).standard_normal(n_cg).astype(
+            np.float32)
+        b_card = csr.matvals.new_tensor(b_np)
+        out["cg_variant"] = registry.select("solver_spmv", csr,
+                                            b_card).name
+        res = solvers.cg_solve(csr, b_card, stop=1e-10, max_iters=2 * n_cg)
+        x = res.x.read()
+        out["cg_rel"] = float(np.linalg.norm(spd_np @ x - b_np)
+                              / np.linalg.norm(b_np))
+        out["cg_iters"] = int(res.iterations)
+        if not out["cg_rel"] < 1e-3:
+            raise AssertionError(f"(i3) CG through {out['cg_variant']}: "
+                                 f"relative residual {out['cg_rel']}")
+        out["attn"] = {}
+        cache = blocking.get_cache()
+        for case in cases["flash_attention"]:
+            q, k, v = case.args
+            lq, lk = q.shape[2], k.shape[2]
+            mask = case.kwargs.get("mask")
+            variant = registry.select("flash_attention", *case.args,
+                                      **case.kwargs).name
+            key = blocking.AutotuneCache.key(
+                "flash_attention", ops._fa_dims(q, k, mask),
+                costmodel.dtype_name(q.dtype))
+            entry = cache.entry(key) or {}
+            bq, bk = ops._fa_blocks(lq, lk, entry.get("q"), entry.get("k"))
+            got = ops.flash_attention(q, k, v, **case.kwargs)
+            # its plain version at the same blocks: the same arithmetic
+            # (P rounded to the inputs' dtype before P V), phase 1's bar
+            plain = fa_k.flash_attention_tiles_plain(q, k, v, compile_layout(
+                mask if mask is not None else MaskSpec(causal=True), lq, lk,
+                bq, bk))
+            rtol, atol = attn_tol(torch, q.dtype)
+            what = f"(i3) flash_attention {case.label} at blocks {bq}x{bk}"
+            err = max_err(torch, got.float(), plain.float(), rtol, atol,
+                          f"{what} against its plain version")
+            # the torch plane keeps P in f32: rounding P to bf16 moves o by
+            # at most 2^-8 of max |v| (f32: the same bar as above)
+            with registry.use_backend("torch"):
+                want = ops.flash_attention(q, k, v, **case.kwargs)
+            atol_plane = atol if q.dtype == torch.float32 else \
+                2.0 ** -8 * float(v.abs().max())
+            err_plane = max_err(torch, got.float(), want.float(), rtol,
+                                atol_plane, f"{what} against the torch "
+                                            f"plane")
+            default = ops.flash_attention(q, k, v, block_q=128, block_k=128,
+                                          **case.kwargs)
+            out["attn"][case.label] = {
+                "variant": variant, "err": err, "err_plane": err_plane,
+                "atol_plane": atol_plane,
+                "err_plane_default": float(
+                    (default.float() - want.float()).abs().max()),
+                "blocks": f"{bq}x{bk}", "seconds": entry.get("_seconds")}
+        torch.cuda.synchronize()
+        out["seconds"]["i3"] = time.perf_counter() - t
+
+        # (i4) drift: re-dispatching flags nothing; an injected stale entry
+        # is flagged
+        t = time.perf_counter()
+        drift.DETECTOR.clear()
+        with calibrate.gc_paused():
+            for op, op_cases in cases.items():
+                for case in op_cases:
+                    # one warm call first, as the sweep's timing has one
+                    registry.dispatch(op, *case.args, **case.kwargs)
+                    with drift.collect():
+                        for _ in range(DRIFT_CALLS):
+                            registry.dispatch(op, *case.args, **case.kwargs)
+        out["drift_rows"] = drift.DETECTOR.report()
+        flagged = drift.DETECTOR.flagged()
+        if flagged:
+            raise AssertionError(f"(i4) drift flags at ratio {DRIFT_RATIO}:"
+                                 f" {flagged}")
+        mm = cases["matmul"][0]
+        stored = model.seconds_for("matmul", mm.args)["cuda"]
+        model.record("matmul", "cuda", seconds=stored * DRIFT_INJECT,
+                     args=mm.args)
+        drift.DETECTOR.clear()
+        with drift.collect(), calibrate.gc_paused():
+            for _ in range(DRIFT_CALLS):
+                registry.dispatch("matmul", *mm.args)
+        flagged = drift.DETECTOR.flagged()
+        if [(r["op"], r["variant"]) for r in flagged] != [("matmul",
+                                                           "cuda")]:
+            raise AssertionError(f"(i4) the injected stale matmul entry "
+                                 f"is not flagged: {flagged}, report "
+                                 f"{drift.DETECTOR.report()}, unmatched "
+                                 f"{drift.DETECTOR.unmatched}")
+        out["drift_injected"] = flagged[0]
+        drift.DETECTOR.clear()
+        out["seconds"]["i4"] = time.perf_counter() - t
+
+        # (i5) host cost per call: rounds of each way of calling, the
+        # median of each (the host's clock jumps by microseconds)
+        t = time.perf_counter()
+        a = torch.randn(64, 64, device="cuda")
+        impl = registry.REGISTRY.get("matmul", "cuda").impl
+        costmodel.get_model().record("matmul", "torch", seconds=1.0,
+                                     args=(a, a))
+        costmodel.get_model().record("matmul", "cuda", seconds=1e-5,
+                                     args=(a, a))
+        q, k, v = cases["flash_attention"][0].args
+        dims = ops._fa_dims(q, k)
+        dtype = costmodel.dtype_name(q.dtype)
+        rounds: dict = {}
+        for _ in range(HOST_ROUNDS):
+            os.environ["REPRO_TORCH_COSTMODEL"] = os.path.join(tmp,
+                                                               "none.json")
+            for name, fn in (
+                    ("impl", lambda: impl(a, a)),
+                    ("dispatch", lambda: registry.dispatch("matmul", a, a))):
+                rounds.setdefault(name, []).append(host_us(torch, fn))
+            os.environ["REPRO_TORCH_COSTMODEL"] = os.path.join(tmp,
+                                                               "cm.json")
+            rounds.setdefault("dispatch_model", []).append(host_us(
+                torch, lambda: registry.dispatch("matmul", a, a)))
+            with obs_trace.TRACER.tracing():
+                rounds.setdefault("dispatch_traced", []).append(host_us(
+                    torch, lambda: registry.dispatch("matmul", a, a)))
+            obs_trace.TRACER.clear()
+            rounds.setdefault("resolve_hit", []).append(host_us(
+                torch, lambda: blocking.resolve_blocks(
+                    "flash_attention", dims, dtype, ops._FA_DEFAULTS,
+                    ops._FA_CANDIDATES)))
+            # the default path: no cache file, autotune off
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+                tmp, "none-at.json")
+            os.environ.pop("REPRO_TORCH_AUTOTUNE")
+            rounds.setdefault("resolve_untuned", []).append(host_us(
+                torch, lambda: blocking.resolve_blocks(
+                    "flash_attention", dims, dtype, ops._FA_DEFAULTS,
+                    ops._FA_CANDIDATES)))
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+                tmp, "at.json")
+            os.environ["REPRO_TORCH_AUTOTUNE"] = "1"
+        host = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+        out["host_rounds"] = rounds
+        out["host_us"] = host
+        out["seconds"]["i5"] = time.perf_counter() - t
+    finally:
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    return out
+
+
+
+def report_measured_dispatch(md: dict, card: str) -> None:
+    """Log phase 2i's table and checks (:func:`run_measured_dispatch`)."""
+    log(f"  (i1) calibration sweep on {card}: op, case, variant, blocks, "
+        f"measured ms (whole dispatched call), H100-predicted ms, ratio")
+    for r in md["rows"]:
+        if "premeasured" in r:
+            log(f"    {r['op']} {r['case']}: blocks premeasured "
+                f"{r['premeasured']}")
+            continue
+        pred = r.get("predicted_seconds")
+        log(f"    {r['op']} {r['case']} {r['variant']} "
+            f"{r.get('blocks', '-')} {r['seconds'] * 1e3:.5f}"
+            + (f" {pred * 1e3:.5f} x{r['seconds'] / pred:.2f}"
+               if pred else ""))
+    log("  (i2) explain == dispatch; a calibrated choice re-timed against "
+        "its runner-up in turns (median / spread ms): " + "; ".join(
+            f"{op} {label} {ran} {verdict}" + (
+                " (" + ", ".join(f"{n} {med * 1e3:.4f} / {sp * 1e3:.4f}"
+                                 for n, (med, sp) in again.items()) + ")"
+                if again else "") + (
+                " (sweep: " + ", ".join(f"{n} {t * 1e3:.4f}"
+                                        for n, t in timed.items()) + ")"
+                if len(timed) > 1 else "")
+            for op, label, ran, verdict, timed, again in md["picks"]))
+    log(f"  (i3) CG conf 18 through {md['cg_variant']}: {md['cg_iters']} "
+        f"iterations, relative residual {md['cg_rel']:.2e}; attention at "
+        f"measured blocks, max |err| against the plain version at those "
+        f"blocks, and against the torch plane (bar) beside the default "
+        f"128x128 blocks' distance to it: " + "; ".join(
+            f"{k} {v['variant']} {v['blocks']} {v['err']:.3g}, "
+            f"{v['err_plane']:.3g} ({v['atol_plane']:.3g}) vs "
+            f"{v['err_plane_default']:.3g}"
+            for k, v in md["attn"].items()))
+    worst = md["drift_rows"][0]            # the report sorts worst first
+    log(f"  (i4) drift at ratio {DRIFT_RATIO}: {len(md['drift_rows'])} "
+        f"keys observed {DRIFT_CALLS}x each, none flagged (worst "
+        f"{worst['op']} {worst['variant']} ratio {worst['ratio']}); "
+        f"matmul cuda injected at {DRIFT_INJECT:g}x flagged at ratio "
+        f"{md['drift_injected']['ratio']}")
+    hu = md["host_us"]
+    log(f"  (i5) host us per call, median of {HOST_ROUNDS} rounds of "
+        f"{HOST_CALLS} (matmul 64 x 64): impl {hu['impl']:.2f}, dispatch no "
+        f"model {hu['dispatch']:.2f}, memoised model "
+        f"{hu['dispatch_model']:.2f}, tracer on {hu['dispatch_traced']:.2f}; "
+        f"resolve_blocks cache hit {hu['resolve_hit']:.2f}, no cache and "
+        f"autotune off {hu['resolve_untuned']:.2f}; rounds "
+        + "; ".join(f"{k} " + " ".join(f"{x:.2f}" for x in v)
+                    for k, v in md["host_rounds"].items()))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2956,6 +3468,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    load_peaks()
     # f32 products run in full precision: the yardstick must not use TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3259,6 +3772,16 @@ def main() -> int:
         f"argmax agreement {serve['a_argmax_agree']:.3f}")
     log(f"  (b) f32, 2 layers: {serve['b_equal']}/{len(SERVE_REQS)} requests "
         f"token-equal; margins at divergences {serve['b_margins']}")
+    tr = serve["traced"]
+    log(f"  traced ContinuousEngine run (TRACER on, metrics reset, a "
+        f"heartbeat store): tok/s in turns untraced, traced, untraced, "
+        f"traced: {tr['untraced_tok_s'][0]:.1f}, {tr['tok_s'][0]:.1f}, "
+        f"{tr['untraced_tok_s'][1]:.1f}, {tr['tok_s'][1]:.1f}; "
+        f"{tr['iters']} iterations, "
+        f"{tr['events']} trace events ({TRACE_PATH.name}); tokens bitwise "
+        f"equal to the untraced run on {tr['bitwise']}/{len(SERVE_REQS)} "
+        f"requests; " + ", ".join(f"{k} ({a} = {b})" for k, (a, b)
+                                  in tr["relation"].items()))
 
     # -- phase 2d: the training path, counted -------------------------------
     train_wrappers = {**attn_wrappers,
@@ -3629,6 +4152,26 @@ def main() -> int:
         f"{D_REL_TOL}): worst {max(vd.values()):.3g}; wq "
         f"{max(v for k, v in vd.items() if 'wq' in k):.3g}; in "
         f"{front['vlm_d']['s']:.1f} s")
+    # -- phase 2i: measured dispatch, counted ------------------------------
+    measured_wrappers = {**wrappers, **sparse_wrappers, **attn_wrappers}
+    t_path = time.perf_counter()
+    md = run_measured_dispatch(torch, measured_wrappers)
+    md_s = time.perf_counter() - t_path
+    log(f"phase 2i: measured dispatch in {md_s:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in md["seconds"].items())
+        + f"); kernel launches {md['launches']}")
+    report_measured_dispatch(md, smi[0])
+    expect = ("matmul", "spmv_ell", "spmv_dia", "fft_stage", "spmm_ell",
+              "spmm_bsr", "spgemm_bsr", "flash_attention_tiles")
+    missing = [k for k in expect if md["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on phase 2i's path: "
+                             f"{missing}")
+    if md_s > 60:
+        raise AssertionError(f"phase 2i took {md_s:.1f} s, above 60 s")
+    for k, n in md["launches"].items():
+        launches[k] += n
+
     KEYS = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernel_ms")
     out = []

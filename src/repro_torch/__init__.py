@@ -3,7 +3,8 @@
 A package beside ``repro`` (the JAX/Pallas reference).  It imports ``torch``
 and numpy, never ``jax`` and nothing of ``repro``.
 
-    core       the DSL: containers, operators, control flow, registry
+    core       the DSL: containers, operators, control flow, registry,
+               the measured cost model and block cache
     kernels    hand-written CUDA kernels (``kernels/csrc``), their plain
                PyTorch versions and the registered entry points
     numerics   the paper's four Euroben kernels, CG and block-CG
@@ -17,8 +18,11 @@ and numpy, never ``jax`` and nothing of ``repro``.
     checkpoint async checkpoints in the JAX package's on-disk layout
     runtime    heartbeats, failure verdicts, the training supervisor
     serve      the fixed and continuous-batching engines, the paged cache
+    obs        spans (Chrome traces), counters and histograms, drift of
+               the cost model, ``explain``
     launch     command-line entry points (``python -m
-               repro_torch.launch.train``, ``... .launch.serve``)
+               repro_torch.launch.train``, ``... .launch.serve``,
+               ``... .launch.calibrate``)
     interop    carries the JAX package's objects (as numpy) across
-    utils      parameter trees
+    utils      parameter trees, the card's roofline record
 """

@@ -23,7 +23,7 @@ Selection rules (DESIGN.md §6, with the device rule of the port):
     2. The operands' device selects the plane: CUDA tensors select 'cuda',
        host tensors select 'torch'.  Variants are ordered (requested plane
        first, cost, name) and the first admissible one that accepts the
-       arguments wins.
+       arguments wins; calibrated seconds, below, come before the cost.
     3. ``use_backend('cuda')`` with host operands raises.
        ``use_backend('torch')`` on CUDA operands is an explicit request for
        the plain version and is honoured.  Without that request a 'torch'
@@ -31,11 +31,38 @@ Selection rules (DESIGN.md §6, with the device rule of the port):
        a kernel to the plain version; a kernel that fails to build or
        launch raises.
 
+Calibration (DESIGN.md §11): when the measured cost model
+(:mod:`repro_torch.core.costmodel`) holds whole-call seconds for this call's
+shape class for at least two variants admissible on the operands' device
+('cuda' and the DSL formulations of ``plane=None`` on CUDA operands,
+'torch' and ``plane=None`` on the host), those variants rank first,
+fastest first; but a measurement reorders two of them only when they
+differ by more than :data:`CALIBRATION_MARGIN` of the faster and by more
+than either's recorded spread, and variants closer than that keep their
+static order.  Calibration never crosses the device rule: a 'torch'
+variant's seconds never promote it on CUDA operands, neither do an
+oracle's (``oracle=True``: a plane-free variant whose body is the plain
+reference, such as spgemm's ``dense``), and an explicit ``use_backend``
+request disables it (the knob is an instruction, the model a
+measurement).  With no model file
+nothing is re-ranked and a dispatch costs two counter bumps more than an
+uninstrumented one; a loaded model's ranking is memoised per (op,
+signature, dtype, device, requested plane) and dropped by the model's next
+``record``.
+
+Observability (DESIGN.md §14): :func:`explain` returns the ranked
+candidate table with a reason on every loser, from the same ranking and
+predicates :func:`select` uses; :func:`dispatch` counts
+``dispatch.<op>.<variant>`` and ``dispatch.falloff.<op>`` always, records a
+span only while the tracer is on, and times whole calls (with a
+``torch.cuda.synchronize``) only under :func:`repro_torch.obs.drift.collect`.
+
 Providers register lazily: ops are declared here by module path and imported
 on first dispatch, so upper layers depend only on this module.
 
-Not ported yet: the measured cost model, observability (``explain``, spans,
-counters) and mesh topology (ROADMAP queue 1 items 8 and 10).
+Mesh scope (the reference's 'mesh' variants, topology, and the scope part
+of the cost-model keys) waits for ROADMAP queue 1 item 10: every key here
+is ``...|chip|-``.
 """
 from __future__ import annotations
 
@@ -43,19 +70,30 @@ import contextlib
 import dataclasses
 import importlib
 import threading
-from typing import Any, Callable, Iterator, Optional
+import time
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core import execlevel
+from repro_torch.core import blocking, costmodel, execlevel
+from repro_torch.obs import drift as obs_drift
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["Variant", "SelectContext", "OperatorRegistry", "REGISTRY",
            "Cost", "register", "unregister", "dispatch", "select",
-           "variants", "ops", "use_backend", "requested_backend",
-           "resolve_backend", "device_type_of", "PLANES"]
+           "explain", "select_context", "variants", "ops", "use_backend",
+           "requested_backend", "resolve_backend", "device_type_of",
+           "PLANES"]
 
 #: The kernel retargeting planes.
 PLANES = ("cuda", "torch")
+
+#: A measurement reorders two calibrated variants only when the slower
+#: one's seconds exceed the faster one's by more than this fraction of the
+#: faster (and by more than either's recorded spread): closer than that, a
+#: whole-call difference is within the host clock's movement between runs.
+CALIBRATION_MARGIN = 0.05
 
 
 class Cost:
@@ -115,18 +153,20 @@ def device_type_of(*operands: Any) -> str:
     return "cpu"
 
 
-@dataclasses.dataclass(frozen=True)
-class SelectContext:
-    """What variant selection may look at: the level and the operands'
-    device type ('cuda' or 'cpu')."""
+class SelectContext(NamedTuple):
+    """What variant selection may look at: the level, the operands' device
+    type ('cuda' or 'cpu') and the requested plane.  (A named tuple: every
+    dispatch makes one.)"""
     level: execlevel.ExecLevel
     device: str
     requested: Optional[str] = None
 
 
-def _select_context(args: tuple, kwargs: dict) -> SelectContext:
+def select_context(*operands: Any) -> SelectContext:
+    """The context variant selection sees right now for these operands
+    (a call's positional and keyword argument values)."""
     return SelectContext(level=execlevel.current().level,
-                         device=device_type_of(*args, *kwargs.values()),
+                         device=device_type_of(*operands),
                          requested=requested_backend())
 
 
@@ -139,6 +179,9 @@ class Variant:
     cost: float = 10.0
     accepts: Optional[Callable[..., bool]] = None
     doc: str = ""
+    #: a plane-free variant whose body is the plain reference: admissible
+    #: everywhere, but its seconds never re-rank it on CUDA operands
+    oracle: bool = False
 
     def is_available(self, ctx: SelectContext) -> bool:
         if self.plane == "cuda":
@@ -146,6 +189,14 @@ class Variant:
         if self.plane == "torch":
             return ctx.device == "cpu" or ctx.requested == "torch"
         return True
+
+    def unavailable_reason(self, ctx: SelectContext) -> str:
+        """Why :meth:`is_available` says no (explain's wording)."""
+        if self.plane == "cuda":
+            return ("plane-unavailable: 'cuda' needs CUDA operands; these "
+                    "lie on the host")
+        return ("plane-unavailable: 'torch' runs on CUDA operands only "
+                "under use_backend('torch')")
 
     def matches(self, *args: Any, **kwargs: Any) -> bool:
         return self.accepts(*args, **kwargs) if self.accepts is not None \
@@ -195,24 +246,36 @@ def resolve_backend(*operands: Any) -> str:
 # the registry
 # ---------------------------------------------------------------------------
 
+#: Memoised rankings a registry keeps before it starts over.
+RANK_MEMO = 4096
+
+
 class OperatorRegistry:
     def __init__(self) -> None:
         self._ops: dict[str, dict[str, Variant]] = {}
         self._lock = threading.Lock()
+        #: bumped by register/unregister; part of every memo key
+        self._version = 0
+        #: (op, dims, dtype, device, model path, model version, registry
+        #: version) -> (ranked variants, calibrated (seconds, rank), the
+        #: ranked variants admissible on the context's device)
+        self._memo: dict[tuple, tuple[list, dict, list]] = {}
 
     def register(self, op: str, name: str, impl: Optional[Callable] = None,
                  *, plane: Optional[str] = None, cost: float = 10.0,
                  accepts: Optional[Callable[..., bool]] = None,
-                 doc: str = ""):
+                 doc: str = "", oracle: bool = False):
         """Register a variant.  Usable directly or as a decorator."""
         if impl is None:
             def deco(fn: Callable) -> Callable:
                 self.register(op, name, fn, plane=plane, cost=cost,
-                              accepts=accepts, doc=doc)
+                              accepts=accepts, doc=doc, oracle=oracle)
                 return fn
             return deco
         if plane is not None and plane not in PLANES:
             raise ValueError(f"unknown plane {plane!r} for {op}/{name}")
+        if oracle and plane is not None:
+            raise ValueError(f"{op}/{name}: an oracle is plane-free")
         with self._lock:
             table = self._ops.setdefault(op, {})
             if name in table:
@@ -221,7 +284,9 @@ class OperatorRegistry:
                     f"unregister it first to replace")
             table[name] = Variant(op=op, name=name, impl=impl, plane=plane,
                                   cost=cost, accepts=accepts,
-                                  doc=doc or impl.__doc__ or "")
+                                  doc=doc or impl.__doc__ or "",
+                                  oracle=oracle)
+            self._version += 1
         return impl
 
     def unregister(self, op: str, name: Optional[str] = None) -> None:
@@ -231,6 +296,7 @@ class OperatorRegistry:
                 self._ops.pop(op, None)
             else:
                 self._ops.get(op, {}).pop(name, None)
+            self._version += 1
 
     def _table(self, op: str) -> dict[str, Variant]:
         for module in _PROVIDERS.get(op, ()):
@@ -257,25 +323,98 @@ class OperatorRegistry:
         return table[name]
 
     @staticmethod
-    def _ranked(ctx: SelectContext, table: dict[str, Variant]
-                ) -> list[Variant]:
-        """All variants in selection order: requested plane, cost, name."""
-        req = ctx.requested
-        return sorted(table.values(),
-                      key=lambda v: (0 if req is not None and v.plane == req
-                                     else 1, v.cost, v.name))
+    def _calibrated(op: str, args: tuple, kwargs: dict,
+                    ctx: SelectContext, table: dict[str, Variant],
+                    model: "costmodel.CostModel"
+                    ) -> dict[str, tuple[float, float]]:
+        """Measured whole-call seconds of the variants admissible on the
+        operands' device, from the cost model, as ``{name: (seconds,
+        rank)}`` — ``{}`` when the model holds fewer than two of them for
+        this shape class (a singleton measurement must not promote the one
+        variant that happened to be measured, and a variant of another
+        plane, or an oracle on CUDA operands, is never counted).  ``rank``
+        is 0 for every variant no slower than the fastest by more than the
+        margin (:data:`CALIBRATION_MARGIN`, or either's spread): those
+        keep their static order.  A slower one ranks by its seconds."""
+        records = model.records_for(op, args, kwargs)
+        on_card = ctx.device == "cuda"
+        counted = {name: rec for name, rec in records.items()
+                   if name in table and table[name].is_available(ctx)
+                   and not (on_card and table[name].oracle)}
+        if len(counted) < 2:
+            return {}
+        fast = min(counted.values(), key=lambda r: r["seconds"])
+        out = {}
+        for name, rec in counted.items():
+            margin = max(CALIBRATION_MARGIN * fast["seconds"],
+                         fast.get("spread", 0.0), rec.get("spread", 0.0))
+            behind = rec["seconds"] - fast["seconds"] > margin
+            out[name] = (rec["seconds"], rec["seconds"] if behind else 0.0)
+        return out
 
-    def _select(self, op: str, args: tuple, kwargs: dict) -> Variant:
-        ctx = _select_context(args, kwargs)
+    @staticmethod
+    def _ranked(ctx: SelectContext, table: dict[str, Variant],
+                measured: Optional[dict[str, tuple[float, float]]] = None
+                ) -> list[Variant]:
+        """All variants in selection order: calibrated (by rank), requested
+        plane, cost, name."""
+        measured = measured or {}
+        req = ctx.requested
+        return sorted(
+            table.values(),
+            key=lambda v: ((0, measured[v.name][1]) if v.name in measured
+                           else (1, 0.0),
+                           0 if req is not None and v.plane == req else 1,
+                           v.cost, v.name))
+
+    def _ranking(self, op: str, args: tuple, kwargs: dict,
+                 ctx: SelectContext, table: dict[str, Variant]
+                 ) -> tuple[list[Variant], dict[str, tuple[float, float]],
+                            list[Variant]]:
+        """:meth:`_ranked` for this call, the calibrated (seconds, rank)
+        that shaped the order, and the ranked variants admissible on the
+        operands' device — the one ranking both :meth:`select` and
+        :meth:`explain` consume, so they cannot diverge.  An explicit
+        plane request disables calibration; an empty model costs one
+        length check; every ranking is memoised."""
+        req = ctx.requested
+        model = costmodel.get_model()
+        calibrate = req is None and len(model) > 0
+        if calibrate:
+            memo_key = (op, _call_key(args, kwargs), ctx.device, model.path,
+                        model.version, self._version)
+        else:
+            memo_key = (op, req, ctx.device, self._version)
+        hit = self._memo.get(memo_key)
+        if hit is not None:
+            return hit
+        measured = self._calibrated(op, args, kwargs, ctx, table, model) \
+            if calibrate else {}
+        ranked = self._ranked(ctx, table, measured)
+        out = (ranked, measured, [v for v in ranked if v.is_available(ctx)])
+        if len(self._memo) >= RANK_MEMO:
+            self._memo.clear()
+        self._memo[memo_key] = out
+        return out
+
+    def _select(self, op: str, args: tuple, kwargs: dict
+                ) -> tuple[Variant, SelectContext, int]:
+        """The winner, its context, and how many admissible variants
+        ranked ahead of it were rejected by their ``accepts`` (> 0 is a
+        fall-off: a higher-ranked kernel of this plane refused the
+        arguments)."""
+        ctx = select_context(*args, *kwargs.values())
         if ctx.requested == "cuda" and ctx.device != "cuda":
             raise RuntimeError(f"{op}: the 'cuda' plane was requested but "
                                f"the operands lie on the host")
-        for v in self._ranked(ctx, self._table(op)):
-            if v.is_available(ctx) and v.matches(*args, **kwargs):
-                return v
+        table = self._table(op)
+        for rejected, v in enumerate(
+                self._ranking(op, args, kwargs, ctx, table)[2]):
+            if v.matches(*args, **kwargs):
+                return v, ctx, rejected
         raise LookupError(
             f"no variant of op {op!r} takes these arguments on "
-            f"{ctx.device!r}; registered: {sorted(self._table(op))}")
+            f"{ctx.device!r}; registered: {sorted(table)}")
 
     def select(self, op: str, *args: Any, variant: Optional[str] = None,
                **kwargs: Any) -> Variant:
@@ -287,13 +426,154 @@ class OperatorRegistry:
                 raise RuntimeError(f"{op}: variant {variant!r} is a CUDA "
                                    f"kernel but the operands lie on the host")
             return v
-        return self._select(op, args, kwargs)
+        return self._select(op, args, kwargs)[0]
+
+    def explain(self, op: str, *args: Any, variant: Optional[str] = None,
+                **kwargs: Any) -> list[dict]:
+        """The full ranked candidate table for this call, without
+        executing or measuring anything (DESIGN.md §14).
+
+        One row per variant in selection order.  Each carries the ranking
+        inputs (``cost``, ``calibrated_seconds``, ``source``) and the
+        verdict: ``selected`` on exactly one row (the variant
+        :meth:`dispatch` would run — same ranking, same predicates), and
+        on every loser a ``reason``:
+
+            plane-unavailable       a 'cuda' variant on host operands, or
+                                    a 'torch' variant on CUDA operands
+                                    without use_backend('torch')
+            accepts-predicate       ``accepts(*args)`` said no (includes
+                                    the block-sparse density gate)
+            outranked-by-calibration  admissible, but a measured variant
+                                    ranked ahead
+            outranked               admissible, beaten on static order
+
+        When every candidate is rejected (the error dispatch would raise),
+        every row carries ``no_variant_selected``.  A predicate that
+        *raises* is reported as a rejection with the exception inline —
+        explain is a diagnostic and must survive what it diagnoses."""
+        ctx = select_context(*args, *kwargs.values())
+        table = self._table(op)
+        base = {"op": op, "scope": "chip", "out_sharding": None,
+                "level": ctx.level.name, "ambient_scope": "chip",
+                "mesh": "-", "device": ctx.device}
+        if variant is not None:
+            pin = self.get(op, variant)
+            ok = not (pin.plane == "cuda" and ctx.device != "cuda")
+            return [{**base, "rank": 0, "variant": pin.name,
+                     "plane": pin.plane, "cost": pin.cost,
+                     "calibrated_seconds": None, "source": "pinned",
+                     "selected": ok, "no_variant_selected": not ok,
+                     "reason": "selected: explicit variant= pin" if ok
+                     else pin.unavailable_reason(ctx)}]
+        ranked, measured, _ = self._ranking(op, args, kwargs, ctx, table)
+        bad_request = ctx.requested == "cuda" and ctx.device != "cuda"
+        rows: list[dict] = []
+        winner_calibrated = False
+        have_winner = False
+        for i, v in enumerate(ranked):
+            row = {**base, "rank": i, "variant": v.name, "plane": v.plane,
+                   "cost": v.cost,
+                   "calibrated_seconds": measured[v.name][0]
+                   if v.name in measured else None,
+                   "source": "calibrated" if v.name in measured
+                   else "static", "selected": False}
+            if bad_request:
+                row["reason"] = ("plane-unavailable: the 'cuda' plane was "
+                                 "requested but the operands lie on the "
+                                 "host")
+            elif not v.is_available(ctx):
+                row["reason"] = v.unavailable_reason(ctx)
+            else:
+                try:
+                    ok = v.matches(*args, **kwargs)
+                    why = "accepts-predicate: rejected these arguments" \
+                        + (f" — {v.doc}" if v.doc else "")
+                except Exception as e:          # diagnose, don't die
+                    ok, why = False, ("accepts-predicate raised "
+                                      f"{type(e).__name__}: {e}")
+                if not ok:
+                    row["reason"] = why
+                elif not have_winner:
+                    have_winner = True
+                    winner_calibrated = v.name in measured
+                    row["selected"] = True
+                    row["reason"] = "selected: first admissible in rank " \
+                        "order" + (" (calibrated)" if winner_calibrated
+                                   else "")
+                else:
+                    row["reason"] = ("outranked-by-calibration: admissible,"
+                                     " but a measured variant ranked ahead"
+                                     if winner_calibrated and
+                                     v.name not in measured
+                                     else "outranked: admissible, beaten "
+                                     "on rank order")
+            rows.append(row)
+        if not have_winner:
+            for row in rows:
+                row["no_variant_selected"] = True
+        return rows
 
     def dispatch(self, op: str, *args: Any, variant: Optional[str] = None,
                  **kwargs: Any) -> Any:
-        """Select (per the module docstring's rules) and invoke."""
-        v = self.select(op, *args, variant=variant, **kwargs)
-        return v.impl(*args, **kwargs)
+        """Select (per the module docstring's rules) and invoke.
+
+        Instrumented (DESIGN.md §14): per-(op, variant) selection counts
+        and fall-off counts are always on (two dict bumps); a span per
+        dispatch while the tracer is enabled; whole-call drift timing
+        only under :func:`repro_torch.obs.drift.collect`, where a call on
+        CUDA operands is bracketed by ``torch.cuda.synchronize()`` — a
+        host sync no default path pays — and never while a CUDA graph is
+        being captured."""
+        metrics = obs_metrics.METRICS
+        if variant is not None:
+            v = self.select(op, *args, variant=variant, **kwargs)
+            metrics.counter(f"dispatch.{op}.{v.name}").inc()
+            return v.impl(*args, **kwargs)
+        v, ctx, rejected = self._select(op, args, kwargs)
+        metrics.counter(f"dispatch.{op}.{v.name}").inc()
+        if rejected:
+            metrics.counter(f"dispatch.falloff.{op}").inc()
+        tracer = obs_trace.TRACER
+        if not (tracer.enabled or obs_drift.collecting()):
+            return v.impl(*args, **kwargs)
+        if rejected:
+            tracer.event("dispatch.falloff", cat="dispatch", op=op,
+                         variant=v.name, rejected=rejected)
+        with tracer.span(f"dispatch:{op}", cat="dispatch", op=op,
+                         variant=v.name, plane=str(v.plane), scope="chip",
+                         level=ctx.level.name, mesh="-"):
+            if not obs_drift.collecting() or (ctx.device == "cuda"
+                                              and blocking.capturing()):
+                return v.impl(*args, **kwargs)
+            on_card = ctx.device == "cuda"
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = v.impl(*args, **kwargs)
+            if on_card:
+                torch.cuda.synchronize()
+            obs_drift.DETECTOR.observe(op, v.name, time.perf_counter() - t0,
+                                       args, kwargs)
+            return out
+
+
+def _call_key(args: tuple, kwargs: dict) -> tuple:
+    """What the cost model's lookup reads of a call (each argument's shape
+    and dtype, structured arguments' ``cost_dims``, int and bool keywords),
+    as a hashable key: the memoised ranking's, cheaper than the
+    signature's strings."""
+    key = []
+    for a in args:
+        key.append((getattr(a, "shape", None), getattr(a, "dtype", None)))
+        if callable(getattr(a, "cost_dims", None)):
+            key.append(tuple(a.cost_dims().items()))
+    for k, v in kwargs.items():
+        if isinstance(v, (bool, int)):
+            key.append((k, v))
+        elif callable(getattr(v, "cost_dims", None)):
+            key.append((k, tuple(v.cost_dims().items())))
+    return tuple(key)
 
 
 #: Process-global registry instance.
@@ -303,5 +583,6 @@ register = REGISTRY.register
 unregister = REGISTRY.unregister
 dispatch = REGISTRY.dispatch
 select = REGISTRY.select
+explain = REGISTRY.explain
 variants = REGISTRY.variants
 ops = REGISTRY.ops

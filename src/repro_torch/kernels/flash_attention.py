@@ -94,7 +94,7 @@ __all__ = ["NEG_INF", "merge_states", "flash_attention",
            "fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq", "softmax_lse",
            "column_walk", "CardLayout",
            "LensPartition", "lens_partition", "lens_blocks", "HEAD_DIMS",
-           "MAX_BLOCK_K"]
+           "MAX_BLOCK_K", "takes_blocks"]
 
 #: head_dim values the kernels (dense grid, tiles, lens and the three
 #: backward kernels) are compiled for.
@@ -114,6 +114,14 @@ LENS_CTAS_PER_SM = 4
 LENS_MAX_SPLITS = 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def takes_blocks(block_q: int, block_k: int, head_dim: int) -> bool:
+    """The kernels' stated domain of blocks: any Q tile, K tiles of at most
+    :data:`MAX_BLOCK_K` keys, head_dim in :data:`HEAD_DIMS`.  Measured
+    block selection (``kernels/ops.py``) runs no candidate outside it."""
+    return block_q >= 1 and 1 <= block_k <= MAX_BLOCK_K \
+        and head_dim in HEAD_DIMS
 
 
 def merge_states(a, b):

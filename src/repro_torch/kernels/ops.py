@@ -10,15 +10,26 @@ module registers one variant per plane for each op:
 
 CUDA operands select 'cuda', host operands 'torch'; ``backend('torch')``
 asks for the plain version on the card explicitly.
+
+``flash_attention``'s 'cuda' and 'blocksparse' variants resolve their
+blocks through :func:`repro_torch.core.blocking.resolve_blocks`, keyed
+``b, h, lq, lk, d`` (plus the mask's fingerprint for the tile walk):
+pinned blocks, else a cached measurement, else 128/128.  With
+``REPRO_TORCH_AUTOTUNE=1`` an uncached call measures the reference's
+candidates that the kernels take (:func:`fa_candidates`) and persists the
+winner.  Their ``accepts`` predicates, ``explain`` and the other attention
+entry points (``flash_attention_state``, hence the paged and chunked
+serve paths) never measure: they run pinned or default blocks.
 """
 from __future__ import annotations
 
 import functools
+import time
 from typing import Callable, Sequence
 
 import torch
 
-from repro_torch.core import registry
+from repro_torch.core import blocking, costmodel, registry
 from repro_torch.core.registry import (use_backend as backend,   # noqa: F401
                                        Cost,
                                        resolve_backend as current_backend)
@@ -34,7 +45,7 @@ from repro_torch.sparse.selector import BLOCKSPARSE_MAX_DENSITY
 __all__ = ["backend", "current_backend", "matmul", "spmv_ell", "spmv_dia",
            "fft", "fft_plan", "flash_attention",
            "flash_attention_state", "page_gather", "paged_attention",
-           "chunk_attention"]
+           "chunk_attention", "fa_candidates"]
 
 
 # ---------------------------------------------------------------------------
@@ -161,29 +172,109 @@ def fft(x):
 # flash attention
 # ---------------------------------------------------------------------------
 
-#: Fixed blocks (the JAX package's defaults; its measured autotune,
-#: ``core/blocking``, is not ported).
+#: The blocks every attention variant runs at when none are pinned or
+#: measured (the JAX package's defaults).
 _FA_DEFAULTS = {"q": 128, "k": 128}
+#: The reference's candidate blocks (``repro/kernels/ops.py``
+#: ``_FA_CANDIDATES``).  The kernels' stated domain
+#: (:func:`~repro_torch.kernels.flash_attention.takes_blocks`) filters them
+#: before anything runs: ``{"k": 256}`` is out by rule.
+_FA_CANDIDATES = ({"q": 256}, {"k": 256}, {"q": 256, "k": 256},
+                  {"q": 64, "k": 64})
+#: Timed runs per candidate block, after one warm-up.  At the training
+#: shape a call is about 0.1 ms, host launch included, and 3 runs let the
+#: winner between 128x128 and 256x128 flip from run to run on an H100
+#: (PERF.md §6).
+FA_MEASURE_ITERS = 10
 
 
 def _fa_blocks(lq, lk, block_q, block_k):
-    """The blocks of every attention variant: default or pinned, clamped
-    to the lengths (as the JAX package clamps them).  Where a block does
-    not divide its length the kernels run a short last tile, so no length
+    """The blocks of a call: given, else the defaults, clamped to the
+    lengths (as the JAX package clamps them).  Where a block does not
+    divide its length the kernels run a short last tile, so no length
     changes the tile size."""
     return (min(block_q or _FA_DEFAULTS["q"], lq),
             min(block_k or _FA_DEFAULTS["k"], lk))
 
 
+def fa_candidates(head_dim: int) -> list[dict]:
+    """The candidate blocks (defaults first) the kernels take at
+    ``head_dim``: the reference's list filtered by the kernels' domain."""
+    out = []
+    for cand in ({}, *_FA_CANDIDATES):
+        bl = {**_FA_DEFAULTS, **cand}
+        if bl not in out and fa_k.takes_blocks(bl["q"], bl["k"], head_dim):
+            out.append(bl)
+    return out
+
+
+def _fa_measure(run):
+    """``measure(blocks) -> seconds`` for :func:`resolve_blocks`: one
+    warm-up, then :data:`FA_MEASURE_ITERS` runs between two synchronises,
+    under ``torch.no_grad()``."""
+    def measure(bl):
+        with torch.no_grad():
+            out = run(bl)
+            on_card = out.is_cuda
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FA_MEASURE_ITERS):
+                run(bl)
+            if on_card:
+                torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / FA_MEASURE_ITERS
+    return measure
+
+
+def _fa_resolve(q, k, mask, run, measure=True):
+    """Measured-or-cached-or-default blocks (q, k) for a call of
+    ``flash_attention`` (``mask`` None or the call's mask), clamped to the
+    lengths.  A settled answer costs one lookup under a key of the call's
+    shapes, dtype and non-trivial mask; the dims and the measurement are
+    built only when the cache must be read."""
+    memo = ("flash_attention", q.shape, k.shape[2], q.dtype,
+            None if mask is None or mask.trivial_dense else mask)
+    bl = blocking.settled("flash_attention", memo)
+    if bl is None:
+        d = q.shape[3]
+        bl = blocking.resolve_blocks(
+            "flash_attention", _fa_dims(q, k, mask),
+            costmodel.dtype_name(q.dtype), _FA_DEFAULTS, _FA_CANDIDATES,
+            _fa_measure(run) if measure else None,
+            takes=lambda b: fa_k.takes_blocks(b["q"], b["k"], d), memo=memo)
+    return _fa_blocks(q.shape[2], k.shape[2], bl["q"], bl["k"])
+
+
+def _fa_dims(q, k, mask=None):
+    dims = {"b": q.shape[0], "h": q.shape[1], "lq": q.shape[2],
+            "lk": k.shape[2], "d": q.shape[3]}
+    if mask is not None and not mask.trivial_dense:
+        dims.update({f"mask.{n}": x for n, x in mask.cost_dims().items()})
+    return dims
+
+
 def _fa_accepts(q, k, v, *, causal=True, mask=None, block_q=None,
                 block_k=None):
     """Grouped heads and K tiles the kernels take (at most
-    ``MAX_BLOCK_K`` keys); masks only when trivially dense (plain causal
-    or none)."""
+    ``MAX_BLOCK_K`` keys, at the pinned or default blocks: accepting
+    measures nothing); masks only when trivially dense (plain causal or
+    none)."""
     if mask is not None and not mask.trivial_dense:
         return False
     _, bk = _fa_blocks(q.shape[2], k.shape[2], block_q, block_k)
     return q.shape[1] % k.shape[1] == 0 and bk <= fa_k.MAX_BLOCK_K
+
+
+def _attn_cuda_blocks(q, k, v, causal, block_q, block_k, measure=True):
+    if block_q is not None and block_k is not None:       # fully pinned
+        return _fa_blocks(q.shape[2], k.shape[2], block_q, block_k)
+
+    def run(bl):
+        return fa_k.flash_attention(q, k, v, causal=causal, block_q=bl["q"],
+                                    block_k=bl["k"])
+    bq, bk = _fa_resolve(q, k, None, run, measure)
+    return _fa_blocks(q.shape[2], k.shape[2], block_q or bq, block_k or bk)
 
 
 @registry.register("flash_attention", "cuda", plane="cuda", cost=Cost.CUDA,
@@ -194,7 +285,7 @@ def _attn_cuda(q, k, v, *, causal=True, mask=None, block_q=None,
                block_k=None):
     if mask is not None:      # trivially dense: lower to the causal flag
         causal = mask.causal
-    bq, bk = _fa_blocks(q.shape[2], k.shape[2], block_q, block_k)
+    bq, bk = _attn_cuda_blocks(q, k, v, causal, block_q, block_k)
     return fa_k.flash_attention(q, k, v, causal=causal, block_q=bq,
                                 block_k=bk)
 
@@ -203,7 +294,8 @@ def _bs_accepts(q, k, v, *, causal=True, mask=None, block_q=None,
                 block_k=None):
     """Tile density drives the dense <-> block-sparse crossover: masks the
     dense kernel expresses natively take the tile walk only under
-    ``BLOCKSPARSE_MAX_DENSITY``; richer masks always do."""
+    ``BLOCKSPARSE_MAX_DENSITY``; richer masks always do.  Judged at the
+    pinned or default blocks."""
     if mask is None or q.shape[1] % k.shape[1] != 0:
         return False
     lq, lk = q.shape[2], k.shape[2]
@@ -219,15 +311,48 @@ def _bs_accepts(q, k, v, *, causal=True, mask=None, block_q=None,
     return True
 
 
+def _bs_blocks(q, k, v, mask, block_q, block_k, measure=True):
+    lq, lk = q.shape[2], k.shape[2]
+    if block_q is not None and block_k is not None:       # fully pinned
+        return _fa_blocks(lq, lk, block_q, block_k)
+
+    def run(bl):
+        bq, bk = _fa_blocks(lq, lk, bl["q"], bl["k"])
+        return fa_k.flash_attention_tiles(
+            q, k, v, compile_layout(mask, lq, lk, bq, bk))
+    bq, bk = _fa_resolve(q, k, mask, run, measure)
+    return _fa_blocks(lq, lk, block_q or bq, block_k or bk)
+
+
 @registry.register("flash_attention", "blocksparse", plane="cuda",
                    cost=Cost.BLOCKSPARSE, accepts=_bs_accepts,
                    doc="tile-skipping kernel over a compiled mask layout")
 def _attn_blocksparse(q, k, v, *, causal=True, mask=None, block_q=None,
                       block_k=None):
     lq, lk = q.shape[2], k.shape[2]
-    bq, bk = _fa_blocks(lq, lk, block_q, block_k)
+    bq, bk = _bs_blocks(q, k, v, mask, block_q, block_k)
     return fa_k.flash_attention_tiles(q, k, v,
                                       compile_layout(mask, lq, lk, bq, bk))
+
+
+def _fa_premeasure(q, k, v, *, causal=True, mask=None):
+    """The ``flash_attention`` premeasure hook: measure (autotune on) the
+    blocks of the variant dispatch selects for these arguments, upgrading
+    a default-marked entry; returns ``{"q": bq, "k": bk}``."""
+    name = registry.select("flash_attention", q, k, v, causal=causal,
+                           mask=mask).name
+    if name == "cuda":
+        bq, bk = _attn_cuda_blocks(q, k, v, mask.causal if mask is not None
+                                   else causal, None, None)
+    elif name == "blocksparse":
+        bq, bk = _bs_blocks(q, k, v, mask, None, None)
+    else:
+        raise ValueError(f"flash_attention: the {name!r} variant runs no "
+                         f"blocks to measure")
+    return {"q": bq, "k": bk}
+
+
+blocking.PREMEASURE["flash_attention"] = _fa_premeasure
 
 
 @functools.lru_cache(maxsize=16)

@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-import time
 
 import torch
 
@@ -34,6 +33,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.containers import resolve_device
 from repro_torch.launch.train import reduce_config
 from repro_torch.models.lm import LM
+from repro_torch.obs.trace import clock
 from repro_torch.serve import Engine, SamplingParams
 
 __all__ = ["main"]
@@ -96,12 +96,12 @@ def main(argv=None) -> int:
     if front:
         fe = torch.randn((args.batch, front, cfg.d_model), generator=gen,
                          device=dev)
-    t0 = time.perf_counter()
+    t0 = clock()
     out = engine.generate(prompts, max_new_tokens=args.new_tokens,
                           seed=args.seed, frontend_embeds=fe)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
+    dt = clock() - t0
     toks = args.batch * args.new_tokens
     print(f"{cfg.name} on {dev}: generated {tuple(out.shape)} in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s, first call)")

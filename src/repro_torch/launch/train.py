@@ -12,18 +12,18 @@ musicgen-medium``, whole on the card); the last two on synthetic batches
 with seeded standard-normal frontend embeddings.  On the card a config
 whose parameters, gradients and AdamW moments do not fit the card's
 memory raises before anything is allocated (qwen3-moe-30b-a3b, zamba2-7b
-and qwen2-vl-72b at scale 1), and says how many of its layers would.
-The mesh (``Trainer(mesh=...)``, ZeRO-1 moment sharding) is mesh scope
-(ROADMAP queue 1 item 10): ``mesh`` raises and the JAX Trainer's
-``zero1`` is not taken; the clock is ``time.perf_counter`` until ``obs``
-is ported (queue 1 item 8).
+and qwen2-vl-72b at scale 1), and names the depth that would train: the
+most layers whose parameters fit at :data:`UPDATE_PEAK_BYTES` a bf16
+parameter, the peak a step holds at the AdamW update.  The mesh
+(``Trainer(mesh=...)``, ZeRO-1 moment sharding) is mesh scope (ROADMAP
+queue 1 item 10): ``mesh`` raises and the JAX Trainer's ``zero1`` is not
+taken.  Step times read :func:`repro_torch.obs.trace.clock`.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
-import time
 from typing import Optional
 
 import torch
@@ -34,19 +34,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.containers import resolve_device
 from repro_torch.data import ByteCorpus, SyntheticLM
 from repro_torch.models.lm import LM
+from repro_torch.obs.trace import clock
 from repro_torch.optim import adamw
 from repro_torch.optim.schedules import cosine, wsd
 from repro_torch.runtime import HeartbeatStore, Monitor
 from repro_torch.train import create, make_train_step
 
-__all__ = ["reduce_config", "Trainer", "main", "train_state_bytes"]
-
-clock = time.perf_counter
+__all__ = ["reduce_config", "Trainer", "main", "train_state_bytes",
+           "update_peak_bytes"]
 
 #: Bytes a parameter needs beyond its own while it trains: its gradient
 #: (at most f32, the dtype microbatches sum it in) and the two f32 AdamW
 #: moments.
 GRAD_AND_MOMENT_BYTES = 4 + 2 * 4
+#: Bytes a bf16 parameter holds at a training step's peak, the AdamW
+#: update (measured on an H100 training qwen3-moe-30b-a3b and zamba2-7b
+#: cut in depth, PERF.md §6): its own 2, the gradient's and the moments'
+#: 12, and 12 more that the update's transient copies hold at its peak.
+UPDATE_PEAK_BYTES = 26
 
 
 def train_state_bytes(cfg: ModelConfig) -> int:
@@ -55,6 +60,14 @@ def train_state_bytes(cfg: ModelConfig) -> int:
     optimizer's transient copies and the allocator's slack come on top)."""
     size = torch.empty((), dtype=cfg.pdtype).element_size()
     return cfg.param_count() * (size + GRAD_AND_MOMENT_BYTES)
+
+
+def update_peak_bytes(cfg: ModelConfig) -> int:
+    """The memory training ``cfg`` holds at the AdamW update's peak:
+    :data:`UPDATE_PEAK_BYTES` a bf16 parameter, the parameter's own bytes
+    beside the rest at another ``cfg.pdtype`` (activations come on top)."""
+    size = torch.empty((), dtype=cfg.pdtype).element_size()
+    return cfg.param_count() * (UPDATE_PEAK_BYTES - 2 + size)
 
 
 def reduce_config(cfg: ModelConfig, scale: float, *,
@@ -196,12 +209,14 @@ def main(argv=None) -> int:
         need = train_state_bytes(cfg)
         if need > have:
             fit = max((n for n in range(1, cfg.num_layers) if
-                       train_state_bytes(dataclasses.replace(
+                       update_peak_bytes(dataclasses.replace(
                            cfg, num_layers=n)) <= have), default=0)
             ap.error(f"{cfg.name}: {need / 1e9:.1f} GB of parameters, "
                      f"gradients and AdamW moments do not fit the card's "
                      f"{have / 1e9:.1f} GB (at full width {fit} of its "
-                     f"{cfg.num_layers} layers would); pass --scale below 1")
+                     f"{cfg.num_layers} layers would, at "
+                     f"{UPDATE_PEAK_BYTES} bytes a parameter at the "
+                     f"update's peak); pass --scale below 1")
     print(f"training {cfg.name}: {cfg.param_count()/1e6:.1f}M params")
 
     if args.corpus:

@@ -19,9 +19,18 @@ input tensors for the
 life of the engine (what a captured CUDA graph needs; the JAX engine's
 single jit cache entry plays that part there).
 
-Not ported: heartbeats, spans and metrics (``obs``,
-``runtime.fault_tolerance``; ROADMAP queue 1 items 8 and 10) and the
-ring-sharded pool (mesh scope).
+Observability (DESIGN.md §14), as in the JAX engine: the loop records
+the spans ``serve.admit``, ``serve.prefill_chunk``, ``serve.decode`` and
+``serve.demux`` while the tracer is on (:mod:`repro_torch.obs.trace`; a
+span times the host's enqueue, never a device wait), always counts
+``serve.tokens``, ``serve.ttft_s``, ``serve.token_latency_s`` and
+``serve.occupancy_dist``, keeps ``serve.idle_s`` at 0 (every request is
+submitted at once, so the loop never waits on an arrival)
+(:mod:`repro_torch.obs.metrics`; the scheduler adds its own), and posts
+one heartbeat per loop iteration with the decoding occupancy to a
+:class:`~repro_torch.runtime.fault_tolerance.HeartbeatStore`.
+
+Not ported: the ring-sharded pool (mesh scope, ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -35,6 +44,9 @@ import torch
 from repro_torch.core import registry
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.models.lm import LM
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.runtime.fault_tolerance import HeartbeatStore
 from repro_torch.serve.kvcache import init_cache_state, make_spec
 from repro_torch.serve.scheduler import Request, Scheduler
 
@@ -171,17 +183,25 @@ class ContinuousEngine:
     active slots, and every ``EOS_CHECK_EVERY`` iterations the demux of
     the *previous* window's device tokens.  ``decode_inputs`` records the
     (shape, storage) signature of every decode step's inputs; admissions
-    and recycles leave it a single entry."""
+    and recycles leave it a single entry.  ``heartbeats`` (default: an
+    in-process :class:`HeartbeatStore`) receives one beat per iteration as
+    ``worker``."""
 
     EOS_CHECK_EVERY = 8
 
     def __init__(self, lm: LM, params: Params, *, num_slots: int = 8,
                  max_len: int = 2048, chunk_size: int = 32,
-                 sampling: SamplingParams = SamplingParams(greedy=True)):
+                 sampling: SamplingParams = SamplingParams(greedy=True),
+                 heartbeats=None, worker: int = 0):
         # paged serving takes the dense and MoE families: the SSM and
         # hybrid ones carry recurrent state (ValueError, as in the JAX
         # package, which raises on its first chunk)
         lm._check_paged()
+        # liveness: one beat per host-loop iteration carrying (step,
+        # occupancy), the protocol the trainer posts to
+        self.heartbeats = heartbeats if heartbeats is not None \
+            else HeartbeatStore()
+        self.worker = worker
         self.lm = lm
         self.params = params
         self.sampling = sampling
@@ -201,10 +221,10 @@ class ContinuousEngine:
     def serve(self, requests: Sequence[tuple], *,
               eos_id: Optional[int] = None, seed: int = 0,
               collect_stats: bool = False):
-        """Run ``requests`` (a sequence of ``(prompt, max_new)`` pairs, all
-        submitted at once) to completion.  Returns per-request generated
-        token arrays (trimmed at the first eos), or ``(outputs,
-        ServeStats)``."""
+        """Run ``requests`` (a sequence of ``(prompt, max_new)`` pairs,
+        all submitted at once) to completion.  Returns per-request
+        generated token arrays (trimmed at the first eos), or
+        ``(outputs, ServeStats)``."""
         reqs = [Request(rid=i, prompt=np.asarray(p, np.int32).reshape(-1),
                         max_new=int(m)) for i, (p, m) in enumerate(requests)]
         if self.active_backend is None:
@@ -236,6 +256,7 @@ class ContinuousEngine:
 
         outputs = {r.rid: [] for r in reqs}
         stats = ServeStats([], [], [], [], [])
+        metrics = obs_metrics.METRICS
         # host mirrors advanced in lockstep with the device
         active_np = np.zeros((B,), np.int32)
         budget = np.zeros((B,), np.int64)
@@ -248,6 +269,9 @@ class ContinuousEngine:
         pending_cur: list = []
 
         to_submit = list(reqs)
+        # every request is submitted at once, so the loop never waits on
+        # an arrival: the reference's idle counter stays at 0
+        metrics.counter("serve.idle_s")
 
         def set_active(slot, on):
             active_np[slot] = on
@@ -269,8 +293,9 @@ class ContinuousEngine:
                 return
             if req.first_token_t == 0.0:
                 req.first_token_t = time.monotonic()
-                stats.first_token_times.append(req.first_token_t
-                                               - req.submit_t)
+                ttft = req.first_token_t - req.submit_t
+                stats.first_token_times.append(ttft)
+                metrics.histogram("serve.ttft_s").record(ttft)
             if eos_id is not None and tok == eos_id:
                 live.pop((slot, g))
                 if sched.running.get(slot) is req:
@@ -296,39 +321,44 @@ class ContinuousEngine:
             bucket.clear()
 
         it = 0
+        tracer = obs_trace.TRACER
         while to_submit or sched.queue or sched.running \
                 or pending_old or pending_cur:
             t_iter = time.monotonic()
             emitted = 0
 
-            # 1. submissions, as far as the admission queue takes them
-            while to_submit and len(sched.queue) < sched.queue_depth:
-                req = to_submit.pop(0)
-                req.submit_t = time.monotonic()
-                sched.submit(req)
+            with tracer.span("serve.admit", cat="serve"):
+                # 1. submissions, as far as the admission queue takes them
+                while to_submit and len(sched.queue) < sched.queue_depth:
+                    req = to_submit.pop(0)
+                    req.submit_t = time.monotonic()
+                    sched.submit(req)
 
-            # 2. admission: rewrites table/lens contents, never shapes
-            admitted = False
-            while (req := sched.admit_next()) is not None:
-                gen_of[req.slot] += 1
-                live[(req.slot, gen_of[req.slot])] = req
-                prefilling.append(req.slot)
-                admitted = True
-            if admitted:
-                self._upload_tables()
+                # 2. admission: rewrites table/lens contents, never shapes
+                admitted = False
+                while (req := sched.admit_next()) is not None:
+                    gen_of[req.slot] += 1
+                    live[(req.slot, gen_of[req.slot])] = req
+                    prefilling.append(req.slot)
+                    admitted = True
+                if admitted:
+                    self._upload_tables()
 
             # 3. one prefill chunk for the oldest prefilling slot
             if prefilling:
                 slot = prefilling[0]
                 req = live[(slot, gen_of[slot])]
                 valid = min(C, req.prompt_len - req.prefilled)
-                chunk = np.zeros((C,), np.int32)
-                chunk[:valid] = req.prompt[req.prefilled:
-                                           req.prefilled + valid]
-                logits, self.state = self.lm.prefill_chunk(
-                    self.params, self.state,
-                    torch.from_numpy(chunk).to(self.device), slot,
-                    req.prefilled, valid)
+                with tracer.span("serve.prefill_chunk", cat="serve",
+                                 slot=slot, offset=req.prefilled,
+                                 valid=valid):
+                    chunk = np.zeros((C,), np.int32)
+                    chunk[:valid] = req.prompt[req.prefilled:
+                                               req.prefilled + valid]
+                    logits, self.state = self.lm.prefill_chunk(
+                        self.params, self.state,
+                        torch.from_numpy(chunk).to(self.device), slot,
+                        req.prefilled, valid)
                 req.prefilled += valid
                 sched.lens[slot] = req.prefilled      # lockstep mirror
                 if req.prefilled >= req.prompt_len:
@@ -349,7 +379,9 @@ class ContinuousEngine:
             # 4. one batched decode step over the active slots
             n_active = int((active_np > 0).sum())
             if n_active:
-                cur = self._decode(cur, gen)
+                with tracer.span("serve.decode", cat="serve",
+                                 active=n_active):
+                    cur = self._decode(cur, gen)
                 pending_cur.append(("d", cur, np.where(active_np > 0, gen_of,
                                                        0)))
                 on = active_np > 0
@@ -366,14 +398,26 @@ class ContinuousEngine:
             # 5. window boundary: demux the previous window
             it += 1
             if it % self.EOS_CHECK_EVERY == 0:
-                process(pending_old)
+                with tracer.span("serve.demux", cat="serve",
+                                 window=len(pending_old)):
+                    process(pending_old)
                 pending_old, pending_cur = pending_cur, pending_old
 
             dt = time.monotonic() - t_iter
+            occ = n_active / B
+            if emitted:
+                metrics.counter("serve.tokens").inc(emitted)
+                metrics.histogram("serve.token_latency_s").record(
+                    dt, n=emitted)
+            if occ > 0:
+                # the decoding occupancy per iteration; the scheduler
+                # exports the instantaneous gauge
+                metrics.histogram("serve.occupancy_dist").record(occ)
+            self.heartbeats.post(self.worker, it, occupancy=occ)
             if collect_stats:
                 stats.iter_times.append(dt)
                 stats.tokens_per_iter.append(emitted)
-                stats.occupancy.append(n_active / B)
+                stats.occupancy.append(occ)
                 stats.token_latencies.extend([dt] * emitted)
 
         process(pending_old)

@@ -1,6 +1,5 @@
 """Admission + page accounting for the continuous-batching engine
-(counterpart of ``repro.serve.scheduler``, without its metrics; DESIGN.md
-§13).
+(counterpart of ``repro.serve.scheduler``; DESIGN.md §13).
 
 The scheduler is pure host-side bookkeeping: a bounded FIFO admission
 queue, the slot free list, and per-residue page free lists mirroring the
@@ -25,6 +24,11 @@ The scheduler's ``table``/``lens`` numpy arrays mirror the device tensors
 in lockstep: the engine copies them into the same device buffers after
 admit/recycle events (contents only, never shapes) and advances ``lens``
 host-side with the same integer updates the device applies.
+
+Metrics (:mod:`repro_torch.obs.metrics`, DESIGN.md §14): the counters
+``serve.submitted``, ``serve.admitted``, ``serve.recycled``, the gauges
+``serve.queue_depth``, ``serve.free_pages``, ``serve.occupancy`` and the
+histogram ``serve.queue_depth_dist`` (the depth each submission saw).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve.kvcache import PagedCacheSpec
 
 __all__ = ["Request", "Scheduler"]
@@ -89,6 +94,12 @@ class Scheduler:
                 f"request {req.rid}: {req.total_tokens} tokens exceed the "
                 f"slot capacity {self.spec.slot_capacity}")
         self.queue.append(req)
+        obs_metrics.METRICS.counter("serve.submitted").inc()
+        obs_metrics.METRICS.gauge("serve.queue_depth").set(len(self.queue))
+        # distribution of the depth each submission saw (the gauge is
+        # last-write-wins and always 0 once the run drains)
+        obs_metrics.METRICS.histogram("serve.queue_depth_dist").record(
+            len(self.queue))
         return True
 
     def _pages_by_residue(self, npages: int) -> list[int]:
@@ -120,6 +131,8 @@ class Scheduler:
         req.prefilled = 0
         req.generated = []
         self.running[slot] = req
+        obs_metrics.METRICS.counter("serve.admitted").inc()
+        self._export_gauges()
         return req
 
     def recycle(self, slot: int) -> Request:
@@ -135,9 +148,17 @@ class Scheduler:
             self.table[slot, p] = 0
         self.lens[slot] = 0
         self.free_slots.append(slot)
+        obs_metrics.METRICS.counter("serve.recycled").inc()
+        self._export_gauges()
         return req
 
     # -- introspection ------------------------------------------------------
+
+    def _export_gauges(self) -> None:
+        m = obs_metrics.METRICS
+        m.gauge("serve.queue_depth").set(len(self.queue))
+        m.gauge("serve.free_pages").set(self.num_free_pages)
+        m.gauge("serve.occupancy").set(self.occupancy)
 
     @property
     def num_free_pages(self) -> int:

@@ -123,6 +123,21 @@ class MaskSpec:
         instead of being the only kernel-grade formulation."""
         return self.window is None and self.positional
 
+    def cost_dims(self) -> dict[str, int]:
+        """Structural fingerprint for the measured cost model
+        (:func:`repro_torch.core.costmodel.signature`): keeps differently
+        masked calls of the same tensor shapes in different shape classes,
+        so the dense <-> block-sparse crossover calibrates per mask."""
+        d = {"causal": int(self.causal)}
+        if self.window is not None:
+            d["window"] = self.window
+        if self.global_tokens:
+            d["nglobal"] = len(self.global_tokens)
+        if self.blocks is not None:
+            d["block"] = self.block
+            d["liveblocks"] = sum(sum(row) for row in self.blocks)
+        return d
+
 
 def dense_mask(spec: MaskSpec, lq: int, lk: int) -> np.ndarray:
     """The reference bool mask (lq, lk), True = attend — the oracle every

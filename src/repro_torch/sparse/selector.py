@@ -18,10 +18,10 @@ An explicit ``format=`` overrides the rules exactly like an explicit
 
 When ``block`` is not pinned, :func:`autotune_block` probes ``block_fill``
 at the :data:`BLOCK_CANDIDATES` edges (8/16/32) and picks the largest
-candidate that keeps the occupied tiles at least half full.  Unlike the
-JAX package it does not persist the winner: that cache is
-``repro.core.blocking``, which the port takes up with measured dispatch
-(ROADMAP queue 1 item 8).  Probing is cheap host-side statistics.
+candidate that keeps the occupied tiles at least half full.  A hit in the
+block cache (:mod:`repro_torch.core.blocking`, ``op=bsr_block``) skips the
+probe, and under ``REPRO_TORCH_AUTOTUNE=1`` the winner is persisted there,
+as the JAX package does.  Probing is cheap host-side statistics.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from typing import Any, Optional, Union
 
 import numpy as np
 
+from repro_torch.core import blocking
 from repro_torch.numerics.sparse import (CSR, DIA, ELL, csr_from_dense,
                                          dia_from_dense, ell_from_csr)
 from repro_torch.sparse.formats import BSR, bsr_from_dense
@@ -79,13 +80,24 @@ def autotune_block(a: np.ndarray, stats: Optional[SparseStats] = None
 
     Winner: the largest candidate that tiles the shape and keeps
     ``block_fill`` >= :data:`MIN_FILL`; when none clears the bar, the
-    best-fill candidate.  ``stats`` supplies an already-measured
-    :data:`DEFAULT_BLOCK` measurement so callers never re-scan the
-    matrix."""
+    best-fill candidate.  A cache hit (``op=bsr_block`` keyed on
+    shape/nnz/bandwidth/dtype) skips the probe; the winner persists only
+    under ``REPRO_TORCH_AUTOTUNE=1``.  ``stats`` supplies an
+    already-measured :data:`DEFAULT_BLOCK` measurement so callers never
+    re-scan the matrix."""
     a = np.asarray(a)
     n, m = a.shape
     base = stats if stats is not None and stats.block == DEFAULT_BLOCK \
         else sparse_stats(a, block=DEFAULT_BLOCK)
+    cache = blocking.get_cache()
+    key = blocking.AutotuneCache.key(
+        "bsr_block",
+        {"m": n, "n": m, "nnz": base.nnz, "bw": base.bandwidth},
+        str(a.dtype))
+    hit = cache.lookup(key)
+    if hit is not None and "block" in hit:
+        b = int(hit["block"])
+        return b, (base if b == base.block else sparse_stats(a, block=b))
     probed = {b: (base if b == base.block else sparse_stats(a, block=b))
               for b in BLOCK_CANDIDATES if n % b == 0 and m % b == 0}
     if not probed:
@@ -93,6 +105,8 @@ def autotune_block(a: np.ndarray, stats: Optional[SparseStats] = None
     full = [b for b, s in probed.items() if s.block_fill >= MIN_FILL]
     best = max(full) if full else max(probed,
                                       key=lambda b: probed[b].block_fill)
+    if blocking.autotune_enabled():
+        cache.put(key, {"block": best})
     return best, probed[best]
 
 

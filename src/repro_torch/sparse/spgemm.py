@@ -185,7 +185,7 @@ registry.register("spgemm", "bsr_torch", _numeric("spgemm_bsr_plain"),
                   cost=Cost.BSR, accepts=_takes_bsr_pair,
                   doc="pair bmm + index_add_ into output slots")
 registry.register("spgemm", "dense", _spgemm_dense, cost=Cost.ORACLE,
-                  accepts=_takes_bsr_pair,
+                  accepts=_takes_bsr_pair, oracle=True,
                   doc="dense oracle: densify both, full matmul, gather "
                       "live tiles")
 

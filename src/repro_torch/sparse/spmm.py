@@ -119,7 +119,7 @@ registry.register("spmm", "ell_torch", _spmm_ell_torch, plane="torch",
                   cost=Cost.ELL, accepts=_panel_takes(ELL),
                   doc="gathered rows x values einsum")
 registry.register("spmm", "csr", _spmm_csr, cost=Cost.ORACLE,
-                  accepts=_panel_takes(CSR),
+                  accepts=_panel_takes(CSR), oracle=True,
                   doc="3-array oracle: nnz-stream gather + index_add_")
 
 

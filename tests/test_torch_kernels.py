@@ -2424,3 +2424,120 @@ def test_ssd_backward_is_bitwise_run_to_run(card):
     for ga, gb, what in zip(a, b, ("x", "dt", "a_log", "bmat", "cmat")):
         assert bool(torch.isfinite(ga).all()), what
         assert torch.equal(ga, gb), what
+
+
+# ---------------------------------------------------------------------------
+# measured dispatch on the card: blocks, syncs, the device rule, capture
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def torch_files(monkeypatch, tmp_path):
+    """The port's cost model and block cache in ``tmp_path``."""
+    from repro_torch.core import blocking
+
+    monkeypatch.setenv("REPRO_TORCH_COSTMODEL", str(tmp_path / "cm.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "at.json"))
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    return blocking
+
+
+def _train_qkv(card, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return tuple(torch.randn(shape, device=card, generator=g).bfloat16()
+                 for shape in ((4, 16, 512, 128), (4, 8, 512, 128),
+                               (4, 8, 512, 128)))
+
+
+@pytest.mark.cuda
+def test_resolve_blocks_measures_and_persists_a_block_the_kernel_takes(
+        card, torch_files, monkeypatch):
+    from repro_torch.kernels import flash_attention as fa_k
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "1")
+    q, k, v = _train_qkv(card)
+    want = ops.flash_attention(q, k, v, causal=True,
+                               block_q=128, block_k=128)
+    got = ops.flash_attention(q, k, v, causal=True)
+    key = torch_files.AutotuneCache.key(
+        "flash_attention", {"b": 4, "h": 16, "lq": 512, "lk": 512,
+                            "d": 128}, "bfloat16")
+    entry = torch_files.get_cache().entry(key)
+    assert entry is not None and entry["_seconds"] > 0
+    assert "_default" not in entry
+    assert fa_k.takes_blocks(entry["q"], entry["k"], 128)
+    rtol, atol = 2.0 ** -7, 2e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_dispatch_outside_collect_never_synchronises(card, torch_files,
+                                                     monkeypatch):
+    from repro_torch.core import costmodel
+    from repro_torch.obs import trace
+
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: syncs.append(1) or real(*a))
+    a = torch.randn(256, 256, device=card)
+    q, k, v = _train_qkv(card, 1)
+    for _ in range(2):
+        ops.matmul(a, a)
+        ops.flash_attention(q, k, v, causal=True)
+    costmodel.get_model().record("matmul", "cuda", seconds=1e-5,
+                                 args=(a, a))
+    with trace.TRACER.tracing():
+        ops.matmul(a, a)
+    assert syncs == []
+    real()
+
+
+@pytest.mark.cuda
+def test_a_faster_torch_variant_is_not_selected_on_card_operands(
+        card, torch_files):
+    from repro_torch.core import costmodel
+
+    a = torch.randn(128, 128, device=card)
+    m = costmodel.get_model()
+    m.record("matmul", "torch", seconds=1e-9, args=(a, a))
+    m.record("matmul", "cuda", seconds=1.0, args=(a, a))
+    assert registry.select("matmul", a, a).name == "cuda"
+    rows = {r["variant"]: r for r in registry.explain("matmul", a, a)}
+    assert rows["cuda"]["selected"]
+    assert rows["torch"]["reason"].startswith("plane-unavailable")
+    before = mm_k.matmul.launches
+    ops.matmul(a, a)
+    assert mm_k.matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_resolve_blocks_inside_capture_marks_defaults_without_a_sync(
+        card, torch_files, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "1")
+    measured, syncs = [], []
+
+    def measure(bl):
+        measured.append(bl)
+        return 1.0
+
+    x = torch.zeros(8, device=card)
+    graph = torch.cuda.CUDAGraph()
+    real = torch.cuda.synchronize
+    # the graph context synchronises on entry and exit: count only what
+    # the resolve does inside the capture
+    with torch.cuda.graph(graph):
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda *a: syncs.append(1) or real(*a))
+        got = torch_files.resolve_blocks(
+            "_t_capture", {"n": 8}, "float32", {"k": 64}, ({"k": 32},),
+            measure)
+        monkeypatch.setattr(torch.cuda, "synchronize", real)
+        x.add_(1.0)
+    graph.replay()
+    real()
+    assert got == {"k": 64} and measured == [] and syncs == []
+    key = torch_files.AutotuneCache.key("_t_capture", {"n": 8}, "float32")
+    assert torch_files.get_cache().entry(key)["_default"] is True
+    assert float(x[0]) == 1.0

@@ -342,7 +342,8 @@ def test_train_launcher_refuses_a_config_larger_than_the_card(
         arch, layers, monkeypatch, capsys):
     """At scale 1 qwen3-moe-30b-a3b's parameters, gradients and AdamW
     moments take 427 GB and zamba2-7b's 94 GB: on an 80 GB card the
-    launcher says so, and how many layers would fit, before it allocates.
+    launcher says so, and how many layers would fit at the update's peak
+    (26 bytes a bf16 parameter), before it allocates.
     arctic-480b fits at no depth: one layer is 14.1 B parameters (its
     experts 13.4 B)."""
     monkeypatch.setattr(t_launch, "resolve_device",
@@ -358,9 +359,9 @@ def test_train_launcher_refuses_a_config_larger_than_the_card(
     fit = int(err.split("at full width ")[1].split(" of")[0])
     assert f"of its {layers} layers" in err
     assert (fit == 0) == (arch == "arctic-480b") and fit < layers
-    assert fit == 0 or t_launch.train_state_bytes(dataclasses.replace(
+    assert fit == 0 or t_launch.update_peak_bytes(dataclasses.replace(
         cfg, num_layers=fit)) <= 80e9
-    assert t_launch.train_state_bytes(dataclasses.replace(
+    assert t_launch.update_peak_bytes(dataclasses.replace(
         cfg, num_layers=fit + 1)) > 80e9
 
 
