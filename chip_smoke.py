@@ -50,6 +50,20 @@
              < 1e-5
      SpGEMM  benchmarks/spgemm.py: n = 2048, block 8, clustered 0.02 /
              0.08 / 0.2 and banded bw 31 / 127, relative error < 1e-3
+   j. The paths of a and b at mesh scope (after b): 4 ranks on the one
+      card, gloo with every collective staged through host memory (NCCL
+      refuses two ranks on one card; the plans print their transports),
+      over the meshes O3 (data 4), (data 2, model 2) and O4 (pod 2, data
+      2): mod2am via mesh_psum and mesh_psum_2d, mod2as via mesh_csr and
+      mesh_ell, mod2f via mesh_transpose, CG conf 18 through cg_mesh
+      (mesh_dia, mesh_csr), SpMM at k 8 and 64 via mesh_spmm, SpGEMM (the
+      clustered 0.2 case) via mesh_spgemm.  On each rank: the selected
+      variant, the gathered result against the O2 result at the JAX
+      suites' tolerances, one matmul launch a mesh product, mesh_psum's
+      profiled collective bytes against its plan's schedule; the ranks'
+      results the same bits; then, in this process (no process group),
+      use_level(O3) runs chip variants with the O2 bits.  Its times are
+      not scaling numbers.
    c. Serving qwen3-1.7b at full width (28 layers, bf16, seeded random
       weights): Engine.generate on 4 prompts of 512 tokens, 32 new tokens,
       greedy (the prefill runs the tiles kernel), and ContinuousEngine.serve
@@ -72,7 +86,9 @@
    d. Training qwen3-1.7b at full width (28 layers, bf16 parameters, f32
       AdamW moments, remat): Trainer.fit for 8 steps of 4 x 512 tokens of
       the learnable next-token pattern at lr 3e-4, each step's loss,
-      grad_norm and time, tokens/s, peak memory and a profiled step; per
+      grad_norm and time, tokens/s, peak memory, a profiled step and its
+      roofline terms (utils.roofline.analyze: FLOPs, bytes and
+      useful_ratio from one counting pass, beside the measured step); per
       step the tiles forward launches 28 x 2 times and each backward
       kernel 28 times.  Checks: (c) losses finite and the last below the
       first; (d) at 2 layers in f32, every parameter's gradient on the
@@ -1204,159 +1220,13 @@ def serve_requests(vocab: int):
             for n, m in SERVE_REQS]
 
 
-MATMUL_GROUP = "matmul (cuBLAS)"
-
-
-def kernel_group(name: str) -> str:
-    """The group a CUDA kernel's device time is counted under, by name."""
-    low = name.lower()
-    if "fa_bwd_" in name:
-        return "flash-attention backward"
-    if "flash_attention_lens_decode" in name:
-        return "flash_attention_lens (decode)"
-    if "flash_attention_lens_prefix" in name:
-        return "flash_attention_lens (prefix)"
-    if "flash_attention_tiles_" in name:
-        return "flash_attention_tiles"
-    if "flash_attention_kernel" in name:
-        return "flash_attention"
-    if any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
-                              "cublas", "splitk")):
-        return MATMUL_GROUP
-    if any(t in low for t in ("index", "gather", "scatter")):
-        return "gather/scatter"
-    if "copy" in low or "cat" in low:
-        return "copies"
-    return "elementwise/reduce"
-
-
-#: The profiler ranges device_breakdown(..., group=label) can split out:
-#: label -> (module of repro_torch.models, the functions that run under a
-#: range of that label).  The transformer and the LM call them through the
-#: module attribute, so wrapping the attribute covers every call.
-RANGES = {"moe": ("moe", ("moe_apply",)),
-          "ssm": ("ssm", ("mamba2_apply_state", "mamba2_decode"))}
-
-
-@contextlib.contextmanager
-def ranged(torch, label: str):
-    """Run every call of the functions of :data:`RANGES` [label] under a
-    profiler range named ``label``, so that a trace can tell their kernels
-    apart."""
-    import importlib
-
-    mod_name, names = RANGES[label]
-    mod = importlib.import_module(f"repro_torch.models.{mod_name}")
-    origs = {n: getattr(mod, n) for n in names}
-
-    def wrap(orig):
-        def run(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return orig(*args, **kwargs)
-        return run
-
-    for n, orig in origs.items():
-        setattr(mod, n, wrap(orig))
-    try:
-        yield
-    finally:
-        for n, orig in origs.items():
-            setattr(mod, n, orig)
-
-
-def range_kernel_s(prof, label: str) -> dict:
-    """Device seconds of the kernels launched under the ranges named
-    ``label`` of a trace with CPU activity, by :func:`kernel_group` (the
-    profiler hangs each kernel on the CPU op that launched it)."""
-    out: dict = {}
-
-    def walk(ev):
-        for k in ev.kernels:
-            g = kernel_group(k.name)
-            out[g] = out.get(g, 0.0) + k.duration / 1e6
-        for ch in ev.cpu_children:
-            walk(ch)
-
-    for ev in prof.events():
-        if ev.name == label:
-            walk(ev)
-    return out
-
-
-def device_breakdown(torch, fn, group: str | None = None) -> dict:
-    """Run ``fn`` once unprofiled (host clock, synchronised), then once
-    under torch.profiler (CUDA activity only, which keeps its host cost
-    low), and sum the device time of the run's CUDA kernels by group.  The
-    busy share is that sum over the unprofiled wall time; one stream, so
-    kernels do not overlap.  With ``group`` (a label of :data:`RANGES`)
-    the profiled run also records CPU activity and runs that label's
-    functions under :func:`ranged`: the kernels they launch move to a
-    group of that name (``moe``: router, dispatch, combine; ``ssm``: the
-    mamba2 conv, SSD scan and elementwise work), except their matrix
-    products, which stay under cuBLAS (``in_range`` keeps the range's
-    device time by name group, cuBLAS included)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if group
-                                      else [])
-    with ranged(torch, group) if group else contextlib.nullcontext(), \
-            profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    groups: dict = {}
-    top = []
-    averages = prof.key_averages()
-    for e in averages:
-        # the ranges' own device spans are not kernels
-        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0 \
-                or e.key in RANGES:
-            continue
-        g = kernel_group(e.key)
-        t_s = e.device_time_total / 1e6
-        groups[g] = groups.get(g, 0.0) + t_s
-        top.append((t_s, e.key[:70]))
-    host_top, in_range = [], {}
-    if group:
-        groups[group] = 0.0
-        in_range = range_kernel_s(prof, group)
-        for g, t_s in in_range.items():
-            if g != MATMUL_GROUP and g in groups:
-                groups[g] -= t_s
-                groups[group] += t_s
-        host_top = sorted(((e.self_cpu_time_total / 1e6, e.count, e.key)
-                           for e in averages
-                           if e.device_type == DeviceType.CPU),
-                          reverse=True)[:8]
-    busy = sum(groups.values())
-    return {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall,
-            "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top": sorted(top, reverse=True)[:6], "host_top": host_top,
-            "in_range": in_range}
-
-
-def fmt_breakdown(b: dict) -> str:
-    if not b["groups"]:
-        return "no device time in the trace"
-    parts = ", ".join(f"{g} {t * 1e3:.1f} ms ({t / b['busy_s']:.0%})"
-                      for g, t in b["groups"].items())
-    top = "; ".join(f"{n} {t * 1e3:.1f} ms" for t, n in b["top"])
-    host = "; ".join(f"{n} {t * 1e3:.1f} ms ({c} calls)"
-                     for t, c, n in b.get("host_top", ()))
-    in_range = ", ".join(f"{g} {t * 1e3:.1f} ms"
-                         for g, t in b.get("in_range", {}).items())
-    return (f"wall {b['wall_s'] * 1e3:.1f} ms, device busy "
-            f"{b['busy_s'] * 1e3:.1f} ms, idle share {b['idle_share']:.0%}: "
-            f"{parts}\n    top kernels: {top}"
-            + (f"\n    under the ranges, by name group: {in_range}"
-               if in_range else "")
-            + (f"\n    host ops by self time (profiled run): {host}"
-               if host else ""))
+def bind_package_helpers() -> None:
+    """Bind the package's trace helpers (``repro_torch.utils.profile``:
+    device time by kernel group; ``utils.roofline.analyze``) as this
+    script's globals, once ``src`` is on the path."""
+    global analyze, device_breakdown, fmt_breakdown
+    from repro_torch.utils.profile import device_breakdown, fmt_breakdown
+    from repro_torch.utils.roofline import analyze
 
 
 #: Where phase 2c's traced run saves its Chrome trace (gitignored).
@@ -1573,9 +1443,9 @@ def run_serve_path(torch, wrappers) -> dict:
     # profiler traces lose events after a large trace
     sub = [(p, PROFILE_NEW) for p, _ in reqs[:SERVE_SLOTS]]
     out["profile"] = lambda: (
-        device_breakdown(torch, lambda: eng.generate(
+        device_breakdown(lambda: eng.generate(
             prompts, max_new_tokens=PROFILE_NEW)),
-        device_breakdown(torch, lambda: ContinuousEngine(
+        device_breakdown(lambda: ContinuousEngine(
             lm, params, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
             chunk_size=SERVE_CHUNK, sampling=greedy).serve(sub)))
 
@@ -2208,7 +2078,10 @@ def run_train_path(torch, wrappers) -> dict:
 
     # where the device time of one step goes; the caller runs it after the
     # kernel timings, whose profiler traces lose events after a large trace
-    out["profile"] = lambda: device_breakdown(torch, one_step)
+    out["profile"] = lambda: device_breakdown(one_step)
+    out["roofline"] = lambda: analyze(
+        one_step, arch=ARCH, shape=f"{TRAIN_BATCH}x{TRAIN_SEQ}", cfg=cfg,
+        n_tokens=TRAIN_BATCH * TRAIN_SEQ, dtype="bfloat16")
 
     # (c) every loss finite, the last below the first
     losses = [h["loss"] for h in hist]
@@ -2567,10 +2440,10 @@ def run_moe_path(torch, wrappers) -> dict:
     # the MoE group needs CPU activity in the trace, whose processing is
     # slow: the Engine's short window only
     sub = [(p, PROFILE_NEW) for p, _ in reqs[:SERVE_SLOTS]]
-    out["profile_fixed"] = device_breakdown(torch, lambda: eng.generate(
+    out["profile_fixed"] = device_breakdown(lambda: eng.generate(
         prompts, max_new_tokens=PROFILE_NEW), group="moe")
     out["profile_cont"] = device_breakdown(
-        torch, lambda: continuous().serve(sub))
+        lambda: continuous().serve(sub))
     del lm, params, leaves, router, emb, eng, ce, got, again, first, toks
     out["free_gb_after"], _ = free_card(torch)
     lap("profiles")
@@ -2744,7 +2617,7 @@ def run_ssm_path(torch, wrappers) -> dict:
                                  f"{rec['launches']}, want {want} (one "
                                  f"tiles launch per shared-block site of "
                                  f"the one prefill)")
-        rec["profile"] = device_breakdown(torch, lambda: eng.generate(
+        rec["profile"] = device_breakdown(lambda: eng.generate(
             prompts, max_new_tokens=PROFILE_NEW), group="ssm")
         del lm, params, leaves, layer0, emb, eng, first, toks
         free_card(torch)
@@ -2838,7 +2711,7 @@ def train_config(torch, base, layers, check_layers, data, wrappers,
                  for k, v in data.batch(TRAIN_STEPS).items()}
         trainer.step_fn(trainer.state, batch)
 
-    rec["profile"] = device_breakdown(torch, one_step)
+    rec["profile"] = device_breakdown(one_step)
     del trainer
     free_card(torch)
     lap("profile")
@@ -3030,7 +2903,7 @@ def serve_frontend(torch, cfg, prompts, fe, wrappers) -> dict:
         raise AssertionError(f"{cfg.name} Engine: launches "
                              f"{rec['launches']}, reckoned {want} (the tiles "
                              f"kernel once a layer, in the one prefill)")
-    rec["profile"] = device_breakdown(torch, lambda: eng.generate(
+    rec["profile"] = device_breakdown(lambda: eng.generate(
         prompts, max_new_tokens=PROFILE_NEW, frontend_embeds=fe))
     logits, _ = lm.prefill(params, prompts, fe)
     with registry.use_backend("torch"):
@@ -3109,6 +2982,313 @@ def run_frontend_path(torch, wrappers, train_wrappers) -> dict:
     return out
 
 
+# -- phase 2j: mesh scope ----------------------------------------------------
+
+#: Ranks of phase 2j's world, all on the one card: gloo, every collective
+#: staged through host memory (NCCL refuses two ranks on one card,
+#: "Duplicate GPU detected").  Its times are not scaling numbers.
+MESH_RANKS = 4
+#: Seconds phase 2j's world may take, spawn and set-up included.
+MESH_TIMEOUT_S = 300
+#: The JAX suites' tolerances (tests/test_distributed_numerics.py,
+#: test_sparse.py, test_spgemm.py): (rtol, atol) per path.
+MESH_TOL = {"matmul": (1e-4, 1e-4), "spmv": (1e-4, 1e-4),
+            "fft": (1e-3, 1e-2), "cg": (1e-5, 1e-5), "spmm": (1e-4, 1e-4),
+            "spgemm": (1e-5, 1e-5)}
+
+
+def mesh_inputs(csr, z_np, a_np, b_np, spd_np, bcg_np) -> dict:
+    """Phase 2a's inputs as numpy, for phase 2j's ranks (the mod2as CSR
+    as its three arrays, so no rank redraws 6 M nonzeros)."""
+    return {"a": a_np, "b": b_np, "z": z_np, "spd": spd_np, "bcg": bcg_np,
+            "csr": (csr.matvals.cpu().numpy(), csr.indx.cpu().numpy(),
+                    csr.rowp.cpu().numpy(), csr.shape)}
+
+
+def mesh_rank(rank: int, world: int, device: str, inp: dict) -> dict:
+    """One rank of phase 2j: three meshes over the world in turn, O3
+    (data 4, model 1), (data 2, model 2) and O4 (pod 2, data 2, model 1),
+    and on them the paths at phase 2a/2b's sizes through the entry points
+    (``ops.matmul``, ``ops.fft``, ``solver_spmv``, ``cg_solve``,
+    ``sparse.spmm``, ``sparse.spgemm``).  Each path: the variant the
+    registry selected; the gathered result against the O2 result on this
+    rank, at :data:`MESH_TOL`; ``matmul`` launched once a mesh product; the
+    profiled collective bytes of ``mesh_psum`` against its plan's
+    schedule.  Returns the rows, the transports, the launches and a
+    digest of every gathered result (the ranks must agree bit for bit)."""
+    import hashlib
+
+    import torch
+
+    t_start = time.perf_counter()
+    on_card = device == "cuda"          # (a rehearsal on the host runs the
+    #                                     plain versions: no kernel launches)
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed.tensor  # noqa: F401  (timed with the imports)
+
+    import repro_torch.core as C
+    import repro_torch.sparse as S
+    from repro_torch.core import ExecLevel, registry, use_level
+    from repro_torch.distributed.collectives import reduce_plan
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.numerics import solvers, sparse
+    from repro_torch.numerics.sparse import CSR
+    from repro_torch.utils.profile import collective_bytes
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    meshes = {"O3": (ExecLevel.O3, make_mesh(data=world, device_type=device)),
+              "2d": (ExecLevel.O3, make_mesh(data=2, model=world // 2,
+                                             device_type=device)),
+              "O4": (ExecLevel.O4, make_mesh(data=world // 2, pod=2,
+                                             device_type=device))}
+    out = {"transports": {k: reduce_plan(m).transports()
+                          for k, (_, m) in meshes.items()},
+           "rows": [], "digests": {}, "setup_s": time.perf_counter() - t_start}
+
+    def bind(x):
+        return C.bind(x, device=device).data
+
+    def run(key, label, op, call, want, tol, select_args):
+        """``call()`` under mesh ``key``: the selected variant, the gathered
+        result against ``want``, the wall time."""
+        level, mesh = meshes[key]
+        with use_level(level, mesh):
+            name = registry.select(op, *select_args).name
+            before = mm_k.matmul.launches
+            sync()
+            t = time.perf_counter()
+            got = call()
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+            launches = mm_k.matmul.launches - before
+        got = gather(C.unwrap(got))
+        rtol, atol = MESH_TOL[tol]
+        torch.testing.assert_close(got, want.to(got.dtype), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{label}: {m}")
+        err = float((got - want.to(got.dtype)).abs().max())
+        out["rows"].append((key, label, name, err, ms, launches))
+        out["digests"][f"{key} {label}"] = hashlib.sha1(
+            got.cpu().numpy().tobytes()).hexdigest()
+        return name, got, launches
+
+    # mod2am n 1024: mesh_psum (O3, O4), mesh_psum_2d (2d), one product a
+    # rank each, bitwise equal on a second call
+    a, b = bind(inp["a"]), bind(inp["b"])
+    want = ops.matmul(a, b)
+    mm_k.matmul.launches = 0
+    for key, variant in (("O3", "mesh_psum"), ("2d", "mesh_psum_2d"),
+                         ("O4", "mesh_psum")):
+        name, got, n = run(key, "mod2am", "matmul", lambda: ops.matmul(a, b),
+                           want, "matmul", (a, b))
+        if name != variant or n != int(on_card):
+            raise AssertionError(f"mod2am on {key}: {name} with {n} matmul "
+                                 f"launches, expected {variant} with 1")
+        with use_level(*meshes[key]):
+            again = gather(ops.matmul(a, b))
+        if not torch.equal(again, got):
+            raise AssertionError(f"mod2am on {key}: two calls differ")
+    # the collective bytes of mesh_psum against its plan's schedule: a
+    # reduce-scatter of the whole M x N f32 partial over data, then the
+    # pod's all-reduce of the scattered part
+    from torch.profiler import ProfilerActivity, profile
+    for key in ("O3", "O4"):
+        level, mesh = meshes[key]
+        plan = reduce_plan(mesh)
+        size, want_bytes = a.shape[0] * b.shape[1] * 4, {}
+        for coll, axis in plan.schedule("reduce_scatter"):
+            kind = coll.replace("_", "-")
+            want_bytes[kind] = want_bytes.get(kind, 0) + size
+            if coll == "reduce_scatter":
+                size //= plan.topo.size(axis)
+        with use_level(level, mesh), profile(
+                activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+            ops.matmul(a, b)
+            sync()
+        got_bytes = {k: v for k, v in collective_bytes(p).items()
+                     if k != "total"}
+        if got_bytes != want_bytes:
+            raise AssertionError(f"mesh_psum on {key}: collective bytes "
+                                 f"{got_bytes}, the plan {want_bytes}")
+        out[f"collective_bytes_{key}"] = got_bytes
+    # one launch a rank for each mesh product: on O3 and O4 the checked
+    # call, its bitwise repeat and the profiled call, on 2d the first two
+    out["launches"] = mm_k.matmul.launches
+    if out["launches"] != 8 * on_card:
+        raise AssertionError(f"mod2am: {out['launches']} matmul launches on "
+                             f"rank {rank}, reckoned 8")
+
+    # mod2as n 10240 at 5.72 %: mesh_csr, mesh_ell (O3)
+    vals, indx, rowp, shape = inp["csr"]
+    csr = CSR(matvals=bind(vals), indx=bind(indx), rowp=bind(rowp),
+              shape=tuple(shape))
+    ell = sparse.ell_from_csr(csr)
+    xs = bind(np.random.default_rng(shape[0]).standard_normal(shape[0])
+              .astype(np.float32))
+    for m, variant in ((csr, "mesh_csr"), (ell, "mesh_ell")):
+        want = C.unwrap(registry.dispatch("solver_spmv", m, C.wrap(xs)))
+        name, _, _ = run("O3", f"mod2as {variant}", "solver_spmv",
+                         lambda: registry.dispatch("solver_spmv", m,
+                                                   C.wrap(xs)),
+                         want, "spmv", (m, C.wrap(xs)))
+        if name != variant:
+            raise AssertionError(f"mod2as: {name}, expected {variant}")
+
+    # mod2f 2^20: mesh_transpose (O3 D = 4, O4 D = 2)
+    z = bind(inp["z"])
+    want = ops.fft(z)
+    for key in ("O3", "O4"):
+        name, _, _ = run(key, "mod2f", "fft", lambda: ops.fft(z), want,
+                         "fft", (z,))
+        if name != "mesh_transpose":
+            raise AssertionError(f"mod2f on {key}: {name}")
+
+    # CG conf 18 through cg_mesh: mesh_dia (O3, O4), mesh_csr (O3)
+    spd, bcg = inp["spd"], C.bind(inp["bcg"], device=device)
+    dia = sparse.dia_from_dense(spd, device=device)
+    cg_csr = sparse.csr_from_dense(spd, device=device)
+    chips = {}
+    for key, m, variant in (("O3", dia, "mesh_dia"), ("O3", cg_csr,
+                                                      "mesh_csr"),
+                            ("O4", dia, "mesh_dia")):
+        if variant not in chips:
+            chips[variant] = solvers.cg_solve(m, bcg, stop=1e-10,
+                                              max_iters=2 * len(spd))
+        chip = chips[variant]
+        res = {}
+
+        def solve():
+            res["r"] = solvers.cg_solve(m, bcg, stop=1e-10,
+                                        max_iters=2 * len(spd))
+            return res["r"].x
+        name, _, _ = run(key, f"cg conf 18 {variant}", "solver_spmv", solve,
+                         chip.x.data, "cg", (m, bcg))
+        k, k0 = int(res["r"].iterations), int(chip.iterations)
+        if name != variant or abs(k - k0) > (0 if key == "O3" else 1):
+            raise AssertionError(f"cg {variant} on {key}: {name}, {k} "
+                                 f"iterations against {k0}")
+
+    # SpMM n 1024, k 8 and 64: mesh_spmm on the DIA, ELL and CSR classes
+    for label, dense, fmt in spmm_classes(sparse, SPMM_N):
+        if fmt == "bsr":
+            continue                    # BSR stays a chip formulation
+        m = S.matrix(dense, format=fmt, device=device)
+        for k in SPMM_RHS:
+            x = bind(np.random.default_rng(k).standard_normal((SPMM_N, k))
+                     .astype(np.float32))
+            want = C.unwrap(S.spmm(m, x))
+            name, _, _ = run("O3", f"spmm {label} k{k}", "spmm",
+                             lambda: S.spmm(m, x), want, "spmm",
+                             (m, C.wrap(x)))
+            if name != "mesh_spmm":
+                raise AssertionError(f"spmm {label}: {name}")
+
+    # SpGEMM n 2048, bs 8 (the timed clustered case): mesh_spgemm, C
+    # block-row-sharded (O3 4 x 1, 2d 2 x 2 Cannon, O4 4 x 1)
+    ga = S.bsr_from_dense(clustered(SPGEMM_N, 0.2, 1), block=SPGEMM_BLOCK,
+                          device=device)
+    gb = S.bsr_from_dense(clustered(SPGEMM_N, 0.2, 2), block=SPGEMM_BLOCK,
+                          device=device)
+    want = torch.as_tensor(S.spgemm(ga, gb).todense(), device=device)
+    for key in ("O3", "2d", "O4"):
+        prod = {}
+
+        def product():
+            prod["c"] = S.spgemm(ga, gb)
+            return torch.as_tensor(prod["c"].todense(), device=device)
+        name, _, _ = run(key, "spgemm", "spgemm", product, want, "spgemm",
+                         (ga, gb))
+        c = prod["c"]
+        sh = c.out_sharding
+        if name != "mesh_spgemm" or sh is None or \
+                tuple(c.values.placements) != sh.placements:
+            raise AssertionError(f"spgemm on {key}: {name}, out_sharding "
+                                 f"{sh}")
+        out.setdefault("spgemm_sharding", {})[key] = str(sh)
+    return out
+
+
+def run_mesh_path(torch, inp: dict, device: str = "cuda") -> dict:
+    """Phase 2j: :func:`mesh_rank` on a world of :data:`MESH_RANKS` ranks,
+    the ranks' results held against each other (every gathered result the
+    same bits on every rank), then, in this process, which has no process
+    group, ``use_level(O3)`` on the one-process mesh: every selection
+    degrades to chip and gives the O2 bits."""
+    from repro_torch.launch.world import run_world
+
+    t = time.perf_counter()
+    ranks = run_world(mesh_rank, MESH_RANKS, args=(device, inp),
+                      timeout=MESH_TIMEOUT_S)
+    out = {"world_s": time.perf_counter() - t, "rank0": ranks[0],
+           "launches": sum(r["launches"] for r in ranks)}
+    for r, res in enumerate(ranks[1:], 1):
+        if res["digests"] != ranks[0]["digests"]:
+            bad = [k for k in res["digests"]
+                   if res["digests"][k] != ranks[0]["digests"].get(k)]
+            raise AssertionError(f"phase 2j: rank {r} gathered other bits "
+                                 f"than rank 0 for {bad}")
+    out["setup_s"] = max(r["setup_s"] for r in ranks)
+    out["slowest_ms"] = {f"{key} {label}": max(
+        row[4] for res in ranks for row in res["rows"]
+        if row[:2] == (key, label)) for key, label, *_ in ranks[0]["rows"]}
+
+    import repro_torch.core as C
+    from repro_torch.core import ExecLevel, registry, use_level
+    from repro_torch.kernels import ops
+    from repro_torch.numerics import solvers, sparse
+
+    a, b = (C.bind(inp[k], device=device).data for k in ("a", "b"))
+    z = C.bind(inp["z"], device=device).data
+    dia = sparse.dia_from_dense(inp["spd"], device=device)
+    bcg = C.bind(inp["bcg"], device=device)
+
+    def paths():
+        return (ops.matmul(a, b), ops.fft(z),
+                solvers.cg_solve(dia, bcg, stop=1e-10, max_iters=2048).x.data)
+    chip = paths()
+    with use_level(ExecLevel.O3) as ctx:
+        scopes = [registry.select("matmul", a, b).scope,
+                  registry.select("fft", z).scope,
+                  registry.select("solver_spmv", dia, bcg).scope]
+        same = [torch.equal(g, w) for g, w in zip(paths(), chip)]
+    if scopes != ["chip"] * 3 or not all(same) or ctx.mesh.shape != (1, 1):
+        raise AssertionError(f"phase 2j, no process group: scopes {scopes}, "
+                             f"bitwise equal {same}, mesh {ctx.mesh}")
+    out["one_process"] = ctx.mesh.shape
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def report_mesh_path(mesh: dict) -> None:
+    """Log phase 2j's rows and checks (:func:`run_mesh_path`)."""
+    r0 = mesh["rank0"]
+    for key, tr in r0["transports"].items():
+        log(f"  transports on {key}: " + ", ".join(
+            f"{c} {t}" for c, t in tr.items())
+            + " (NCCL not used: it refuses two ranks on one card)")
+    for key, label, name, err, ms, launches in r0["rows"]:
+        slowest = mesh["slowest_ms"][f"{key} {label}"]
+        log(f"  {key} {label}: {name}, max |mesh - O2| {err:.3g}, "
+            f"{ms:.2f} ms on rank 0 ({slowest:.2f} ms the slowest rank)"
+            + (f", matmul launches {launches}" if launches else ""))
+    for key in ("O3", "O4"):
+        log(f"  mesh_psum on {key}: collective bytes a rank "
+            f"{r0[f'collective_bytes_{key}']}, as the plan's schedule")
+    log(f"  spgemm out_sharding: {r0['spgemm_sharding']}; a rank's set-up "
+        f"(imports, the card, three meshes and their groups) at most "
+        f"{mesh['setup_s']:.2f} s")
+    log(f"  every gathered result the same bits on all {MESH_RANKS} ranks; "
+        f"no process group: use_level(O3) on the {mesh['one_process']} mesh "
+        f"gives chip variants and the O2 bits")
+
+
 # -- phase 2i: measured dispatch ---------------------------------------------
 
 #: The variables phase 2i points into a temporary directory, and restores.
@@ -3176,7 +3356,7 @@ def run_measured_dispatch(torch, wrappers) -> dict:
     results, (i4) drift, (i5) host cost.  Launch counts are reset just
     before the sweep and read just after (i2).  Returns the phase's
     numbers."""
-    from repro_torch.core import blocking, costmodel, registry
+    from repro_torch.core import blocking, costmodel, registry, settings
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import ops
     from repro_torch.launch import calibrate
@@ -3195,6 +3375,7 @@ def run_measured_dispatch(torch, wrappers) -> dict:
                                                                 "at.json")
         os.environ["REPRO_TORCH_AUTOTUNE"] = "1"
         os.environ["REPRO_TORCH_DRIFT_RATIO"] = str(DRIFT_RATIO)
+        settings.reload()
         t = time.perf_counter()
         cases = calibrate.default_cases(device="cuda")
         torch.cuda.synchronize()
@@ -3365,12 +3546,14 @@ def run_measured_dispatch(torch, wrappers) -> dict:
         for _ in range(HOST_ROUNDS):
             os.environ["REPRO_TORCH_COSTMODEL"] = os.path.join(tmp,
                                                                "none.json")
+            settings.reload()
             for name, fn in (
                     ("impl", lambda: impl(a, a)),
                     ("dispatch", lambda: registry.dispatch("matmul", a, a))):
                 rounds.setdefault(name, []).append(host_us(torch, fn))
             os.environ["REPRO_TORCH_COSTMODEL"] = os.path.join(tmp,
                                                                "cm.json")
+            settings.reload()
             rounds.setdefault("dispatch_model", []).append(host_us(
                 torch, lambda: registry.dispatch("matmul", a, a)))
             with obs_trace.TRACER.tracing():
@@ -3385,6 +3568,7 @@ def run_measured_dispatch(torch, wrappers) -> dict:
             os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
                 tmp, "none-at.json")
             os.environ.pop("REPRO_TORCH_AUTOTUNE")
+            settings.reload()
             rounds.setdefault("resolve_untuned", []).append(host_us(
                 torch, lambda: blocking.resolve_blocks(
                     "flash_attention", dims, dtype, ops._FA_DEFAULTS,
@@ -3392,6 +3576,7 @@ def run_measured_dispatch(torch, wrappers) -> dict:
             os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
                 tmp, "at.json")
             os.environ["REPRO_TORCH_AUTOTUNE"] = "1"
+            settings.reload()
         host = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
         out["host_rounds"] = rounds
         out["host_us"] = host
@@ -3402,6 +3587,7 @@ def run_measured_dispatch(torch, wrappers) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = val
+        settings.reload()
     return out
 
 
@@ -3468,6 +3654,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    bind_package_helpers()
     load_peaks()
     # f32 products run in full precision: the yardstick must not use TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3733,6 +3920,18 @@ def main() -> int:
                              f"path: {missing}")
     launches.update(sparse_launches)
 
+    # -- phase 2j: the paper's path at mesh scope, counted on every rank ----
+    t_path = time.perf_counter()
+    mesh = run_mesh_path(torch, mesh_inputs(csr, z_np, a_np, b_np, spd_np,
+                                            bcg_np))
+    log(f"phase 2j: mesh scope, {MESH_RANKS} ranks on the one card (gloo, "
+        f"staged through host memory; not scaling numbers), in "
+        f"{time.perf_counter() - t_path:.2f} s (the world "
+        f"{mesh['world_s']:.2f} s): matmul launches over the ranks "
+        f"{mesh['launches']}")
+    report_mesh_path(mesh)
+    launches["matmul"] += mesh["launches"]
+
     # -- phase 2c: the serve path, counted ----------------------------------
     attn_wrappers = {"flash_attention": fa_k.flash_attention,
                      "flash_attention_lens": fa_k.flash_attention_lens,
@@ -3965,6 +4164,20 @@ def main() -> int:
         f"{PROFILE_NEW} new tokens: {fmt_breakdown(cont_prof)}")
     log(f"  training, one step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
         f"{fmt_breakdown(train.pop('profile')())}")
+    t = time.perf_counter()
+    terms = train.pop("roofline")()
+    t = time.perf_counter() - t
+    step = sorted(train["step_s"][1:])[(TRAIN_STEPS - 1) // 2]
+    log(f"  roofline of that step (utils.roofline.analyze, one counting "
+        f"pass): {terms.flops_per_chip / 1e12:.3f} TFLOP, "
+        f"{terms.hbm_bytes_per_chip / 1e9:.2f} GB, collective "
+        f"{terms.coll_bytes_per_chip:.0f} B; compute "
+        f"{terms.t_compute * 1e3:.2f} ms, memory {terms.t_memory * 1e3:.2f} "
+        f"ms, collective {terms.t_collective * 1e3:.3f} ms (dominant "
+        f"{terms.dominant}); useful_ratio {terms.useful_ratio:.3f}; "
+        f"measured step {step * 1e3:.1f} ms (median of steps "
+        f"2-{TRAIN_STEPS}), {step / terms.step_time:.1f}x the larger term; "
+        f"the pass took {t:.1f} s")
 
     # -- phase 2e: the MoE serve path, counted ------------------------------
     # after phase 3, whose profiles keep phase 2c's and 2d's models: the

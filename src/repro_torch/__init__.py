@@ -10,7 +10,7 @@ and numpy, never ``jax`` and nothing of ``repro``.
     numerics   the paper's four Euroben kernels, CG and block-CG
     sparse     the blocked-sparse plane: BSR, statistics, the format
                selector, SpMM and SpGEMM, and the attention mask compiler
-    configs    model configurations (the four dense ones so far)
+    configs    the ten model configurations and the paper's Euroben sizes
     models     the LM: layers, GQA attention, the dense block, the loss
     optim      AdamW, LR schedules, int8 gradient compression
     train      the train state and the train / eval step factories
@@ -22,7 +22,10 @@ and numpy, never ``jax`` and nothing of ``repro``.
                the cost model, ``explain``
     launch     command-line entry points (``python -m
                repro_torch.launch.train``, ``... .launch.serve``,
-               ``... .launch.calibrate``)
+               ``... .launch.calibrate``), meshes and worlds of ranks
     interop    carries the JAX package's objects (as numpy) across
-    utils      parameter trees, the card's roofline record
+    distributed  the mesh scope (O3/O4): sharding rules, the collective
+               plans over ``torch.distributed``, the mesh-scoped numerics
+    utils      parameter trees, the roofline (``analyze``), trace
+               introspection (collective bytes, device time by kernel)
 """

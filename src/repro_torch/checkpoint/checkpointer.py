@@ -27,8 +27,8 @@ written under ``.tmp-...`` and renamed into place, then LATEST is swapped,
 so a crash mid-save never corrupts the restore point; ``save_async``
 copies the tree to host memory at once and writes it in a background
 thread; the newest ``keep`` checkpoints are kept.  Partition specs,
-meshes and shardings (the elastic re-mesh on restore) are mesh scope
-(ROADMAP queue 1 item 10) and raise.
+meshes and shardings (the elastic re-mesh on restore) are the LM half of
+mesh scope (ROADMAP queue 1 item 10b) and raise.
 """
 from __future__ import annotations
 
@@ -153,8 +153,8 @@ def _rebuild_layers(tree: list, prefix: str, get, index: tuple) -> list:
 
 def _mesh_scope(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"Checkpointer: {what} is mesh scope, not ported yet (ROADMAP "
-        f"queue 1 item 10)")
+        f"Checkpointer: {what} is the LM half of mesh scope, not ported "
+        f"yet (ROADMAP queue 1 item 10b)")
 
 
 class Checkpointer:

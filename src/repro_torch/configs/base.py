@@ -162,6 +162,20 @@ class ModelConfig:
         return v * d * (1 if self.tie_embeddings else 2) \
             + self.num_layers * per + shared
 
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: only the routed experts
+        count), the N of the roofline's 6·N·D."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        attn = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim * d \
+            + self.num_heads * self.head_dim * d
+        act_moe = self.experts_per_token * 3 * d * self.moe_d_ff \
+            + d * self.num_experts
+        dense = 3 * d * self.d_ff if self.dense_residual else 0
+        return self.num_layers * (attn + act_moe + dense) \
+            + self.vocab_size * d * (1 if self.tie_embeddings else 2)
+
 
 REGISTRY: dict[str, ModelConfig] = {}
 

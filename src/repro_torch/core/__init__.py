@@ -1,12 +1,13 @@
 """repro_torch.core — the ArBB data-parallel programming model on PyTorch.
 
-The counterpart of ``repro.core``, at chip scope:
+The counterpart of ``repro.core``:
 
     Dense, bind                      containers + host interop
     add_reduce, section, repeat_row, repeat_col, replace_col, cat, ...
     arbb_for, arbb_while, arbb_if, unrolled
     call, capture, emap
-    ExecLevel, use_level             O2 only in this package
+    ExecLevel, use_level             O2 one card; O3, O4 a mesh of ranks
+    axis_roles, MeshTopology         mesh topology (core/topology.py)
     registry (dispatch, register, use_backend)
 """
 from repro_torch.core.containers import (
@@ -40,6 +41,7 @@ from repro_torch.core.ops import (
 from repro_torch.core.control import arbb_for, arbb_while, arbb_if, unrolled
 from repro_torch.core.closure import call, capture, emap, Closure, CallClosure
 from repro_torch.core.execlevel import ExecLevel, ExecContext, use_level, current
+from repro_torch.core.topology import MeshTopology, axis_roles, topology_of
 from repro_torch.core import registry
 from repro_torch.core.registry import (dispatch, register, use_backend,
                                        resolve_backend)
@@ -53,5 +55,6 @@ __all__ = [
     "arbb_for", "arbb_while", "arbb_if", "unrolled",
     "call", "capture", "emap", "Closure", "CallClosure",
     "ExecLevel", "ExecContext", "use_level", "current",
+    "MeshTopology", "axis_roles", "topology_of",
     "registry", "dispatch", "register", "use_backend", "resolve_backend",
 ]

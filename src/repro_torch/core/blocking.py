@@ -8,7 +8,9 @@ cache (``results/torch/autotune.json``, path override via
 ``REPRO_TORCH_AUTOTUNE=1`` and the cache has no entry for (op, shape,
 dtype), the candidates are measured on the spot with the real arguments
 and the winner is persisted: ArBB's "optimise for the target detected at
-runtime", made sticky.
+runtime", made sticky.  Both variables are read once
+(:mod:`repro_torch.core.settings`; a change after import takes effect at
+``settings.reload()``), so a resolve reads no environment.
 
 The port's own rules (DESIGN.md §11, ROADMAP queue 1 item 8):
 
@@ -34,8 +36,10 @@ Keys carry the scope and mesh, as the reference's do::
     op|dims|dtype|scope|mesh      e.g. flash_attention|b=4,d=128,h=16,
                                        lk=512,lq=512|bfloat16|chip|-
 
-``ambient_scope_key()`` is ``("chip", "-")`` until mesh scope is ported
-(ROADMAP queue 1 item 10).  The port's files hold only five-part keys, so
+``ambient_scope_key()`` is ``("chip", "-")`` on one card and
+``("mesh", <topology.describe()>)`` under an O3/O4 mesh; the memo of
+settled answers is keyed by it too.  The port's files hold only five-part
+keys, so
 the reference's legacy-key upgrade is not ported, nor are
 ``parse_key``/``pending_defaults``, whose caller (a sweep that upgrades the
 entries a capture default-marked) comes with the captured decode step
@@ -52,6 +56,8 @@ from typing import Any, Callable, Hashable, Mapping, Optional, Sequence
 
 import torch
 
+from repro_torch.core import execlevel, settings
+from repro_torch.core.topology import topology_of
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -60,7 +66,7 @@ __all__ = ["round_up", "AutotuneCache", "get_cache", "autotune_enabled",
            "capturing", "PREMEASURE",
            "DEFAULT_CACHE_PATH"]
 
-DEFAULT_CACHE_PATH = os.path.join("results", "torch", "autotune.json")
+DEFAULT_CACHE_PATH = settings.DEFAULT_CACHE_PATH
 
 
 def round_up(x: int, m: int) -> int:
@@ -68,9 +74,17 @@ def round_up(x: int, m: int) -> int:
 
 
 def ambient_scope_key() -> tuple[str, str]:
-    """The (scope, mesh) components of the key right now: always
-    ``("chip", "-")`` at chip scope."""
-    return "chip", "-"
+    """The (scope, mesh) components of the key right now: ``("chip",
+    "-")`` on one card, ``("mesh", "pod2xdata2xmodel1")`` under an ambient
+    O3/O4 mesh, so per-shard tuning never aliases chip entries of the same
+    local shape."""
+    ctx = execlevel.current()
+    if not ctx.is_distributed:
+        return _CHIP
+    return "mesh", topology_of(ctx.mesh).describe()
+
+
+_CHIP = ("chip", "-")
 
 
 def capturing() -> bool:
@@ -84,8 +98,7 @@ class AutotuneCache:
     """JSON-backed block-size cache: key -> {dim: block, '_seconds': t}."""
 
     def __init__(self, path: Optional[str] = None) -> None:
-        self.path = path or os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE",
-                                           DEFAULT_CACHE_PATH)
+        self.path = path or settings.AUTOTUNE_CACHE
         self._data: Optional[dict[str, dict]] = None
         #: memo (a caller's key for one (op, dims, dtype)) -> blocks of an
         #: entry already checked against its kernel's domain (the hit
@@ -153,17 +166,18 @@ _cache: Optional[AutotuneCache] = None
 
 def get_cache() -> AutotuneCache:
     """The process cache, re-opened if ``REPRO_TORCH_AUTOTUNE_CACHE``
-    changed (lets tests point it at a temp file)."""
+    changed at the last ``settings.reload()`` (lets tests point it at a
+    temp file)."""
     global _cache
-    path = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE", DEFAULT_CACHE_PATH)
+    path = settings.AUTOTUNE_CACHE
     if _cache is None or _cache.path != path:
         _cache = AutotuneCache(path)
     return _cache
 
 
 def autotune_enabled() -> bool:
-    return os.environ.get("REPRO_TORCH_AUTOTUNE", "") in ("1", "true",
-                                                          "measure")
+    """``REPRO_TORCH_AUTOTUNE`` as the last ``settings.reload()`` read it."""
+    return settings.AUTOTUNE
 
 
 def settled(op: str, memo: Hashable) -> Optional[dict[str, int]]:
@@ -174,6 +188,10 @@ def settled(op: str, memo: Hashable) -> Optional[dict[str, int]]:
     key the cache holds no entry for.  Else None.  A caller that resolves
     on every call tries this first and builds its dims only on a None."""
     cache = get_cache()
+    if execlevel.current().mesh is not None:    # O3/O4: keyed by the mesh
+        sk = ambient_scope_key()
+        if sk is not _CHIP:
+            memo = (memo, sk)
     hit = cache._checked.get(memo)
     if hit is not None:
         obs_metrics.METRICS.counter(f"blocking.cache_hit.{op}").inc()
@@ -215,7 +233,10 @@ def resolve_blocks(
         return hit
     cache = get_cache()
     tune = autotune_enabled()
-    key = AutotuneCache.key(op, dims, dtype, *ambient_scope_key())
+    sk = ambient_scope_key()
+    if sk is not _CHIP:
+        memo = (memo, sk)
+    key = AutotuneCache.key(op, dims, dtype, *sk)
     raw = cache.entry(key)
     can_measure = bool(tune and candidates and measure is not None
                        and not capturing())

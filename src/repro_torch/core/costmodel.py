@@ -34,7 +34,8 @@ Entry format (one dict per key, one record per variant)::
 recorded one) their interquartile range, and ``hw`` names the device the
 seconds were measured on.  The file lives
 beside the block cache (``results/torch/costmodel.json``; path override
-via ``REPRO_TORCH_COSTMODEL``).  Precedence at dispatch is ``variant=``
+via ``REPRO_TORCH_COSTMODEL``, read once by
+:mod:`repro_torch.core.settings`).  Precedence at dispatch is ``variant=``
 pin > requested plane > calibrated cost > static prior; a singleton
 measurement never re-ranks, only variants admissible on the operands'
 device count, and a difference within the margin or the spread reorders
@@ -42,23 +43,26 @@ nothing (the registry's ``_calibrated``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import math
 import json
 import os
 import threading
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import torch
 
+from repro_torch.core import settings
 from repro_torch.core.blocking import AutotuneCache
 from repro_torch.utils.roofline import H100, HW
 
 __all__ = ["CostModel", "get_model", "signature", "shape_class", "dtype_of",
-           "dtype_name", "arg_bytes", "predicted_seconds",
-           "DEFAULT_MODEL_PATH"]
+           "dtype_name", "arg_bytes", "predicted_seconds", "call_flops",
+           "counting", "count_call", "KernelCount", "DEFAULT_MODEL_PATH"]
 
-DEFAULT_MODEL_PATH = os.path.join("results", "torch", "costmodel.json")
+DEFAULT_MODEL_PATH = settings.DEFAULT_MODEL_PATH
 
 #: shape-class keys prefix the op with this marker so exact and class
 #: entries can never collide (op names never start with it).
@@ -189,8 +193,7 @@ class CostModel:
     memoised against it is dropped by the next :meth:`record`."""
 
     def __init__(self, path: Optional[str] = None) -> None:
-        self.path = path or os.environ.get("REPRO_TORCH_COSTMODEL",
-                                           DEFAULT_MODEL_PATH)
+        self.path = path or settings.COSTMODEL
         self._data: Optional[dict[str, dict]] = None
         self.version = 0
         self._lock = threading.Lock()
@@ -348,9 +351,103 @@ _model: Optional[CostModel] = None
 
 def get_model() -> CostModel:
     """The process cost model, re-opened if ``REPRO_TORCH_COSTMODEL``
-    changed (lets tests point it at a temp file, as the block cache)."""
+    changed at the last ``settings.reload()`` (lets tests point it at a
+    temp file, as the block cache)."""
     global _model
-    path = os.environ.get("REPRO_TORCH_COSTMODEL", DEFAULT_MODEL_PATH)
+    path = settings.COSTMODEL
     if _model is None or _model.path != path:
         _model = CostModel(path)
     return _model
+
+
+# ---------------------------------------------------------------------------
+# the hand-written kernels' per-call reckoning (the roofline's counting pass)
+# ---------------------------------------------------------------------------
+
+def _attention_pairs(q, k, causal: bool, mask=None) -> int:
+    """Live (query, key) pairs of one head: every pair, or the causal band
+    (top-left aligned, as the kernels), or a mask's live tiles."""
+    lq, lk = q.shape[2], k.shape[2]
+    if mask is not None and not getattr(mask, "trivial_dense", True):
+        return lq * lk
+    if mask is not None:
+        causal = mask.causal
+    if not causal:
+        return lq * lk
+    m = min(lq, lk)
+    return m * (m + 1) // 2 + max(lq - lk, 0) * lk
+
+
+def call_flops(op: str, args: Sequence[Any],
+               kwargs: Optional[Mapping[str, Any]] = None) -> float:
+    """The floating-point operations one call of ``op`` needs (its useful
+    work: a multiply-add is two), for the ops whose 'cuda' variants are
+    hand-written kernels; 0 where the count is not reckoned (SpGEMM's
+    depends on the symbolic phase)."""
+    kwargs = kwargs or {}
+    if op == "matmul":
+        a, b = args[:2]
+        return 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
+    if op in ("spmv_ell", "spmv_dia"):
+        return 2.0 * args[0].numel()
+    if op == "fft":
+        n = args[0].shape[0]
+        return 5.0 * n * math.log2(max(n, 2))
+    if op in ("flash_attention", "flash_attention_state"):
+        q, k = args[0], args[1]
+        pairs = _attention_pairs(q, k, kwargs.get("causal", True),
+                                 kwargs.get("mask"))
+        return 4.0 * q.shape[0] * q.shape[1] * q.shape[3] * pairs
+    if op == "spmm":
+        a, x = args[0], args[1]
+        stored = getattr(a, "nnz", 0)
+        if callable(stored):
+            stored = stored()
+        return 2.0 * int(stored) * getattr(x, "shape", (0, 1))[-1]
+    return 0.0
+
+
+@dataclasses.dataclass
+class KernelCount:
+    """What a counting pass saw the hand-written kernels do: FLOPs and
+    bytes (each operand read once, each result written once), in all and
+    per op."""
+    flops: float = 0.0
+    bytes: float = 0.0
+    calls: dict = dataclasses.field(default_factory=dict)
+
+    def add(self, op: str, flops: float, nbytes: float) -> None:
+        self.flops += flops
+        self.bytes += nbytes
+        n, f, b = self.calls.get(op, (0, 0.0, 0.0))
+        self.calls[op] = (n + 1, f + flops, b + nbytes)
+
+
+#: The open counting pass, or None (the registry and the attention
+#: backward look here after every kernel call; nothing is reckoned while
+#: it is None).
+COUNTING: Optional[KernelCount] = None
+
+
+@contextlib.contextmanager
+def counting() -> Iterator[KernelCount]:
+    """Reckon every hand-written kernel call made inside (the registry's
+    'cuda' variants, and the attention backward): the part of a step that
+    launches through ctypes, which no dispatch mode sees."""
+    global COUNTING
+    prev, COUNTING = COUNTING, KernelCount()
+    try:
+        yield COUNTING
+    finally:
+        COUNTING = prev
+
+
+def count_call(op: str, args: Sequence[Any], kwargs: Optional[Mapping[
+        str, Any]], out: Any, flops: Optional[float] = None) -> None:
+    """Add one kernel call to the open counting pass (if any): its
+    :func:`call_flops` (or ``flops``) and the bytes of its operands and
+    results."""
+    if COUNTING is None:
+        return
+    COUNTING.add(op, call_flops(op, args, kwargs) if flops is None
+                 else flops, arg_bytes((args, out)))

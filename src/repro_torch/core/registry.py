@@ -1,10 +1,15 @@
 """Operator registry: one retargeting plane per op (counterpart of
-``repro.core.registry``), chip scope only.
+``repro.core.registry``).
 
 Every operator (``matmul``, ``spmv_ell``, ``spmv_dia``, ``fft``, the solver
 SpMV formulations, the blocked-sparse ``spmm`` and ``spgemm``, and the
 attention ops) registers variants, and :func:`dispatch` picks one.
 
+    scope     how far a variant reaches: 'chip' (one card: every kernel
+              and DSL formulation) or 'mesh' (a program over the ranks of
+              the ambient O3/O4 mesh, :mod:`repro_torch.distributed.
+              numerics`).  Mesh variants are admissible only under such a
+              mesh, and then they are *preferred*.
     plane     how a variant executes:
               'cuda'  a hand-written kernel (``repro_torch/kernels/csrc``),
                       which needs its operands on a CUDA device;
@@ -12,7 +17,10 @@ attention ops) registers variants, and :func:`dispatch` picks one.
                       package's 'xla' plane.
               DSL-level variants (the solver SpMV formulations) have
               ``plane=None``: they are tensor programs and run anywhere.
-    variant   (op, name, impl, plane, cost, accepts): one implementation.
+    variant   (op, name, impl, plane, scope, cost, available, accepts,
+              out_sharding): one implementation.
+    available capability predicate over the selection context (level,
+              mesh topology): ``mesh_psum_2d`` needs a real model axis.
     accepts   per-call predicate over the concrete arguments.
     cost      static preference; lower wins among admissible variants.
 
@@ -30,6 +38,11 @@ Selection rules (DESIGN.md §6, with the device rule of the port):
        variant is never admissible on CUDA operands, so nothing falls from
        a kernel to the plain version; a kernel that fails to build or
        launch raises.
+    4. Scope ranks first: under an ambient O3/O4 mesh a mesh variant beats
+       any chip one, ahead of the plane request (ArBB's O3 beats O2
+       without the program text changing).  A mesh variant whose shapes
+       do not divide the mesh, or whose mesh has no axis to run over,
+       degrades to the chip formulation.
 
 Calibration (DESIGN.md §11): when the measured cost model
 (:mod:`repro_torch.core.costmodel`) holds whole-call seconds for this call's
@@ -60,9 +73,12 @@ span only while the tracer is on, and times whole calls (with a
 Providers register lazily: ops are declared here by module path and imported
 on first dispatch, so upper layers depend only on this module.
 
-Mesh scope (the reference's 'mesh' variants, topology, and the scope part
-of the cost-model keys) waits for ROADMAP queue 1 item 10: every key here
-is ``...|chip|-``.
+Cost-model and drift keys end in the ambient ``scope|mesh``: ``chip|-``
+on one card, ``mesh|<topology.describe()>`` under an O3/O4 mesh (e.g.
+``mesh|pod2xdata2xmodel1``), so mesh and chip measurements never alias.
+A mesh variant may declare the layout it leaves its result in
+(``out_sharding``); dispatch attaches it to the result and explain shows
+it.
 """
 from __future__ import annotations
 
@@ -76,6 +92,7 @@ from typing import Any, Callable, Iterator, NamedTuple, Optional
 import torch
 
 from repro_torch.core import blocking, costmodel, execlevel
+from repro_torch.core.topology import MeshTopology, topology_of
 from repro_torch.obs import drift as obs_drift
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -84,10 +101,13 @@ __all__ = ["Variant", "SelectContext", "OperatorRegistry", "REGISTRY",
            "Cost", "register", "unregister", "dispatch", "select",
            "explain", "select_context", "variants", "ops", "use_backend",
            "requested_backend", "resolve_backend", "device_type_of",
-           "PLANES"]
+           "PLANES", "SCOPES"]
 
 #: The kernel retargeting planes.
 PLANES = ("cuda", "torch")
+
+#: The selection scopes: one card, or the ambient O3/O4 mesh.
+SCOPES = ("chip", "mesh")
 
 #: A measurement reorders two calibrated variants only when the slower
 #: one's seconds exceed the faster one's by more than this fraction of the
@@ -118,15 +138,20 @@ class Cost:
     CSR = ORACLE
 
 
-#: op name -> modules that register its variants on import.
+#: op name -> modules that register its variants on import (chip kernels
+#: first, then the mesh-scoped formulations).
 _PROVIDERS = {
-    "matmul": ("repro_torch.kernels.ops",),
+    "matmul": ("repro_torch.kernels.ops",
+               "repro_torch.distributed.numerics"),
     "spmv_ell": ("repro_torch.kernels.ops",),
     "spmv_dia": ("repro_torch.kernels.ops",),
-    "fft": ("repro_torch.kernels.ops",),
-    "solver_spmv": ("repro_torch.numerics.spmv", "repro_torch.sparse.spmm"),
-    "spmm": ("repro_torch.sparse.spmm",),
-    "spgemm": ("repro_torch.sparse.spgemm",),
+    "fft": ("repro_torch.kernels.ops", "repro_torch.distributed.numerics"),
+    "solver_spmv": ("repro_torch.numerics.spmv",
+                    "repro_torch.distributed.numerics",
+                    "repro_torch.sparse.spmm"),
+    "spmm": ("repro_torch.sparse.spmm", "repro_torch.distributed.numerics"),
+    "spgemm": ("repro_torch.sparse.spgemm",
+               "repro_torch.distributed.numerics"),
     "flash_attention": ("repro_torch.kernels.ops",),
     "flash_attention_state": ("repro_torch.kernels.ops",),
     "paged_attention": ("repro_torch.kernels.ops",),
@@ -155,19 +180,61 @@ def device_type_of(*operands: Any) -> str:
 
 class SelectContext(NamedTuple):
     """What variant selection may look at: the level, the operands' device
-    type ('cuda' or 'cpu') and the requested plane.  (A named tuple: every
-    dispatch makes one.)"""
+    type ('cuda' or 'cpu'), the requested plane, and under an O3/O4 mesh
+    the mesh, the scope ('mesh') and the mesh's topology (axis names,
+    sizes, roles), so a variant can predicate on mesh rank and axis roles.
+    (A named tuple: every dispatch makes one.)"""
     level: execlevel.ExecLevel
     device: str
     requested: Optional[str] = None
+    mesh: Any = None
+    scope: str = "chip"
+    topology: Optional[MeshTopology] = None
+
+    @property
+    def mesh_rank(self) -> int:
+        """Non-degenerate mesh axes (0 with no mesh)."""
+        return self.topology.rank if self.topology is not None else 0
 
 
 def select_context(*operands: Any) -> SelectContext:
     """The context variant selection sees right now for these operands
     (a call's positional and keyword argument values)."""
-    return SelectContext(level=execlevel.current().level,
-                         device=device_type_of(*operands),
-                         requested=requested_backend())
+    ctx = execlevel.current()
+    if ctx.mesh is None:
+        return SelectContext(level=ctx.level,
+                             device=device_type_of(*operands),
+                             requested=requested_backend())
+    return SelectContext(level=ctx.level, device=device_type_of(*operands),
+                         requested=requested_backend(), mesh=ctx.mesh,
+                         scope="mesh" if ctx.is_distributed else "chip",
+                         topology=topology_of(ctx.mesh))
+
+
+def scope_key(ctx: SelectContext) -> tuple[str, str]:
+    """The (scope, mesh) key components of a context: the cost model's and
+    the drift detector's shared vocabulary."""
+    if ctx.scope == "mesh" and ctx.topology is not None:
+        return "mesh", ctx.topology.describe()
+    return "chip", "-"
+
+
+def _attach_out_sharding(v: "Variant", ctx: Optional[SelectContext],
+                         args: tuple, kwargs: dict, out: Any) -> Any:
+    """Attach the layout ``v`` (a variant that declares an
+    ``out_sharding``; dispatch tests that before calling) decided for its
+    result as an advisory ``out_sharding`` attribute.  A hook that raises
+    fails the dispatch; a result type without settable attributes returns
+    unannotated."""
+    sh = v.decide_out_sharding(ctx or select_context(*args,
+                                                     *kwargs.values()),
+                               args, kwargs)
+    if sh is not None:
+        try:
+            object.__setattr__(out, "out_sharding", sh)
+        except (AttributeError, TypeError):
+            pass
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,16 +249,47 @@ class Variant:
     #: a plane-free variant whose body is the plain reference: admissible
     #: everywhere, but its seconds never re-rank it on CUDA operands
     oracle: bool = False
+    scope: str = "chip"
+    available: Optional[Callable[[SelectContext], bool]] = None
+    #: ``out_sharding(ctx, *args, **kwargs) -> NamedSharding | None``: the
+    #: layout this variant leaves its result in (mesh SpGEMM's block-row
+    #: sharding); dispatch attaches it to the result
+    out_sharding: Optional[Callable[..., Any]] = None
 
-    def is_available(self, ctx: SelectContext) -> bool:
+    def decide_out_sharding(self, ctx: SelectContext, args: tuple,
+                            kwargs: dict) -> Optional[Any]:
+        """The layout this variant would leave the output in for this
+        call, or None (no declaration, or the hook declined).  A hook that
+        raises raises here: a bug in a layout decision is not hidden
+        behind a result with no layout (explain reports it instead,
+        :func:`_out_sharding_row`)."""
+        if self.out_sharding is None:
+            return None
+        return self.out_sharding(ctx, *args, **kwargs)
+
+    def _plane_available(self, ctx: SelectContext) -> bool:
         if self.plane == "cuda":
             return ctx.device == "cuda"
         if self.plane == "torch":
             return ctx.device == "cpu" or ctx.requested == "torch"
         return True
 
+    def is_available(self, ctx: SelectContext) -> bool:
+        if not self._plane_available(ctx):
+            return False
+        if self.scope == "mesh" and ctx.scope != "mesh":
+            return False
+        return self.available(ctx) if self.available is not None else True
+
     def unavailable_reason(self, ctx: SelectContext) -> str:
         """Why :meth:`is_available` says no (explain's wording)."""
+        if self._plane_available(ctx):
+            if self.scope == "mesh" and ctx.scope != "mesh":
+                return ("scope-mismatch: mesh-scoped variant without an "
+                        "ambient O3/O4 mesh")
+            _, mesh = scope_key(ctx)
+            return (f"available-predicate: rejected this context "
+                    f"(level={ctx.level.name}, mesh={mesh})")
         if self.plane == "cuda":
             return ("plane-unavailable: 'cuda' needs CUDA operands; these "
                     "lie on the host")
@@ -264,16 +362,23 @@ class OperatorRegistry:
     def register(self, op: str, name: str, impl: Optional[Callable] = None,
                  *, plane: Optional[str] = None, cost: float = 10.0,
                  accepts: Optional[Callable[..., bool]] = None,
-                 doc: str = "", oracle: bool = False):
+                 doc: str = "", oracle: bool = False, scope: str = "chip",
+                 available: Optional[Callable[[SelectContext], bool]] = None,
+                 out_sharding: Optional[Callable[..., Any]] = None):
         """Register a variant.  Usable directly or as a decorator."""
         if impl is None:
             def deco(fn: Callable) -> Callable:
                 self.register(op, name, fn, plane=plane, cost=cost,
-                              accepts=accepts, doc=doc, oracle=oracle)
+                              accepts=accepts, doc=doc, oracle=oracle,
+                              scope=scope, available=available,
+                              out_sharding=out_sharding)
                 return fn
             return deco
         if plane is not None and plane not in PLANES:
             raise ValueError(f"unknown plane {plane!r} for {op}/{name}")
+        if scope not in SCOPES:
+            raise ValueError(f"unknown scope {scope!r} for {op}/{name}; "
+                             f"choose from {SCOPES}")
         if oracle and plane is not None:
             raise ValueError(f"{op}/{name}: an oracle is plane-free")
         with self._lock:
@@ -285,7 +390,9 @@ class OperatorRegistry:
             table[name] = Variant(op=op, name=name, impl=impl, plane=plane,
                                   cost=cost, accepts=accepts,
                                   doc=doc or impl.__doc__ or "",
-                                  oracle=oracle)
+                                  oracle=oracle, scope=scope,
+                                  available=available,
+                                  out_sharding=out_sharding)
             self._version += 1
         return impl
 
@@ -336,7 +443,8 @@ class OperatorRegistry:
         is 0 for every variant no slower than the fastest by more than the
         margin (:data:`CALIBRATION_MARGIN`, or either's spread): those
         keep their static order.  A slower one ranks by its seconds."""
-        records = model.records_for(op, args, kwargs)
+        scope, mesh = scope_key(ctx)
+        records = model.records_for(op, args, kwargs, scope=scope, mesh=mesh)
         on_card = ctx.device == "cuda"
         counted = {name: rec for name, rec in records.items()
                    if name in table and table[name].is_available(ctx)
@@ -356,14 +464,18 @@ class OperatorRegistry:
     def _ranked(ctx: SelectContext, table: dict[str, Variant],
                 measured: Optional[dict[str, tuple[float, float]]] = None
                 ) -> list[Variant]:
-        """All variants in selection order: calibrated (by rank), requested
-        plane, cost, name."""
+        """All variants in selection order: calibrated (by rank), scope
+        match, requested plane, cost, name.  Under a mesh the mesh
+        variants rank ahead of every chip one, whatever plane was
+        requested; without one they are unavailable and the chip order is
+        what it always was."""
         measured = measured or {}
         req = ctx.requested
         return sorted(
             table.values(),
             key=lambda v: ((0, measured[v.name][1]) if v.name in measured
                            else (1, 0.0),
+                           0 if v.scope == ctx.scope else 1,
                            0 if req is not None and v.plane == req else 1,
                            v.cost, v.name))
 
@@ -382,9 +494,11 @@ class OperatorRegistry:
         calibrate = req is None and len(model) > 0
         if calibrate:
             memo_key = (op, _call_key(args, kwargs), ctx.device, model.path,
-                        model.version, self._version)
+                        model.version, self._version, ctx.scope,
+                        ctx.topology)
         else:
-            memo_key = (op, req, ctx.device, self._version)
+            memo_key = (op, req, ctx.device, self._version, ctx.scope,
+                        ctx.topology)
         hit = self._memo.get(memo_key)
         if hit is not None:
             return hit
@@ -454,14 +568,17 @@ class OperatorRegistry:
         explain is a diagnostic and must survive what it diagnoses."""
         ctx = select_context(*args, *kwargs.values())
         table = self._table(op)
-        base = {"op": op, "scope": "chip", "out_sharding": None,
-                "level": ctx.level.name, "ambient_scope": "chip",
-                "mesh": "-", "device": ctx.device}
+        ambient, mesh = scope_key(ctx)
+        base = {"op": op, "level": ctx.level.name, "ambient_scope": ambient,
+                "mesh": mesh, "device": ctx.device}
         if variant is not None:
             pin = self.get(op, variant)
             ok = not (pin.plane == "cuda" and ctx.device != "cuda")
             return [{**base, "rank": 0, "variant": pin.name,
-                     "plane": pin.plane, "cost": pin.cost,
+                     "plane": pin.plane, "scope": pin.scope,
+                     "out_sharding": _out_sharding_row(pin, ctx, args,
+                                                       kwargs),
+                     "cost": pin.cost,
                      "calibrated_seconds": None, "source": "pinned",
                      "selected": ok, "no_variant_selected": not ok,
                      "reason": "selected: explicit variant= pin" if ok
@@ -473,6 +590,8 @@ class OperatorRegistry:
         have_winner = False
         for i, v in enumerate(ranked):
             row = {**base, "rank": i, "variant": v.name, "plane": v.plane,
+                   "scope": v.scope,
+                   "out_sharding": _out_sharding_row(v, ctx, args, kwargs),
                    "cost": v.cost,
                    "calibrated_seconds": measured[v.name][0]
                    if v.name in measured else None,
@@ -482,9 +601,7 @@ class OperatorRegistry:
                 row["reason"] = ("plane-unavailable: the 'cuda' plane was "
                                  "requested but the operands lie on the "
                                  "host")
-            elif not v.is_available(ctx):
-                row["reason"] = v.unavailable_reason(ctx)
-            else:
+            elif _available(v, ctx, row):
                 try:
                     ok = v.matches(*args, **kwargs)
                     why = "accepts-predicate: rejected these arguments" \
@@ -520,7 +637,9 @@ class OperatorRegistry:
 
         Instrumented (DESIGN.md §14): per-(op, variant) selection counts
         and fall-off counts are always on (two dict bumps); a span per
-        dispatch while the tracer is enabled; whole-call drift timing
+        dispatch while the tracer is enabled; a hand-written kernel's call
+        reckoned while a counting pass (:func:`costmodel.counting`) is
+        open; whole-call drift timing
         only under :func:`repro_torch.obs.drift.collect`, where a call on
         CUDA operands is bracketed by ``torch.cuda.synchronize()`` — a
         host sync no default path pays — and never while a CUDA graph is
@@ -529,23 +648,32 @@ class OperatorRegistry:
         if variant is not None:
             v = self.select(op, *args, variant=variant, **kwargs)
             metrics.counter(f"dispatch.{op}.{v.name}").inc()
-            return v.impl(*args, **kwargs)
+            out = v.impl(*args, **kwargs)
+            return out if v.out_sharding is None else \
+                _attach_out_sharding(v, None, args, kwargs, out)
         v, ctx, rejected = self._select(op, args, kwargs)
         metrics.counter(f"dispatch.{op}.{v.name}").inc()
         if rejected:
             metrics.counter(f"dispatch.falloff.{op}").inc()
         tracer = obs_trace.TRACER
         if not (tracer.enabled or obs_drift.collecting()):
-            return v.impl(*args, **kwargs)
+            out = v.impl(*args, **kwargs)
+            if costmodel.COUNTING is not None and v.plane == "cuda":
+                costmodel.count_call(op, args, kwargs, out)
+            return out if v.out_sharding is None else \
+                _attach_out_sharding(v, ctx, args, kwargs, out)
         if rejected:
             tracer.event("dispatch.falloff", cat="dispatch", op=op,
                          variant=v.name, rejected=rejected)
+        scope, mesh = scope_key(ctx)
         with tracer.span(f"dispatch:{op}", cat="dispatch", op=op,
-                         variant=v.name, plane=str(v.plane), scope="chip",
-                         level=ctx.level.name, mesh="-"):
+                         variant=v.name, plane=str(v.plane), scope=v.scope,
+                         level=ctx.level.name, mesh=mesh):
             if not obs_drift.collecting() or (ctx.device == "cuda"
                                               and blocking.capturing()):
-                return v.impl(*args, **kwargs)
+                out = v.impl(*args, **kwargs)
+                return out if v.out_sharding is None else \
+                    _attach_out_sharding(v, ctx, args, kwargs, out)
             on_card = ctx.device == "cuda"
             if on_card:
                 torch.cuda.synchronize()
@@ -554,8 +682,34 @@ class OperatorRegistry:
             if on_card:
                 torch.cuda.synchronize()
             obs_drift.DETECTOR.observe(op, v.name, time.perf_counter() - t0,
-                                       args, kwargs)
-            return out
+                                       args, kwargs, scope=scope, mesh=mesh)
+            return out if v.out_sharding is None else \
+                _attach_out_sharding(v, ctx, args, kwargs, out)
+
+
+def _out_sharding_row(v: Variant, ctx: SelectContext, args: tuple,
+                      kwargs: dict) -> Optional[str]:
+    """Explain's ``out_sharding`` entry: the layout ``v`` would leave, or
+    None, or the exception its hook raised (explain survives what it
+    diagnoses)."""
+    try:
+        sh = v.decide_out_sharding(ctx, args, kwargs)
+    except Exception as e:                  # diagnose, don't die
+        return f"out_sharding hook raised {type(e).__name__}: {e}"
+    return str(sh) if sh is not None else None
+
+
+def _available(v: Variant, ctx: SelectContext, row: dict) -> bool:
+    """``v.is_available(ctx)`` for explain: a no (or a predicate that
+    raises) writes its reason into ``row``."""
+    try:
+        if v.is_available(ctx):
+            return True
+        row["reason"] = v.unavailable_reason(ctx)
+    except Exception as e:                  # diagnose, don't die
+        row["reason"] = (f"available-predicate raised {type(e).__name__}: "
+                         f"{e}")
+    return False
 
 
 def _call_key(args: tuple, kwargs: dict) -> tuple:

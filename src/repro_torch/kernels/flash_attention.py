@@ -84,6 +84,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import costmodel
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import NEG_INF, _expand_kv
 
@@ -737,6 +738,13 @@ class _Attention(torch.autograd.Function):
             return None, None, None, None, None, None
         dq, dk, dv = flash_attention_tiles_bwd(q, k, v, o, lse, do,
                                                ctx.layout, scale=ctx.scale)
+        if costmodel.COUNTING is not None and not _lib.on_host(q):
+            lay = ctx.layout          # the score and four gradient products
+            pairs = lay.ntiles * lay.block_q * lay.block_k
+            costmodel.count_call(
+                "flash_attention_bwd", (q, k, v, o, lse, do), None,
+                (dq, dk, dv),
+                flops=10.0 * q.shape[0] * q.shape[1] * q.shape[3] * pairs)
         return dq, dk, dv, None, None, None
 
 

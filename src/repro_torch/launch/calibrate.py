@@ -44,7 +44,7 @@ from typing import Any, Callable, Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import blocking, costmodel, registry
+from repro_torch.core import blocking, costmodel, registry, settings
 from repro_torch.core.containers import resolve_device
 from repro_torch.obs.trace import clock
 
@@ -376,6 +376,7 @@ def main(argv=None) -> int:
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(out,
                                                             "autotune.json")
     os.environ["REPRO_TORCH_AUTOTUNE"] = "1"
+    settings.reload()
     dev = resolve_device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     cases = default_cases(tiny=args.tiny, device=dev)

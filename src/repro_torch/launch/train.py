@@ -10,14 +10,19 @@ qwen3-moe-30b-a3b``), SSM (``--arch mamba2-370m``), hybrid (``--arch
 zamba2-7b``), VLM (``--arch qwen2-vl-72b``) and audio (``--arch
 musicgen-medium``, whole on the card); the last two on synthetic batches
 with seeded standard-normal frontend embeddings.  On the card a config
-whose parameters, gradients and AdamW moments do not fit the card's
-memory raises before anything is allocated (qwen3-moe-30b-a3b, zamba2-7b
-and qwen2-vl-72b at scale 1), and names the depth that would train: the
-most layers whose parameters fit at :data:`UPDATE_PEAK_BYTES` a bf16
-parameter, the peak a step holds at the AdamW update.  The mesh
-(``Trainer(mesh=...)``, ZeRO-1 moment sharding) is mesh scope (ROADMAP
-queue 1 item 10): ``mesh`` raises and the JAX Trainer's ``zero1`` is not
-taken.  Step times read :func:`repro_torch.obs.trace.clock`.
+whose step does not fit the card's memory less :data:`TRAIN_SLACK_BYTES`
+raises before anything is allocated (qwen3-moe-30b-a3b, zamba2-7b,
+qwen2-vl-72b and phi3-mini-3.8b at scale 1), and names the depth that
+would train: the most layers that fit by the same count (``--layers``
+trains at that depth).  The count (:func:`train_peak_bytes`) is the
+larger of the step's two peaks: the AdamW update's
+(:func:`update_peak_bytes`, :data:`UPDATE_PEAK_BYTES` a bf16 parameter)
+and the backward's start, where the gradients and moments sit beside a
+microbatch's activations (:func:`activation_bytes`, which grow with
+``--batch`` x ``--seq``).  The mesh
+(``Trainer(mesh=...)``, ZeRO-1 moment sharding) is the LM half of mesh
+scope (ROADMAP queue 1 item 10b): ``mesh`` raises and the JAX Trainer's
+``zero1`` is not taken.  Step times read :func:`repro_torch.obs.trace.clock`.
 """
 from __future__ import annotations
 
@@ -40,34 +45,67 @@ from repro_torch.optim.schedules import cosine, wsd
 from repro_torch.runtime import HeartbeatStore, Monitor
 from repro_torch.train import create, make_train_step
 
-__all__ = ["reduce_config", "Trainer", "main", "train_state_bytes",
-           "update_peak_bytes"]
+__all__ = ["reduce_config", "Trainer", "main", "update_peak_bytes",
+           "activation_bytes", "train_peak_bytes"]
 
-#: Bytes a parameter needs beyond its own while it trains: its gradient
-#: (at most f32, the dtype microbatches sum it in) and the two f32 AdamW
-#: moments.
-GRAD_AND_MOMENT_BYTES = 4 + 2 * 4
 #: Bytes a bf16 parameter holds at a training step's peak, the AdamW
 #: update (measured on an H100 training qwen3-moe-30b-a3b and zamba2-7b
 #: cut in depth, PERF.md §6): its own 2, the gradient's and the moments'
 #: 12, and 12 more that the update's transient copies hold at its peak.
+#: The dense configs' measured peaks at 2 steps of 1 x 512 tokens sit
+#: above it: 26.3 (phi3-mini-3.8b at 25 layers) to 27.7 (gemma-2b, with
+#: its 256000-entry vocabulary) bytes a parameter, 8-9 bytes an entry of
+#: the embedding matrix in all three; :data:`TRAIN_SLACK_BYTES` covers the
+#: difference.
 UPDATE_PEAK_BYTES = 26
-
-
-def train_state_bytes(cfg: ModelConfig) -> int:
-    """The least memory that training ``cfg`` holds: every parameter in
-    ``cfg.pdtype``, its gradient and its two moments (activations, the
-    optimizer's transient copies and the allocator's slack come on top)."""
-    size = torch.empty((), dtype=cfg.pdtype).element_size()
-    return cfg.param_count() * (size + GRAD_AND_MOMENT_BYTES)
+#: Bytes a bf16 parameter holds before the update: its own 2, an f32
+#: gradient and two f32 moments.
+GRAD_AND_MOMENT_BYTES = 14
+#: Activation bytes a token holds at the backward's start, per entry of
+#: the (padded) vocabulary: the logits in bf16 (2), their f32 copy (4),
+#: the log-softmax (4), its f32 gradient (4) and the bf16 gradient (2).
+LOGIT_BYTES = 16
+#: Activation bytes a token holds per layer and model dimension under
+#: remat (each layer's bf16 input, kept for the recompute); without remat
+#: a layer keeps its intermediates, counted as 8 such inputs.
+LAYER_BYTES, LAYER_BYTES_NO_REMAT = 2, 16
+#: Bytes of the card a training run cannot count on beyond that count: the
+#: CUDA context, the caching allocator's reserved but unallocated blocks
+#: (2.4 GB when phi3-mini-3.8b at 27 layers ran out of memory on an H100,
+#: PERF.md §6) and the dense configs' excess over the update's count
+#: (gemma-2b's peak was 4.3 GB above it).
+TRAIN_SLACK_BYTES = 5_000_000_000
 
 
 def update_peak_bytes(cfg: ModelConfig) -> int:
     """The memory training ``cfg`` holds at the AdamW update's peak:
     :data:`UPDATE_PEAK_BYTES` a bf16 parameter, the parameter's own bytes
-    beside the rest at another ``cfg.pdtype`` (activations come on top)."""
+    beside the rest at another ``cfg.pdtype`` (activations are freed by
+    then)."""
     size = torch.empty((), dtype=cfg.pdtype).element_size()
     return cfg.param_count() * (UPDATE_PEAK_BYTES - 2 + size)
+
+
+def activation_bytes(cfg: ModelConfig, tokens: int) -> int:
+    """The activations a microbatch of ``tokens`` positions (the
+    frontend's counted) holds when its backward starts: the logits' chain
+    (:data:`LOGIT_BYTES` a vocabulary entry) and each layer's kept input
+    (:data:`LAYER_BYTES` a model dimension, more without remat)."""
+    layer = LAYER_BYTES if cfg.remat else LAYER_BYTES_NO_REMAT
+    return tokens * (LOGIT_BYTES * cfg.padded_vocab
+                     + layer * cfg.num_layers * cfg.d_model)
+
+
+def train_peak_bytes(cfg: ModelConfig, tokens: int) -> int:
+    """The memory a training step of ``cfg`` on microbatches of ``tokens``
+    positions holds at its peak: the larger of the AdamW update's
+    (:func:`update_peak_bytes`) and the backward's start (the parameters,
+    gradients and moments, :data:`GRAD_AND_MOMENT_BYTES` a bf16 parameter,
+    beside :func:`activation_bytes`)."""
+    size = torch.empty((), dtype=cfg.pdtype).element_size()
+    backward = cfg.param_count() * (GRAD_AND_MOMENT_BYTES - 2 + size) \
+        + activation_bytes(cfg, tokens)
+    return max(update_peak_bytes(cfg), backward)
 
 
 def reduce_config(cfg: ModelConfig, scale: float, *,
@@ -132,8 +170,8 @@ class Trainer:
                  device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "Trainer(mesh=...) shards the state over a mesh: mesh scope, "
-                "not ported yet (ROADMAP queue 1 item 10)")
+                "Trainer(mesh=...) shards the state over a mesh: the LM half "
+                "of mesh scope, not ported yet (ROADMAP queue 1 item 10b)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lm = LM(cfg)
@@ -198,25 +236,37 @@ def main(argv=None) -> int:
                          "default: synthetic tokens")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (at the "
+                         "scale's width), e.g. the depth a refusal names")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.scale != 1.0:
         cfg = reduce_config(cfg, args.scale, seq_len=args.seq)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         have = torch.cuda.get_device_properties(dev).total_memory
-        need = train_state_bytes(cfg)
-        if need > have:
+        room = have - TRAIN_SLACK_BYTES
+        tokens = -(-args.batch // args.microbatches) \
+            * (args.seq + (cfg.frontend_len if cfg.frontend else 0))
+        need = train_peak_bytes(cfg, tokens)
+        if need > room:
             fit = max((n for n in range(1, cfg.num_layers) if
-                       update_peak_bytes(dataclasses.replace(
-                           cfg, num_layers=n)) <= have), default=0)
+                       train_peak_bytes(dataclasses.replace(
+                           cfg, num_layers=n), tokens) <= room), default=0)
             ap.error(f"{cfg.name}: {need / 1e9:.1f} GB of parameters, "
-                     f"gradients and AdamW moments do not fit the card's "
-                     f"{have / 1e9:.1f} GB (at full width {fit} of its "
-                     f"{cfg.num_layers} layers would, at "
-                     f"{UPDATE_PEAK_BYTES} bytes a parameter at the "
-                     f"update's peak); pass --scale below 1")
+                     f"gradients, AdamW moments and the larger of the "
+                     f"update's transient copies ({UPDATE_PEAK_BYTES} bytes "
+                     f"a parameter at the update's peak) and the "
+                     f"activations of {tokens} positions a microbatch do "
+                     f"not fit the card's {have / 1e9:.1f} GB less "
+                     f"{TRAIN_SLACK_BYTES / 1e9:.0f} GB of slack (at full "
+                     f"width {fit} of its {cfg.num_layers} layers would, "
+                     f"by the same count); pass --scale below 1 or "
+                     f"--layers {fit}")
     print(f"training {cfg.name}: {cfg.param_count()/1e6:.1f}M params")
 
     if args.corpus:

@@ -22,8 +22,8 @@ The dispatch is the JAX package's, step for step:
 Every tensor op is a gather, a scatter without accumulation or a sort: no
 atomics, so two runs on the card give the same bits.  Only the dustbin row
 may receive more than one token.  ``groups`` is 1 at chip scope (the JAX
-package's default without a mesh); a mesh's data-parallel groups are mesh
-scope (ROADMAP queue 1 item 10).
+package's default without a mesh); a mesh's data-parallel groups are the LM
+half of mesh scope (ROADMAP queue 1 item 10b).
 
 Aux losses: the load-balancing loss ``sum(load * importance) * E`` and the
 router z-loss ``mean(logsumexp(logits) ** 2)``, returned for the caller to

@@ -17,7 +17,12 @@ iteration (see ``repro_torch.core.control.arbb_while``).
 SpMM dispatch per iteration (a CUDA kernel on BSR and ELL operands on the
 card) and k x k rank-revealing Gram solves.
 
-Not ported yet: the mesh-scoped solves (ROADMAP queue 1 item 10).
+Under an ambient O3/O4 mesh the registry selects a mesh-scoped
+``solver_spmv`` and ``cg_solve`` runs the whole solve row-sharded
+(:func:`repro_torch.distributed.numerics.cg_mesh`: every dot product a
+hierarchical all-reduce); ``cg_block_solve``'s SpMM dispatches
+``mesh_spmm`` and gathers its row-sharded product.  An explicit
+``backend=`` still pins either scope.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.core import Dense, arbb_while, call, unwrap, wrap
 from repro_torch.core import registry
+from repro_torch.distributed.sharding import gather
 from repro_torch.numerics import spmv as spmv_mod  # noqa: F401  (registers solver_spmv)
 from repro_torch.numerics.sparse import CSR, DIA, ELL
 
@@ -48,6 +54,20 @@ class CGResult:
 
 def _spmv(a: Matrix, p, backend: Optional[str]):
     return registry.dispatch("solver_spmv", a, wrap(p), variant=backend)
+
+
+def _selected_spmv(a: Matrix, bv, backend: Optional[str]
+                   ) -> registry.Variant:
+    """The solver_spmv variant the registry would run for this solve: the
+    scope decision (the chip loop or the mesh solve) hangs off its
+    scope."""
+    return registry.select("solver_spmv", a, wrap(bv), variant=backend)
+
+
+def _cg_mesh(a: Matrix, bv, stop, max_iters: int, backend: Optional[str]):
+    from repro_torch.distributed import numerics as dnum
+    return dnum.cg_mesh(a, bv, stop=stop, max_iters=max_iters,
+                        variant=backend)
 
 
 def _cg_core(a: Matrix, bv: torch.Tensor, stop: float, max_iters: int,
@@ -77,16 +97,24 @@ def cg_solve(a: Matrix, b, *, stop: float = 1e-10, max_iters: int = 1000,
     """Conjugate gradients, the paper's §3.4 listing on the DSL.
 
     ``backend`` names a ``solver_spmv`` variant ('spmv1', 'spmv2', 'ell',
-    'dia'); None lets the registry pick by matrix layout."""
+    'dia', or the mesh-scoped 'mesh_*' forms); None lets the registry pick
+    by matrix layout *and* scope: under an O3/O4 mesh the whole solve runs
+    row-sharded, and ``x`` comes back a row-sharded DTensor."""
     bv = unwrap(wrap(b))
-    x, r2, k = _cg_core(a, bv, stop, max_iters, backend)
+    core = _cg_mesh if _selected_spmv(a, bv, backend).scope == "mesh" \
+        else _cg_core
+    x, r2, k = core(a, bv, stop, max_iters, backend)
     return CGResult(x=wrap(x), iterations=k, residual_sq=r2)
 
 
 def _cg_jit_core(a: Matrix, bv, stop, max_iters: int,
                  backend: Optional[str]):
-    """The ``call()``-wrapped CG core returning (x, r2, k)."""
-    return _cg_core(a, unwrap(bv), stop, max_iters, backend)
+    """The ``call()``-wrapped CG core returning (x, r2, k), scope-aware
+    like :func:`cg_solve`."""
+    bv = unwrap(bv)
+    if _selected_spmv(a, bv, backend).scope == "mesh":
+        return _cg_mesh(a, bv, stop, max_iters, backend)
+    return _cg_core(a, bv, stop, max_iters, backend)
 
 
 cg_jit = call(_cg_jit_core)
@@ -133,7 +161,9 @@ def cg_block_solve(a, b, *, stop: float = 1e-10, max_iters: int = 1000,
                          f"{bm.shape[0]} rows")
 
     def aspmm(p):
-        return unwrap(registry.dispatch("spmm", a, wrap(p), variant=variant))
+        # under a mesh, mesh_spmm's product is row-sharded: made whole here
+        return gather(unwrap(registry.dispatch("spmm", a, wrap(p),
+                                               variant=variant)))
 
     def rr_solve(g, rhs, active):
         """Rank-revealing solve of ``g @ out = rhs`` on the active

@@ -6,7 +6,7 @@ transform: gradients pass through int8 quantisation before the inner
 update, and the quantisation error is carried in the state and re-added
 next step, so information is delayed, not lost (Seide et al. 1-bit SGD
 lineage).  ``compressed_psum``, the int8 exchange over a mesh axis, is
-mesh scope (ROADMAP queue 1 item 10) and raises.
+the LM half of mesh scope (ROADMAP queue 1 item 10b) and raises.
 """
 from __future__ import annotations
 
@@ -55,5 +55,5 @@ def compressed(optimizer):
 
 def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     raise NotImplementedError(
-        "compressed_psum exchanges over a mesh axis: mesh scope, not ported "
-        "yet (ROADMAP queue 1 item 10)")
+        "compressed_psum exchanges over a mesh axis: the LM half of mesh "
+        "scope, not ported yet (ROADMAP queue 1 item 10b)")

@@ -30,7 +30,8 @@ submitted at once, so the loop never waits on an arrival)
 one heartbeat per loop iteration with the decoding occupancy to a
 :class:`~repro_torch.runtime.fault_tolerance.HeartbeatStore`.
 
-Not ported: the ring-sharded pool (mesh scope, ROADMAP queue 1 item 10).
+Not ported: the ring-sharded pool (the LM half of mesh scope, ROADMAP
+queue 1 item 10b).
 """
 from __future__ import annotations
 

@@ -16,8 +16,8 @@ targets page 0, keeping the decode step branch-free.
 
 The spec keeps the JAX package's ring striping fields (table position
 ``p`` owned by ring shard ``p % ring``); on one chip ``ring = 1`` and every
-position is residue 0.  Ring-sharded decode is mesh scope (ROADMAP queue 1
-item 10).
+position is residue 0.  Ring-sharded decode is the LM half of mesh scope
+(ROADMAP queue 1 item 10b).
 """
 from __future__ import annotations
 

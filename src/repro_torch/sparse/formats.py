@@ -16,10 +16,10 @@ chosen by the ``bind`` rule (the card unless the caller passes
 re-exports the element formats so ``repro_torch.sparse`` is the one import
 for all four layouts.  Every constructed BSR carries its
 :class:`~repro_torch.sparse.stats.SparseStats` (advisory: excluded from
-equality).
-
-Not ported: the JAX container's ``out_sharding`` field, which only a
-mesh-scoped SpGEMM sets (ROADMAP queue 1 item 10).
+equality).  A BSR that a mesh-scoped variant produced holds its
+``values`` as a DTensor and carries the layout the dispatcher decided for
+them (``out_sharding``, advisory and outside equality like ``stats``);
+:meth:`BSR.todense` gathers them.
 """
 from __future__ import annotations
 
@@ -48,6 +48,10 @@ class BSR:
     block: int
     stats: Optional[SparseStats] = dataclasses.field(
         default=None, compare=False)
+    #: the ``NamedSharding`` dispatch decided for ``values`` when a
+    #: mesh-scoped variant produced this container; None otherwise
+    out_sharding: Optional[object] = dataclasses.field(
+        default=None, compare=False)
 
     @property
     def nblocks(self) -> int:
@@ -68,7 +72,9 @@ class BSR:
         return {"block": int(self.block), "nnzb": int(self.cols.shape[0])}
 
     def todense(self) -> np.ndarray:
-        vals = self.values.cpu().numpy()
+        from repro_torch.distributed.sharding import gather
+
+        vals = gather(self.values).cpu().numpy()
         cols = self.cols.cpu().numpy()
         rowp = self.rowp.cpu().numpy()
         bs = self.block

@@ -27,8 +27,9 @@ equal):
 array (CSR goes through the direct CSR->BSR path; ELL/DIA/dense densify on
 the host).
 
-Not ported: ``mesh_spgemm`` and the output sharding it attaches (ROADMAP
-queue 1 item 10).
+Under an O3/O4 mesh the Cannon-style ``mesh_spgemm``
+(:mod:`repro_torch.distributed.numerics`) is preferred; it returns the
+product block-row-sharded and attaches that layout (``out_sharding``).
 """
 from __future__ import annotations
 
@@ -59,29 +60,35 @@ class SpgemmPlan:
     """The symbolic phase's product: C's block pattern, which both numeric
     formulations fill, and the count of contributing block products.
 
-    The JAX plan also carries the pair lists (A block, B block, C slot of
-    every product).  Here nothing consumes them: the CUDA kernel and its
-    plain version find each product's slot in ``c_cols`` themselves, so the
-    symbolic phase keeps only the count.
+    The pair lists (A block, B block and C slot of every product, ordered
+    by C slot so that equal-slot runs are contiguous) are built only on
+    request (``spgemm_symbolic(..., pairs=True)``): their one consumer is
+    the mesh variant, which shards them; the CUDA kernel and its plain
+    version find each product's slot in ``c_cols`` themselves.
     """
     c_cols: np.ndarray            # (nc,) int32, C's block-column indices
     c_rowp: np.ndarray            # (nbrows+1,) int32, C's block-row pointers
     npairs: int                   # contributing block products
     nbrows: int                   # C's block-row count
     nbcols: int                   # C's block-column count
+    pair_p: Optional[np.ndarray] = None   # (npairs,) int32, A block
+    pair_q: Optional[np.ndarray] = None   # (npairs,) int32, B block
+    pair_r: Optional[np.ndarray] = None   # (npairs,) int32, C slot
 
     @property
     def nc(self) -> int:
         return int(self.c_cols.shape[0])
 
 
-def _empty_plan(nbrows: int, nbcols: int) -> SpgemmPlan:
+def _empty_plan(nbrows: int, nbcols: int, pairs: bool) -> SpgemmPlan:
+    z = np.zeros(0, np.int32) if pairs else None
     return SpgemmPlan(c_cols=np.zeros(0, np.int32),
                       c_rowp=np.zeros(nbrows + 1, np.int32), npairs=0,
-                      nbrows=nbrows, nbcols=nbcols)
+                      nbrows=nbrows, nbcols=nbcols, pair_p=z, pair_q=z,
+                      pair_r=z)
 
 
-def spgemm_symbolic(a: BSR, b: BSR) -> SpgemmPlan:
+def spgemm_symbolic(a: BSR, b: BSR, *, pairs: bool = False) -> SpgemmPlan:
     """C = A·B's block pattern from the operands' patterns alone
     (host-side data-pipeline work, like every converter).
 
@@ -90,7 +97,9 @@ def spgemm_symbolic(a: BSR, b: BSR) -> SpgemmPlan:
     flat (row, col) keys of the products dedup into C's pattern
     (``np.unique`` returns them row-major sorted: CSR order).  When both
     operands carry construction statistics, the realised pair count is
-    asserted against :meth:`SparseStats.product_block_bound`."""
+    asserted against :meth:`SparseStats.product_block_bound`.  With
+    ``pairs`` the plan also carries the slot-ordered pair lists (the
+    inverse of the dedup is each pair's C slot)."""
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"inner dims differ: {a.shape} @ {b.shape}")
     if a.block != b.block:
@@ -103,7 +112,7 @@ def spgemm_symbolic(a: BSR, b: BSR) -> SpgemmPlan:
     nbrows = a_rowp.size - 1
     nbcols = b.shape[1] // b.block
     if a_cols.size == 0 or b_cols.size == 0:
-        return _empty_plan(nbrows, nbcols)
+        return _empty_plan(nbrows, nbcols, pairs)
 
     starts = b_rowp[a_cols]
     counts = b_rowp[a_cols + 1] - starts
@@ -115,17 +124,24 @@ def spgemm_symbolic(a: BSR, b: BSR) -> SpgemmPlan:
         assert total <= bound, \
             f"pair count {total} exceeds stats bound {bound}"
     if total == 0:
-        return _empty_plan(nbrows, nbcols)
+        return _empty_plan(nbrows, nbcols, pairs)
     pair_p = np.repeat(np.arange(a_cols.size), counts)
     offs = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
     pair_q = np.repeat(starts, counts) + offs
 
     a_rows = np.repeat(np.arange(nbrows), np.diff(a_rowp))
-    uniq = np.unique(a_rows[pair_p] * nbcols + b_cols[pair_q])
+    uniq, slot = np.unique(a_rows[pair_p] * nbcols + b_cols[pair_q],
+                           return_inverse=True)
     c_rowp = np.zeros(nbrows + 1, np.int32)
     np.cumsum(np.bincount(uniq // nbcols, minlength=nbrows), out=c_rowp[1:])
+    lists = {}
+    if pairs:
+        order = np.argsort(slot, kind="stable")     # slot-contiguous pairs
+        lists = {"pair_p": pair_p[order].astype(np.int32),
+                 "pair_q": pair_q[order].astype(np.int32),
+                 "pair_r": slot[order].astype(np.int32)}
     return SpgemmPlan(c_cols=(uniq % nbcols).astype(np.int32), c_rowp=c_rowp,
-                      npairs=total, nbrows=nbrows, nbcols=nbcols)
+                      npairs=total, nbrows=nbrows, nbcols=nbcols, **lists)
 
 
 def _assemble(plan: SpgemmPlan, vals: torch.Tensor, a: BSR, b: BSR) -> BSR:

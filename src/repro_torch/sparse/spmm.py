@@ -25,7 +25,9 @@ This module also closes the solver seam: ``solver_spmv`` gains a low-cost
 (2-D), plus the BSR single-vector lift, so ``cg_solve`` works on blocked
 matrices too.
 
-Not ported: ``mesh_spmm`` (ROADMAP queue 1 item 10).
+Under an O3/O4 mesh the row-sharded ``mesh_spmm``
+(:mod:`repro_torch.distributed.numerics`) is preferred for CSR, ELL and
+DIA operands; BSR stays a chip formulation.
 """
 from __future__ import annotations
 

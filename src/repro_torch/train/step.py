@@ -10,8 +10,8 @@ in f32, as the JAX package's ``lax.scan`` does, then scales the sums by
 ``1 / microbatches``.  The returned state holds new tensors; the input
 state is left as it is.
 
-``shard_batch`` places a batch on a mesh: mesh scope (ROADMAP queue 1
-item 10), it raises.
+``shard_batch`` places a batch on a mesh: the LM half of mesh scope
+(ROADMAP queue 1 item 10b), it raises.
 """
 from __future__ import annotations
 
@@ -108,5 +108,5 @@ def make_eval_step(lm, loss_fn: Optional[Callable] = None) -> Callable:
 
 def shard_batch(mesh, batch: Pytree) -> Pytree:
     raise NotImplementedError(
-        "shard_batch places a batch on a mesh: mesh scope, not ported yet "
-        "(ROADMAP queue 1 item 10)")
+        "shard_batch places a batch on a mesh: the LM half of mesh scope, "
+        "not ported yet (ROADMAP queue 1 item 10b)")

@@ -184,13 +184,21 @@ class TestClosure:
 
 class TestExecLevel:
     def test_o2_only(self):
+        """O2 is the default and one card; without a process group O3 and
+        O4 run on the one-process mesh and every selection degrades to
+        chip scope (the mesh cases are tests/test_torch_mesh_numerics.py)."""
         assert T.current().level == T.ExecLevel.O2
         with T.use_level(T.ExecLevel.O2) as ctx:
-            assert not ctx.is_distributed
-        for level in (T.ExecLevel.O3, T.ExecLevel.O4):
-            with pytest.raises(NotImplementedError, match="mesh-scope"):
-                with T.use_level(level):
-                    pass
+            assert not ctx.is_distributed and ctx.mesh is None
+        a = torch.ones(16, 16)
+        for level, shape in ((T.ExecLevel.O3, (1, 1)),
+                             (T.ExecLevel.O4, (1, 1, 1))):
+            with T.use_level(level) as ctx:
+                assert ctx.is_distributed and ctx.mesh.shape == shape
+                assert registry.select_context().scope == "mesh"
+                assert registry.select("matmul", a, a).scope == "chip"
+                assert torch.equal(T.dispatch("matmul", a, a), a @ a)
+            assert T.current().level == T.ExecLevel.O2
 
 
 class TestRegistry:

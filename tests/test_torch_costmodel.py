@@ -27,7 +27,7 @@ from repro.core import registry as jreg
 from repro.numerics import sparse as jsp
 from repro.sparse.maskcompiler import MaskSpec as JMask
 from repro_torch.core import bind as tbind
-from repro_torch.core import blocking, costmodel, registry
+from repro_torch.core import blocking, costmodel, registry, settings
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ops
 from repro_torch.numerics import sparse as tsp
@@ -41,12 +41,18 @@ CPU = "cpu"
 def _torch_files(monkeypatch, tmp_path):
     """The port's model and block cache in ``tmp_path``, autotune off, and
     no plane requested on either side (./test.sh's REPRO_KERNELS would
-    disable the JAX side's calibration)."""
+    disable the JAX side's calibration).  The port reads its variables at
+    ``settings.reload()``, here and after every change, and again once
+    they are restored."""
     monkeypatch.setenv("REPRO_TORCH_COSTMODEL", str(tmp_path / "cm.json"))
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "at.json"))
     monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    settings.reload()
     monkeypatch.delenv("REPRO_KERNELS", raising=False)
+    yield
+    monkeypatch.undo()
+    settings.reload()
 
 
 def _on_card(monkeypatch):
@@ -343,6 +349,7 @@ def test_roundtrip_keeps_every_variant_and_its_spread(tmp_path,
                                                      monkeypatch):
     path = tmp_path / "model.json"
     monkeypatch.setenv("REPRO_TORCH_COSTMODEL", str(path))
+    settings.reload()
     m = costmodel.get_model()
     a = torch.ones(8, 8)
     m.record("matmul", "torch", seconds=0.25, spread=0.01, args=(a, a))
@@ -416,6 +423,7 @@ def test_predictions_use_the_h100_peak_of_the_dtype():
 @pytest.fixture
 def autotune(monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "1")
+    settings.reload()
     return blocking.get_cache()
 
 
@@ -478,6 +486,7 @@ def test_untuned_defaults_resolve_once_and_a_put_or_autotune_reopens(
     assert resolve() == {"m": 16} and len(lookups) == 2
     monkeypatch.setattr(blocking, "capturing", lambda: False)
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "1")
+    settings.reload()
     assert blocking.resolve_blocks(
         "_t_untuned2", {"m": 32}, "float32", {"m": 8}, ({"m": 16},),
         lambda bl: measured.append(bl["m"]) or bl["m"] * 1e-6) == {"m": 8}
@@ -594,9 +603,9 @@ def test_autotune_sweep_records_and_reranks(csr_pair):
 # ---------------------------------------------------------------------------
 
 def test_train_refusal_names_a_depth_that_fits(monkeypatch, capsys):
-    """qwen2-vl-72b at scale 1 on an 80 GB card: the refusal stands, and
-    the depth it names fits at 26 bytes a parameter while one layer more
-    does not."""
+    """qwen2-vl-72b at scale 1 on an 80 GB card: the refusal, by the
+    step's peak (here the update's), stands, and the depth it names fits
+    by the same count while one layer more does not."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as t_launch
 
@@ -609,11 +618,186 @@ def test_train_refusal_names_a_depth_that_fits(monkeypatch, capsys):
         t_launch.main(["--arch", "qwen2-vl-72b", "--scale", "1.0"])
     err = capsys.readouterr().err
     assert "do not fit the card's 80.0 GB" in err
-    assert "at 26 bytes a parameter" in err
-    fit = int(err.split("at full width ")[1].split(" of")[0])
+    assert "(26 bytes a parameter at the update's peak)" in err
     cfg = get_config("qwen2-vl-72b")
+    tokens = 8 * (256 + cfg.frontend_len)       # the launcher's defaults
+    assert f"activations of {tokens} positions a microbatch" in err
+    fit = int(err.split("at full width ")[1].split(" of")[0])
+    room = 80e9 - t_launch.TRAIN_SLACK_BYTES
     assert t_launch.UPDATE_PEAK_BYTES == 26
     assert 26 * dataclasses.replace(cfg, num_layers=fit).param_count() \
-        <= 80e9
-    assert 26 * dataclasses.replace(cfg, num_layers=fit + 1).param_count() \
-        > 80e9
+        <= room
+    assert t_launch.train_peak_bytes(dataclasses.replace(
+        cfg, num_layers=fit), tokens) <= room
+    assert t_launch.train_peak_bytes(dataclasses.replace(
+        cfg, num_layers=fit + 1), tokens) > room
+
+
+class _Admitted(Exception):
+    """Raised by the stub Trainer: ``main`` admitted the config."""
+
+
+@pytest.mark.parametrize("arch,admitted", [("phi3-mini-3.8b", False),
+                                           ("gemma-2b", True),
+                                           ("minicpm-2b", True)])
+def test_train_admits_by_the_update_peak(monkeypatch, capsys, arch,
+                                         admitted):
+    """On the 85.0 GB an H100 reports, ``main`` refuses by the count that
+    names its depth, :func:`update_peak_bytes` (less the slack):
+    phi3-mini-3.8b (99.3 GB at the update's peak, 53.5 GB of parameters,
+    gradients and moments) is refused with a depth that fits; gemma-2b
+    and minicpm-2b are admitted."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as t_launch
+
+    def trainer(*a, **k):
+        raise _Admitted
+
+    monkeypatch.setattr(t_launch, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"total_memory": 85.0e9}))
+    monkeypatch.setattr(t_launch, "Trainer", trainer)
+    cfg = get_config(arch)
+    peak = t_launch.update_peak_bytes(cfg)
+    room = 85.0e9 - t_launch.TRAIN_SLACK_BYTES
+    assert (peak <= room) == admitted
+    if admitted:
+        with pytest.raises(_Admitted):
+            t_launch.main(["--arch", arch, "--scale", "1.0", "--steps", "1",
+                           "--batch", "1", "--seq", "16"])
+        return
+    # 14 bytes a parameter (its own 2, an f32 gradient, two f32 moments)
+    # fit; the update's peak does not
+    assert 14 * cfg.param_count() <= room < peak
+    with pytest.raises(SystemExit):
+        t_launch.main(["--arch", arch, "--scale", "1.0", "--steps", "1"])
+    err = capsys.readouterr().err
+    assert f"{peak / 1e9:.1f} GB" in err
+    assert "do not fit the card's 85.0 GB less 5 GB of slack" in err
+    fit = int(err.split("at full width ")[1].split(" of")[0])
+    assert 0 < fit < cfg.num_layers and f"--layers {fit}" in err
+    # at the launcher's 8 x 256 the update's peak is the step's
+    assert t_launch.train_peak_bytes(cfg, 8 * 256) == peak
+    assert t_launch.update_peak_bytes(dataclasses.replace(
+        cfg, num_layers=fit)) <= room
+    assert t_launch.update_peak_bytes(dataclasses.replace(
+        cfg, num_layers=fit + 1)) > room
+
+
+def test_train_refuses_by_the_activations(monkeypatch, capsys):
+    """gemma-2b on 85.0 GB: admitted at the launcher's 8 x 256, where the
+    update's peak is the step's, and refused at 8 x 2048, where the
+    logits of 16384 positions (16 bytes a token and entry of the 256000
+    vocabulary) put the backward's start above the update; the depth it
+    names fits by the same count, and two microbatches are admitted
+    whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as t_launch
+
+    def trainer(*a, **k):
+        raise _Admitted
+
+    monkeypatch.setattr(t_launch, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"total_memory": 85.0e9}))
+    monkeypatch.setattr(t_launch, "Trainer", trainer)
+    cfg = get_config("gemma-2b")
+    room = 85.0e9 - t_launch.TRAIN_SLACK_BYTES
+    assert t_launch.train_peak_bytes(cfg, 2048) == \
+        t_launch.update_peak_bytes(cfg) <= room
+    with pytest.raises(_Admitted):
+        t_launch.main(["--arch", "gemma-2b", "--scale", "1.0"])
+    tokens = 8 * 2048
+    need = t_launch.train_peak_bytes(cfg, tokens)
+    assert need == 14 * cfg.param_count() + t_launch.activation_bytes(
+        cfg, tokens) > room
+    assert t_launch.activation_bytes(cfg, tokens) == tokens * (
+        16 * 256000 + 2 * 18 * 2048)
+    with pytest.raises(SystemExit):
+        t_launch.main(["--arch", "gemma-2b", "--scale", "1.0", "--batch",
+                       "8", "--seq", "2048"])
+    err = capsys.readouterr().err
+    assert f"{need / 1e9:.1f} GB" in err
+    assert f"activations of {tokens} positions a microbatch" in err
+    fit = int(err.split("at full width ")[1].split(" of")[0])
+    assert t_launch.train_peak_bytes(dataclasses.replace(
+        cfg, num_layers=fit), tokens) <= room
+    assert 0 < fit < cfg.num_layers and t_launch.train_peak_bytes(
+        dataclasses.replace(cfg, num_layers=fit + 1), tokens) > room
+    # two microbatches halve the activations a microbatch
+    assert t_launch.train_peak_bytes(cfg, tokens // 2) <= room
+    with pytest.raises(_Admitted):
+        t_launch.main(["--arch", "gemma-2b", "--scale", "1.0", "--batch",
+                       "8", "--seq", "2048", "--microbatches", "2"])
+
+
+# ---------------------------------------------------------------------------
+# no environment read on a dispatch that changes nothing
+# ---------------------------------------------------------------------------
+
+class _CountingEnviron(dict):
+    """A stand-in for ``os.environ`` that counts every read."""
+
+    reads = 0
+
+    def __getitem__(self, key):
+        type(self).reads += 1
+        return super().__getitem__(key)
+
+    def get(self, key, default=None):
+        type(self).reads += 1
+        return super().get(key, default)
+
+    def __contains__(self, key):
+        type(self).reads += 1
+        return super().__contains__(key)
+
+
+def test_cached_dispatch_reads_no_environment(monkeypatch, tmp_path):
+    """Once ``settings.reload()`` has run, an attention dispatch whose
+    blocks the cache holds reads ``os.environ`` zero times (the kernel
+    wrapper runs its plain version on these host tensors), with and
+    without a cost model file."""
+    import os
+
+    _on_card(monkeypatch)
+    q, k, v = (torch.randn(s, generator=torch.Generator().manual_seed(i))
+               for i, s in enumerate(((1, 4, 64, 32), (1, 2, 64, 32),
+                                      (1, 2, 64, 32))))
+    cache = blocking.get_cache()
+    cache.put(blocking.AutotuneCache.key(
+        "flash_attention", ops._fa_dims(q, k), "float32"), {"q": 32, "k": 32})
+    for with_model in (False, True):
+        if with_model:
+            costmodel.get_model().record("matmul", "torch", seconds=1.0,
+                                         args=(q[0, 0], q[0, 0].T))
+        want = ops.flash_attention(q, k, v, causal=True)   # checks the entry
+        counting = _CountingEnviron(os.environ)
+        monkeypatch.setattr(os, "environ", counting)
+        _CountingEnviron.reads = 0
+        for _ in range(3):
+            got = ops.flash_attention(q, k, v, causal=True)
+        monkeypatch.setattr(os, "environ", dict.copy(counting))
+        assert _CountingEnviron.reads == 0
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert registry.select("flash_attention", q, k, v).name == "cuda"
+
+
+def test_settings_reload_sees_a_changed_variable(monkeypatch, tmp_path):
+    """A variable set after import takes effect at the re-read hook: the
+    block cache and the cost model re-open at the new paths, and autotune
+    turns on."""
+    monkeypatch.setenv("REPRO_TORCH_COSTMODEL", str(tmp_path / "m2.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "a2.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "1")
+    assert not blocking.autotune_enabled()          # not re-read yet
+    settings.reload()
+    assert blocking.autotune_enabled()
+    assert blocking.get_cache().path == str(tmp_path / "a2.json")
+    assert costmodel.get_model().path == str(tmp_path / "m2.json")
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE")
+    settings.reload()
+    assert not blocking.autotune_enabled()

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import registry
+from repro_torch.core import registry, settings
 from repro_torch.kernels import fft as fft_k
 from repro_torch.kernels import matmul as mm_k
 from repro_torch.kernels import ops
@@ -2432,14 +2432,18 @@ def test_ssd_backward_is_bitwise_run_to_run(card):
 
 @pytest.fixture
 def torch_files(monkeypatch, tmp_path):
-    """The port's cost model and block cache in ``tmp_path``."""
+    """The port's cost model and block cache in ``tmp_path`` (read at
+    ``settings.reload()``, and again once the variables are restored)."""
     from repro_torch.core import blocking
 
     monkeypatch.setenv("REPRO_TORCH_COSTMODEL", str(tmp_path / "cm.json"))
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "at.json"))
     monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
-    return blocking
+    settings.reload()
+    yield blocking
+    monkeypatch.undo()
+    settings.reload()
 
 
 def _train_qkv(card, seed=0):
@@ -2455,6 +2459,7 @@ def test_resolve_blocks_measures_and_persists_a_block_the_kernel_takes(
     from repro_torch.kernels import flash_attention as fa_k
 
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "1")
+    settings.reload()
     q, k, v = _train_qkv(card)
     want = ops.flash_attention(q, k, v, causal=True,
                                block_q=128, block_k=128)
@@ -2516,6 +2521,7 @@ def test_a_faster_torch_variant_is_not_selected_on_card_operands(
 def test_resolve_blocks_inside_capture_marks_defaults_without_a_sync(
         card, torch_files, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "1")
+    settings.reload()
     measured, syncs = [], []
 
     def measure(bl):

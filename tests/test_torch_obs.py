@@ -19,7 +19,7 @@ import torch
 
 from repro.obs import metrics as jmetrics
 from repro.obs import trace as jtrace
-from repro_torch.core import bind, costmodel, registry
+from repro_torch.core import bind, costmodel, registry, settings
 from repro_torch.numerics import sparse as tsp
 from repro_torch.obs import drift, explain, explain_str, metrics, trace
 from repro_torch.sparse import formats as tfmt
@@ -36,6 +36,7 @@ def _fresh(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "at.json"))
     monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    settings.reload()
     for tr in (trace.TRACER, jtrace.TRACER):
         tr.disable()
         tr.clear()
@@ -46,6 +47,8 @@ def _fresh(monkeypatch, tmp_path):
     trace.TRACER.disable()
     trace.TRACER.clear()
     drift.DETECTOR.clear()
+    monkeypatch.undo()
+    settings.reload()
 
 
 def _mm():
@@ -199,9 +202,13 @@ def test_explain_agrees_with_dispatch(i):
     assert len(winners) == 1
     assert winners[0] == registry.select(op, *args, **kwargs).name
     for r in rows:
+        # the reference's vocabulary; at O2 the mesh variants are scope
+        # mismatches
         assert r["reason"].startswith((
-            "selected", "plane-unavailable", "accepts-predicate",
-            "outranked")), r
+            "selected", "plane-unavailable", "scope-mismatch",
+            "available-predicate", "accepts-predicate", "outranked")), r
+        if r["scope"] == "mesh":
+            assert r["reason"].startswith("scope-mismatch"), r
         if r["plane"] == "cuda":
             assert r["reason"].startswith("plane-unavailable")
     metrics.METRICS.reset(f"dispatch.{op}.")

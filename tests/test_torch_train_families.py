@@ -359,10 +359,11 @@ def test_train_launcher_refuses_a_config_larger_than_the_card(
     fit = int(err.split("at full width ")[1].split(" of")[0])
     assert f"of its {layers} layers" in err
     assert (fit == 0) == (arch == "arctic-480b") and fit < layers
-    assert fit == 0 or t_launch.update_peak_bytes(dataclasses.replace(
-        cfg, num_layers=fit)) <= 80e9
-    assert t_launch.update_peak_bytes(dataclasses.replace(
-        cfg, num_layers=fit + 1)) > 80e9
+    room = 80e9 - t_launch.TRAIN_SLACK_BYTES
+    assert fit == 0 or t_launch.train_peak_bytes(dataclasses.replace(
+        cfg, num_layers=fit), 8 * 256) <= room
+    assert t_launch.train_peak_bytes(dataclasses.replace(
+        cfg, num_layers=fit + 1), 8 * 256) > room
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b",

@@ -1,7 +1,8 @@
 """Host cost of the port's dispatch and serve loop on the card, for
 comparing two trees of the port in turns.
 
-    python3 tools/host_cost.py [--src DIR] [--json FILE]
+    python3 tools/host_cost.py [--src DIR] [--rounds N] [--serves N]
+                               [--cpu K] [--json FILE]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is measured
 (default: this checkout's), so one copy of this script measures another
@@ -16,8 +17,12 @@ one JSON line:
   d 128, causal), each beside calling the same kernel directly;
 * ``tok_s``: untraced ``ContinuousEngine.serve`` of ``chip_smoke.py``'s 8
   requests on qwen3-1.7b at full width (random weights from seed 0,
-  greedy), :data:`SERVES` times after one warm-up serve, each on a fresh
-  engine.
+  greedy), ``--serves`` times (default :data:`SERVES`; 0 skips them)
+  after one warm-up serve, each on a fresh engine.
+
+``--rounds`` sets the samples per call kind (default :data:`ROUNDS`);
+``--cpu K`` pins this process to host core K, so that turns of two trees
+run on the same core.
 
 It needs one card; no cost-model or block-cache file is read (the
 ``REPRO_TORCH_*`` variables point into an empty temporary directory).
@@ -59,7 +64,7 @@ def host_us(torch, fn) -> float:
     return dt / CALLS * 1e6
 
 
-def dispatch_us(torch) -> dict:
+def dispatch_us(torch, n_rounds: int = ROUNDS) -> dict:
     from repro_torch.core import registry
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import ops
@@ -79,14 +84,14 @@ def dispatch_us(torch) -> dict:
                                                           causal=True),
     }
     rounds: dict = {name: [] for name in kinds}
-    for _ in range(ROUNDS):
+    for _ in range(n_rounds):
         for name, fn in kinds.items():
             rounds[name].append(host_us(torch, fn))
     return {name: sorted(x)[len(x) // 2] for name, x in rounds.items()} \
         | {"rounds": rounds}
 
 
-def serve_tok_s(torch) -> list[float]:
+def serve_tok_s(torch, serves: int = SERVES) -> list[float]:
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (ARCH, SERVE_CHUNK, SERVE_MAX_LEN, SERVE_SLOTS,
                             serve_requests)
@@ -99,7 +104,7 @@ def serve_tok_s(torch) -> list[float]:
     params = lm.init(0, device="cuda")
     reqs = serve_requests(cfg.vocab_size)
     out = []
-    for i in range(SERVES + 1):
+    for i in range(serves + 1):
         ce = ContinuousEngine(lm, params, num_slots=SERVE_SLOTS,
                               max_len=SERVE_MAX_LEN, chunk_size=SERVE_CHUNK,
                               sampling=SamplingParams(greedy=True))
@@ -116,8 +121,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is measured")
+    ap.add_argument("--rounds", type=int, default=ROUNDS)
+    ap.add_argument("--serves", type=int, default=SERVES)
+    ap.add_argument("--cpu", type=int, default=None,
+                    help="pin this process to this host core")
     ap.add_argument("--json", default=None, help="also write the result here")
     args = ap.parse_args(argv)
+    if args.cpu is not None:
+        os.sched_setaffinity(0, {args.cpu})
 
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -125,17 +136,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("host_cost: no CUDA device", file=sys.stderr)
         return 1
-    import repro_torch
-
-    res = {"src": args.src, "package": str(Path(repro_torch.__file__).parent),
-           "device": torch.cuda.get_device_name(0)}
     with tempfile.TemporaryDirectory(prefix="host_cost_") as tmp:
+        # set before the package is imported: a tree that reads them once,
+        # at import, sees the same empty files as one that reads them on
+        # every call
         for var, name in (("REPRO_TORCH_COSTMODEL", "cm.json"),
                           ("REPRO_TORCH_AUTOTUNE_CACHE", "at.json")):
             os.environ[var] = os.path.join(tmp, name)
         os.environ.pop("REPRO_TORCH_AUTOTUNE", None)
-        res["dispatch_us"] = dispatch_us(torch)
-        res["tok_s"] = serve_tok_s(torch)
+        import repro_torch
+
+        res = {"src": args.src,
+               "package": str(Path(repro_torch.__file__).parent),
+               "device": torch.cuda.get_device_name(0)}
+        res["dispatch_us"] = dispatch_us(torch, args.rounds)
+        res["tok_s"] = serve_tok_s(torch, args.serves) if args.serves else []
     line = json.dumps(res)
     print(line)
     if args.json:
