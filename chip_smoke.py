@@ -64,6 +64,24 @@
       results the same bits; then, in this process (no process group),
       use_level(O3) runs chip variants with the O2 bits.  Its times are
       not scaling numbers.
+   k. Serving at mesh scope (after j), 4 ranks on the one card as in j:
+      (k1) ring_attention at O3, O4 and (data 2, model 2) on B 4, 16/8
+      heads, L 512, d 128, bf16 and f32, zig-zag, contiguous and full,
+      against the chip flash_attention at the JAX suite's tolerances, with
+      the zig-zag and full launches reckoned; paged_ring_attention at O4
+      against the gather variant at c's paged-decode shape; the state
+      kernels against their plain versions at (k2)'s per-shard shapes
+      (1024 and 2048 x 1024, 1024 x 2048; tiles and dense grid) and the
+      lens state kernel over every shard's view of (k3)'s pool.  (k2)
+      qwen3-1.7b whole through the Engine at O3 on one prompt of 8192
+      tokens, 32 new: prefill selects ring, its last logits within (a)'s
+      bound of the O2 Engine's, one generate's launches a rank held to 28
+      x 2 tiles-state and 28 x 4 dense-grid.  (k3) c's requests through
+      the ContinuousEngine at O3 (the pool striped over the ring): in f32
+      at 2 layers token-equal to O2's; in bf16 whole the first decode
+      step within (a)'s bound, launches equal to O2's, the pool a rank
+      O2's pages over 4 up to the ring rounding.  Every result the same
+      bits on every rank.  Not scaling numbers.
    c. Serving qwen3-1.7b at full width (28 layers, bf16, seeded random
       weights): Engine.generate on 4 prompts of 512 tokens, 32 new tokens,
       greedy (the prefill runs the tiles kernel), and ContinuousEngine.serve
@@ -3289,6 +3307,501 @@ def report_mesh_path(mesh: dict) -> None:
         f"gives chip variants and the O2 bits")
 
 
+# -- phase 2k: serving at mesh scope ------------------------------------------
+
+#: Ranks of phase 2k's world, on the one card as phase 2j's: gloo, every
+#: collective staged through host memory.  Its times are not scaling
+#: numbers.
+RING_RANKS = 4
+#: Seconds phase 2k's world may take, spawn and set-up included.
+RING_TIMEOUT_S = 600
+#: (k2): the Engine at O3 on one prompt of RING_PROMPT tokens (a multiple
+#: of 2 x RING_RANKS: the zig-zag layout's half-blocks), RING_NEW new.
+RING_PROMPT, RING_NEW = 8192, 32
+#: (k1) the JAX suite's tolerances (tests/test_ring_attention.py:154,
+#: :192): (rtol, atol) of ring against chip attention; bf16 inputs with
+#: v scaled by 0.1, as there.
+RING_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (0.0, 1e-3)}
+#: (k1) the sequence layouts: (name, causal, order).
+RING_LAYOUTS = (("zigzag", True, "zigzag"), ("contiguous", True,
+                                              "contiguous"),
+                ("full", False, "contiguous"))
+
+
+def ring_shard_calls(length: int, ring: int) -> tuple:
+    """(lq, lk, causal) of every per-shard state call a zig-zag causal
+    ring of ``ring`` ranks makes over ``length`` tokens
+    (``distributed/attention.py`` ``_ring_run``): hop 0's causal
+    half-blocks (the tiles walk) and its full q_hi x k_lo, then the full
+    hops h <= r (the whole q panel x k_lo) and h > r (q_hi x the whole
+    visiting panel), on the dense grid."""
+    n = length // ring
+    h = n // 2
+    return ((h, h, True), (h, h, False), (n, h, False), (h, n, False))
+
+
+def hold_ring_shard_kernels(torch, device: str, cfg, ring: int) -> list:
+    """Phase 2k's kernels against their plain versions at the shapes its
+    main path gives them per shard, in the path's dtype: the state kernels
+    at (k2)'s shapes (:func:`ring_shard_calls` of RING_PROMPT tokens), and
+    the lens kernel's state variant over every shard's view of (k3)'s
+    striped pool (``kvcache.shard_view`` of phase 2c's first SERVE_SLOTS
+    requests at their full length, some shards with no live key).  Each
+    goes through the state op's dispatch with the plane pinned, as the
+    ring's calls do; o is held at :func:`attn_tol`, m and l at phase 1's
+    tolerances.  Returns (what, max |o - plain|) rows."""
+    from repro_torch.core import registry
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.serve import Request, Scheduler, make_spec
+    from repro_torch.serve.kvcache import shard_view
+    from repro_torch.sparse.maskcompiler import causal_layout
+
+    dtype = cfg.act_dtype
+    plane = "cuda" if device == "cuda" else "torch"
+    rtol, atol = attn_tol(torch, dtype)
+    hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(29)
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=device).to(dtype)
+
+    rows = []
+
+    def hold(what, got, want, lk, live):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if not torch.all(got[1][~live] == fa_k.NEG_INF):
+            raise AssertionError(f"{what}: a row with no live key has "
+                                 f"m != NEG_INF")
+        for i, (rt, at) in enumerate(((rtol, atol), (1e-5, 1e-5),
+                                      (1e-5, 1e-5 * lk))):
+            torch.testing.assert_close(
+                got[i][live].float(), want[i][live].float(), rtol=rt,
+                atol=at, msg=lambda m: f"{what}: {'oml'[i]}: {m}")
+        rows.append((what, float((got[0][live].float()
+                                  - want[0][live].float()).abs().max())))
+
+    for lq, lk, causal in ring_shard_calls(RING_PROMPT, ring):
+        q, k, v = randn(1, hq, lq, d), randn(1, hk, lk, d), randn(1, hk, lk,
+                                                                  d)
+        got = registry.dispatch("flash_attention_state", q, k, v,
+                                causal=causal, variant=plane)
+        want = (fa_k.flash_attention_tiles_plain(
+            q, k, v, causal_layout(lq, lk, 128, 128), return_state=True)
+            if causal else fa_k.flash_attention_plain(
+                q, k, v, causal=False, return_state=True))
+        hold(f"(k2) shard {'tiles' if causal else 'dense'} state "
+             f"{lq}x{lk}", got, want, lk, torch.ones((1,), dtype=torch.bool,
+                                                     device=device))
+    spec = make_spec(cfg, num_slots=SERVE_SLOTS, max_tokens=SERVE_MAX_LEN,
+                     ring=ring)
+    sched = Scheduler(spec, queue_depth=SERVE_SLOTS)
+    totals = [p + m for p, m in SERVE_REQS[:SERVE_SLOTS]]
+    for rid, tot in enumerate(totals):
+        sched.submit(Request(rid=rid, prompt=np.zeros(tot, np.int32),
+                             max_new=0))
+        sched.admit_next()
+    sched.lens[:] = totals
+    table = torch.as_tensor(sched.table, device=device)
+    lens = torch.as_tensor(sched.lens, device=device)
+    q1 = randn(SERVE_SLOTS, hq, 1, d)
+    pool = (spec.pages_per_shard, hk, spec.page_size, d)
+    for r in range(ring):
+        kg, vg, llen = shard_view(randn(*pool), randn(*pool), table, lens, r,
+                                  ring)
+        got = registry.dispatch("flash_attention_state", q1, kg, vg,
+                                causal=False, kv_len=llen, variant=plane)
+        want = fa_k.flash_attention_plain(q1, kg, vg, causal=False,
+                                          kv_len=llen, return_state=True)
+        hold(f"(k3) shard {r} lens state 1x{kg.shape[2]} kv_len "
+             f"{llen.tolist()}", got, want, kg.shape[2], llen > 0)
+    return rows
+
+
+def ring_serve_rank(rank: int, world: int, device: str) -> dict:
+    """One rank of phase 2k.  (k1) ``ring_attention`` on O3 (data 4), O4
+    (pod 2, data 2) and (data 2, model 2) against the chip
+    ``flash_attention`` on this rank, and ``paged_ring_attention`` at O4
+    against the ``gather`` variant; (k2) qwen3-1.7b whole through the
+    Engine at O3 on one RING_PROMPT-token prompt, against the O2 Engine;
+    (k3) phase 2c's requests through the ContinuousEngine at O3 against
+    the O2 one, in f32 at 2 layers and in bf16 whole.  Returns the rows,
+    the launches and a digest of every result (the ranks must agree bit
+    for bit)."""
+    import hashlib
+
+    import torch
+
+    t_start = time.perf_counter()
+    on_card = device == "cuda"          # (a rehearsal on the host runs the
+    #                                     plain versions: no kernel launches)
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed.tensor  # noqa: F401  (timed with the imports)
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecLevel, registry, use_level
+    from repro_torch.distributed.attention import ring_attention
+    from repro_torch.distributed.collectives import ring_plan
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import (ContinuousEngine, Engine, Request,
+                                   SamplingParams, Scheduler, make_spec)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    wrappers = {"flash_attention": fa_k.flash_attention,
+                "flash_attention_lens": fa_k.flash_attention_lens,
+                "flash_attention_tiles": fa_k.flash_attention_tiles}
+    meshes = {"O3": (ExecLevel.O3, make_mesh(data=world, device_type=device)),
+              "O4": (ExecLevel.O4, make_mesh(data=world // 2, pod=2,
+                                             device_type=device)),
+              "2d": (ExecLevel.O3, make_mesh(data=2, model=world // 2,
+                                             device_type=device))}
+    out = {"rows": [], "digests": {}, "seconds": {},
+           "setup_s": time.perf_counter() - t_start}
+
+    def digest(key, t):
+        out["digests"][key] = hashlib.sha1(
+            t.detach().float().cpu().numpy().tobytes()).hexdigest()
+
+    # -- (k1) the ops --------------------------------------------------------
+    t = time.perf_counter()
+    B, hq, hk, L, d = ATTN_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        rng = np.random.default_rng(27)
+        vscale = 0.1 if dtype == torch.bfloat16 else 1.0
+        q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32) * sc, device=device).to(dtype)
+            for shape, sc in (((B, hq, L, d), 1.0), ((B, hk, L, d), 1.0),
+                              ((B, hk, L, d), vscale)))
+        rtol, atol = RING_TOL[dname]
+        for layout, causal, order in RING_LAYOUTS:
+            chip = ops.flash_attention(q, k, v, causal=causal)
+            for key, (level, mesh) in meshes.items():
+                W = ring_plan(mesh).size
+                with use_level(level, mesh):
+                    name = registry.select("flash_attention", q, k, v,
+                                           causal=causal).name
+                    reset_attention_counts(wrappers)
+                    sync()
+                    t0 = time.perf_counter()
+                    got = ring_attention(q, k, v, causal=causal, order=order)
+                    sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    n = read_attention_counts(wrappers)
+                what = f"(k1) ring {layout} {dname} on {key}"
+                if name != "ring":
+                    raise AssertionError(f"{what}: selected {name}")
+                torch.testing.assert_close(got, chip, rtol=rtol, atol=atol,
+                                           msg=lambda m: f"{what}: {m}")
+                err = float((got.float() - chip.float()).abs().max())
+                # zig-zag: 2 causal half-blocks on the tiles walk and W full
+                # calls on the dense grid; full: W dense calls
+                want = {"zigzag": (2, W), "full": (0, W)}.get(layout)
+                got_n = (n["tiles_state"], n["flash_attention"])
+                if on_card and want is not None and got_n != want:
+                    raise AssertionError(f"{what}: (tiles, dense) state "
+                                         f"launches {got_n}, reckoned {want}")
+                out["rows"].append(("k1", f"{layout} {dname} {key}", name,
+                                    err, ms, got_n))
+                digest(f"k1 {layout} {dname} {key}", got)
+
+    # paged decode at phase 2c's shape: 4 slots of capacity SERVE_MAX_LEN,
+    # pages of 64; the pool striped over the O4 ring
+    cfg = get_config(ARCH)
+    level, mesh = meshes["O4"]
+    W = ring_plan(mesh).size
+    spec = make_spec(cfg, num_slots=SERVE_SLOTS, max_tokens=SERVE_MAX_LEN,
+                     ring=W)
+    sched = Scheduler(spec, queue_depth=SERVE_SLOTS)
+    totals = [p + m for p, m in SERVE_REQS[:SERVE_SLOTS]]
+    for rid, tot in enumerate(totals):
+        sched.submit(Request(rid=rid, prompt=np.zeros(tot, np.int32),
+                             max_new=0))
+        sched.admit_next()
+    sched.lens[:] = totals
+    rng = np.random.default_rng(28)
+    pool_shape = (spec.num_pages, cfg.num_kv_heads, spec.page_size,
+                  cfg.head_dim)
+    table = torch.as_tensor(sched.table, device=device)
+    lens = torch.as_tensor(sched.lens, device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q1, kp, vp = (torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=device).to(dtype)
+            for shape in ((SERVE_SLOTS, cfg.num_heads, 1, cfg.head_dim),
+                          pool_shape, pool_shape))
+        chip = ops.paged_attention(q1, kp, vp, table, lens, variant="gather")
+        with use_level(level, mesh):
+            lo, hi = spec.shard_range(ring_plan(mesh).ring_index())
+            mine = (kp[lo:hi], vp[lo:hi])
+            name = registry.select("paged_attention", q1, *mine, table,
+                                   lens).name
+            sync()
+            t0 = time.perf_counter()
+            got = ops.paged_attention(q1, *mine, table, lens)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        what = f"(k1) paged ring {dname} on O4"
+        rtol, atol = attn_tol(torch, dtype)
+        if name != "ring":
+            raise AssertionError(f"{what}: selected {name}")
+        torch.testing.assert_close(got, chip, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{what}: {m}")
+        out["rows"].append(("k1", f"paged {dname} O4", name, float(
+            (got.float() - chip.float()).abs().max()), ms, None))
+        digest(f"k1 paged {dname}", got)
+    del q, k, v, q1, kp, vp, chip, got
+    # the kernels at the per-shard shapes of (k2) and (k3), on the O3 ring
+    out["holds"] = hold_ring_shard_kernels(torch, device, cfg, ring_plan(
+        meshes["O3"][1]).size)
+    out["seconds"]["k1"] = time.perf_counter() - t
+
+    # -- (k2) the Engine at O3, qwen3-1.7b whole ------------------------------
+    t = time.perf_counter()
+    lm = LM(cfg)
+    params = lm.init(0, device=device)
+    greedy = SamplingParams(greedy=True)
+    g = torch.Generator(device=device).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, RING_PROMPT), generator=g,
+                           device=device)
+    level, mesh = meshes["O3"]
+    o2 = Engine(lm, params, max_len=RING_PROMPT + RING_NEW, sampling=greedy)
+    with use_level(level, mesh):
+        o3 = Engine(lm, params, max_len=RING_PROMPT + RING_NEW,
+                    sampling=greedy)
+        out["k2_prefill_variant"] = registry.select(
+            "flash_attention", *(torch.empty(
+                (1, h, RING_PROMPT, cfg.head_dim), dtype=cfg.act_dtype,
+                device=device) for h in (cfg.num_heads, cfg.num_kv_heads,
+                                         cfg.num_kv_heads)),
+            causal=True, mask=cfg.attn_mask_spec()).name
+    if out["k2_prefill_variant"] != "ring":
+        raise AssertionError(f"(k2) prefill selected "
+                             f"{out['k2_prefill_variant']}")
+    for eng in (o2, o3):                                    # warm-up
+        eng.generate(prompt[:, :256], max_new_tokens=2)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    res = {}
+    for key, eng in (("o2", o2), ("o3", o3)):
+        sync()
+        t0 = time.perf_counter()
+        eng.generate(prompt, max_new_tokens=1)
+        sync()
+        res[f"{key}_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        reset_attention_counts(wrappers)
+        t0 = time.perf_counter()
+        toks = eng.generate(prompt, max_new_tokens=RING_NEW)
+        sync()
+        res[f"{key}_s"] = time.perf_counter() - t0
+        res[f"{key}_launches"] = read_attention_counts(wrappers)
+        res[f"{key}_tokens"] = toks[0].tolist()
+        res[f"{key}_decode_tok_s"] = (RING_NEW - 1) / (
+            res[f"{key}_s"] - res[f"{key}_prefill_ms"] / 1e3)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card \
+        else 0.0
+    # one prefill's per-rank launches, reckoned from the code: a layer's
+    # zig-zag ring makes 2 causal half-block calls (tiles state) and W full
+    # calls (dense grid state); the fixed-cache decode launches none
+    W = ring_plan(mesh).size
+    want = {"tiles": 0, "tiles_state": cfg.num_layers * 2,
+            "lens_decode": 0, "lens_prefix": 0,
+            "flash_attention": cfg.num_layers * W}
+    if on_card and res["o3_launches"] != want:
+        raise AssertionError(f"(k2) one O3 generate launched "
+                             f"{res['o3_launches']}, reckoned {want}")
+    # the last position's logits under each engine's level
+    logits2, _ = lm.prefill(params, prompt)
+    with use_level(o3.active_level.level, o3.active_level.mesh):
+        logits3, _ = lm.prefill(params, prompt)
+    scale = float(logits2.float().abs().max())
+    res["logit_max_abs"] = float((logits3.float() - logits2.float()).abs()
+                                 .max())
+    res["logit_scale"] = scale
+    if not res["logit_max_abs"] <= 8 * 2.0 ** -8 * scale:
+        raise AssertionError(f"(k2) O3 prefill logits: max |O3 - O2| "
+                             f"{res['logit_max_abs']} above 8 bf16 ulps of "
+                             f"{scale}")
+    res["tokens_equal"] = sum(a == b for a, b in zip(res["o3_tokens"],
+                                                     res["o2_tokens"]))
+    digest("k2 logits", logits3)
+    out["digests"]["k2 tokens"] = str(res["o3_tokens"])
+    out["k2"] = res
+    del o2, o3, logits2, logits3
+    out["seconds"]["k2"] = time.perf_counter() - t
+
+    # -- (k3) the ContinuousEngine at O3 --------------------------------------
+    t = time.perf_counter()
+    reqs = serve_requests(cfg.vocab_size)
+
+    def engines(model, p):
+        kw = dict(num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                  chunk_size=SERVE_CHUNK, sampling=greedy)
+        e2 = ContinuousEngine(model, p, **kw)
+        with use_level(level, mesh):
+            e3 = ContinuousEngine(model, p, **kw)
+        return e2, e3
+
+    # f32 at full width, 2 layers: the tokens equal O2's
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                param_dtype="float32")
+    lm32 = LM(cfg32)
+    p32 = lm32.init(0, device=device)
+    e2, e3 = engines(lm32, p32)
+    t0 = time.perf_counter()
+    want32 = [x.tolist() for x in e2.serve(reqs)]
+    t1 = time.perf_counter()
+    got32 = [x.tolist() for x in e3.serve(reqs)]
+    f32_s = (t1 - t0, time.perf_counter() - t1)
+    bad = [i for i, (a, b) in enumerate(zip(got32, want32)) if a != b]
+    if bad:
+        raise AssertionError(f"(k3) f32, 2 layers: requests {bad} differ "
+                             f"between the O3 and O2 ContinuousEngines")
+    out["digests"]["k3 f32 tokens"] = str(got32)
+    del e2, e3, p32, lm32
+
+    # bf16 whole: tokens, the first decode step's logits, launches, pools
+    e2, e3 = engines(lm, params)
+    first = {}
+
+    class Recording:
+        """The engine's LM, keeping its first decode step's logits."""
+
+        def __init__(self, key):
+            self.key = key
+
+        def __getattr__(self, name):
+            return getattr(lm, name)
+
+        def decode_step_paged(self, p, state, tokens, active):
+            logits, state = lm.decode_step_paged(p, state, tokens, active)
+            if self.key not in first:
+                first[self.key] = logits[active > 0].float().clone()
+            return logits, state
+
+    k3 = {"f32_s": f32_s}
+    for key, eng in (("o2", e2), ("o3", e3)):
+        eng.lm = Recording(key)
+        reset_attention_counts(wrappers)
+        sync()
+        t0 = time.perf_counter()
+        got = eng.serve(reqs)
+        sync()
+        k3[f"{key}_s"] = time.perf_counter() - t0
+        k3[f"{key}_launches"] = read_attention_counts(wrappers)
+        k3[f"{key}_tokens"] = [x.tolist() for x in got]
+        k3[f"{key}_tok_s"] = sum(len(x) for x in got) / k3[f"{key}_s"]
+        k3[f"{key}_pool_bytes"] = 2 * eng.state["kpages"].nbytes
+        k3[f"{key}_pages"] = eng.spec.num_pages
+    if [len(x) for x in k3["o3_tokens"]] != [m for _, m in reqs] \
+            or len(e3.decode_inputs) != 1:
+        raise AssertionError(f"(k3) O3 serve: lengths "
+                             f"{[len(x) for x in k3['o3_tokens']]}, decode "
+                             f"input signatures {len(e3.decode_inputs)}")
+    k3["equal"] = [i for i, (a, b) in enumerate(zip(k3["o3_tokens"],
+                                                    k3["o2_tokens"]))
+                   if a == b]
+    scale = float(first["o2"].abs().max())
+    k3["first_step_max_abs"] = float((first["o3"] - first["o2"]).abs().max())
+    k3["first_step_scale"] = scale
+    if not k3["first_step_max_abs"] <= 8 * 2.0 ** -8 * scale:
+        raise AssertionError(f"(k3) first decode step: max |O3 - O2| "
+                             f"{k3['first_step_max_abs']} above 8 bf16 ulps "
+                             f"of {scale}")
+    if on_card and k3["o3_launches"] != k3["o2_launches"]:
+        raise AssertionError(f"(k3) launches at O3 {k3['o3_launches']}, at "
+                             f"O2 {k3['o2_launches']}")
+    # the pool: O2's pages over W, up to make_spec's ring rounding
+    per_page = k3["o2_pool_bytes"] // k3["o2_pages"]
+    if k3["o3_pool_bytes"] != per_page * k3["o3_pages"] // W:
+        raise AssertionError(f"(k3) pool bytes a rank {k3['o3_pool_bytes']},"
+                             f" O2's {k3['o2_pool_bytes']} over {W} pages "
+                             f"{k3['o3_pages']} / {k3['o2_pages']}")
+    out["digests"]["k3 bf16 tokens"] = str(k3["o3_tokens"])
+    out["k3"] = k3
+    out["seconds"]["k3"] = time.perf_counter() - t
+    return out
+
+
+def run_ring_path(torch, device: str = "cuda") -> dict:
+    """Phase 2k: :func:`ring_serve_rank` on a world of :data:`RING_RANKS`
+    ranks; every rank's results the same bits."""
+    from repro_torch.launch.world import run_world
+
+    t = time.perf_counter()
+    ranks = run_world(ring_serve_rank, RING_RANKS, args=(device,),
+                      timeout=RING_TIMEOUT_S)
+    out = {"world_s": time.perf_counter() - t, "rank0": ranks[0]}
+    for r, res in enumerate(ranks[1:], 1):
+        if res["digests"] != ranks[0]["digests"]:
+            bad = [k for k in res["digests"]
+                   if res["digests"][k] != ranks[0]["digests"].get(k)]
+            raise AssertionError(f"phase 2k: rank {r} has other bits than "
+                                 f"rank 0 for {bad}")
+    # the main path's launches over the ranks: (k2)'s O3 generate and
+    # (k3)'s bf16 O3 serve
+    out["launches"] = {
+        "flash_attention": sum(r["k2"]["o3_launches"]["flash_attention"]
+                               + r["k3"]["o3_launches"]["flash_attention"]
+                               for r in ranks),
+        "flash_attention_tiles": sum(
+            r[k]["o3_launches"][n] for r in ranks for k in ("k2", "k3")
+            for n in ("tiles", "tiles_state")),
+        "flash_attention_lens": sum(
+            r[k]["o3_launches"][n] for r in ranks for k in ("k2", "k3")
+            for n in ("lens_decode", "lens_prefix"))}
+    out["setup_s"] = max(r["setup_s"] for r in ranks)
+    out["seconds"] = {k: max(r["seconds"][k] for r in ranks)
+                      for k in ranks[0]["seconds"]}
+    return out
+
+
+def report_ring_path(ring: dict, card: str) -> None:
+    """Log phase 2k's rows and checks (:func:`run_ring_path`)."""
+    r0 = ring["rank0"]
+    for _, label, name, err, ms, n in r0["rows"]:
+        log(f"  (k1) {label}: {name}, max |ring - chip| {err:.3g}, "
+            f"{ms:.2f} ms on rank 0"
+            + (f", (tiles, dense) state launches {n}" if n else ""))
+    for what, err in r0["holds"]:
+        log(f"  {what}: max |o - plain| {err:.3g}")
+    k2, k3 = r0["k2"], r0["k3"]
+    log(f"  (k2) {ARCH} whole, bf16, Engine at O3 on {card}: one prompt of "
+        f"{RING_PROMPT} tokens, {RING_NEW} new: prefill "
+        f"{k2['o3_prefill_ms']:.1f} ms a rank (O2 on the same rank "
+        f"{k2['o2_prefill_ms']:.1f} ms), decode {k2['o3_decode_tok_s']:.1f} "
+        f"tok/s (O2 {k2['o2_decode_tok_s']:.1f}), peak memory "
+        f"{k2['peak_gb']:.2f} GB a rank; launches of one O3 generate a rank "
+        f"{k2['o3_launches']}; last-position logits max |O3 - O2| "
+        f"{k2['logit_max_abs']:.4g} (scale {k2['logit_scale']:.4g}, bar 8 "
+        f"bf16 ulps); {k2['tokens_equal']}/{RING_NEW} tokens equal O2's")
+    log(f"  (k3) ContinuousEngine at O3, {len(SERVE_REQS)} requests: f32 at "
+        f"2 layers token-equal to O2 on every request (O2 "
+        f"{k3['f32_s'][0]:.1f} s, O3 {k3['f32_s'][1]:.1f} s); bf16 whole "
+        f"(O2 {k3['o2_s']:.1f} s, O3 {k3['o3_s']:.1f} s): requests "
+        f"{k3['equal']} of {len(SERVE_REQS)} token-equal, first "
+        f"decode step's logits max |O3 - O2| {k3['first_step_max_abs']:.4g} "
+        f"(scale {k3['first_step_scale']:.4g}); {k3['o3_tok_s']:.1f} tok/s "
+        f"(O2 on the same rank {k3['o2_tok_s']:.1f}); launches a rank "
+        f"{k3['o3_launches']} (O2's the same); pool "
+        f"{k3['o3_pool_bytes'] / 1e6:.1f} MB a rank ({k3['o3_pages']} pages "
+        f"over {RING_RANKS}) against O2's {k3['o2_pool_bytes'] / 1e6:.1f} "
+        f"MB ({k3['o2_pages']} pages)")
+    log(f"  every result the same bits on all {RING_RANKS} ranks; seconds "
+        f"by step (slowest rank) " + ", ".join(
+            f"{k} {v:.1f}" for k, v in ring["seconds"].items())
+        + f"; a rank's set-up {ring['setup_s']:.2f} s")
+
+
 # -- phase 2i: measured dispatch ---------------------------------------------
 
 #: The variables phase 2i points into a temporary directory, and restores.
@@ -3932,6 +4445,18 @@ def main() -> int:
     report_mesh_path(mesh)
     launches["matmul"] += mesh["launches"]
 
+    # -- phase 2k: serving at mesh scope, counted on every rank -------------
+    t_path = time.perf_counter()
+    ring = run_ring_path(torch)
+    log(f"phase 2k: serving at mesh scope, {RING_RANKS} ranks on the one "
+        f"card (gloo, staged through host memory; not scaling numbers), in "
+        f"{time.perf_counter() - t_path:.2f} s (the world "
+        f"{ring['world_s']:.2f} s): attention launches over the ranks "
+        f"{ring['launches']}")
+    report_ring_path(ring, smi[0])
+    for k, n in ring["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+
     # -- phase 2c: the serve path, counted ----------------------------------
     attn_wrappers = {"flash_attention": fa_k.flash_attention,
                      "flash_attention_lens": fa_k.flash_attention_lens,
@@ -3954,7 +4479,8 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the serve path: "
                              f"{missing}")
-    launches.update(attn_launches)
+    for k, n in attn_launches.items():          # phase 2k counted some
+        launches[k] = launches.get(k, 0) + n
     log(f"{ARCH} ({serve['params']} parameters, bf16, init "
         f"{serve['init_s']:.2f} s) on {smi[0]}:")
     log(f"  Engine: {FIXED_BATCH} x {FIXED_PROMPT} prompt tokens, "

@@ -38,7 +38,10 @@ Keys carry the scope and mesh, as the reference's do::
 
 ``ambient_scope_key()`` is ``("chip", "-")`` on one card and
 ``("mesh", <topology.describe()>)`` under an O3/O4 mesh; the memo of
-settled answers is keyed by it too.  The port's files hold only five-part
+settled answers is keyed by it too.  So :func:`premeasure` called inside
+``use_level(O3|O4)`` on shard-shaped tensors writes the ``...|mesh|<shape>``
+entry that a mesh variant's per-shard dispatches read (the ring's
+``flash_attention_state`` calls, ``distributed/attention.py``).  The port's files hold only five-part
 keys, so
 the reference's legacy-key upgrade is not ported, nor are
 ``parse_key``/``pending_defaults``, whose caller (a sweep that upgrades the
@@ -283,8 +286,9 @@ def resolve_blocks(
 
 
 #: op -> eager premeasure hook, registered beside the op's variants
-#: (``flash_attention`` in kernels/ops.py): how the calibration sweep
-#: measures a block entry outside any capture, with concrete arguments.
+#: (``flash_attention``, ``flash_attention_state`` in kernels/ops.py):
+#: how the calibration sweep measures a block entry outside any capture,
+#: with concrete arguments.
 PREMEASURE: dict[str, Callable] = {}
 
 

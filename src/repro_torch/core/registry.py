@@ -152,9 +152,11 @@ _PROVIDERS = {
     "spmm": ("repro_torch.sparse.spmm", "repro_torch.distributed.numerics"),
     "spgemm": ("repro_torch.sparse.spgemm",
                "repro_torch.distributed.numerics"),
-    "flash_attention": ("repro_torch.kernels.ops",),
+    "flash_attention": ("repro_torch.kernels.ops",
+                        "repro_torch.distributed.attention"),
     "flash_attention_state": ("repro_torch.kernels.ops",),
-    "paged_attention": ("repro_torch.kernels.ops",),
+    "paged_attention": ("repro_torch.kernels.ops",
+                        "repro_torch.distributed.attention"),
     "chunk_attention": ("repro_torch.kernels.ops",),
 }
 

@@ -17,8 +17,9 @@ names, sizes, roles: :mod:`repro_torch.core.topology`) and emits
                   global order)
 
 :class:`RingPlan` is the neighbour rotation of sequence-parallel attention
-(a pod-major ring over the batch-role axes; its caller, ring attention,
-comes with the LM half of mesh scope), and :class:`CannonPlan` the fold of
+(a pod-major ring over the batch-role axes; its callers are
+:mod:`repro_torch.distributed.attention` and the ring-striped page pool of
+the serve tier), and :class:`CannonPlan` the fold of
 the mesh SpGEMM's partials.  Plans are frozen and hashable, and their
 ``schedule()`` output, degenerate-axis rules and shard order equal the
 reference's for the same axis names and sizes.
@@ -458,6 +459,13 @@ class RingPlan:
         _plan_event("ring_pmax", self.axes, size=self.size)
         return all_reduce(x, self._group(), mesh_groups(self.mesh).transport,
                           op=_dist().ReduceOp.MAX)
+
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ring's ``x`` concatenated along ``dim`` in ring order (the
+        inverse of sharding a dim by :meth:`spec_entry`)."""
+        _plan_event("ring_all_gather", self.axes, size=self.size)
+        return all_gather(x, self._group(), self.size,
+                          mesh_groups(self.mesh).transport, dim)
 
 
 def ring_plan(mesh, topo: Optional[MeshTopology] = None) -> RingPlan:

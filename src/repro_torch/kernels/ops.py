@@ -227,19 +227,21 @@ def _fa_measure(run):
     return measure
 
 
-def _fa_resolve(q, k, mask, run, measure=True):
-    """Measured-or-cached-or-default blocks (q, k) for a call of
-    ``flash_attention`` (``mask`` None or the call's mask), clamped to the
-    lengths.  A settled answer costs one lookup under a key of the call's
-    shapes, dtype and non-trivial mask; the dims and the measurement are
-    built only when the cache must be read."""
-    memo = ("flash_attention", q.shape, k.shape[2], q.dtype,
-            None if mask is None or mask.trivial_dense else mask)
-    bl = blocking.settled("flash_attention", memo)
+def _fa_resolve(op, q, k, mask, run, measure=True, extra=()):
+    """Measured-or-cached-or-default blocks (q, k) for a call of ``op``
+    (``flash_attention``, or ``flash_attention_state``; ``mask`` None or
+    the call's mask; ``extra`` further (name, value) dims of the key, as
+    the state op's ``causal``), clamped to the lengths.  A settled answer
+    costs one lookup under a key of the call's shapes, dtype, non-trivial
+    mask and extras; the dims and the measurement are built only when the
+    cache must be read."""
+    memo = (op, q.shape, k.shape[2], q.dtype,
+            None if mask is None or mask.trivial_dense else mask, extra)
+    bl = blocking.settled(op, memo)
     if bl is None:
         d = q.shape[3]
         bl = blocking.resolve_blocks(
-            "flash_attention", _fa_dims(q, k, mask),
+            op, {**_fa_dims(q, k, mask), **dict(extra)},
             costmodel.dtype_name(q.dtype), _FA_DEFAULTS, _FA_CANDIDATES,
             _fa_measure(run) if measure else None,
             takes=lambda b: fa_k.takes_blocks(b["q"], b["k"], d), memo=memo)
@@ -273,7 +275,7 @@ def _attn_cuda_blocks(q, k, v, causal, block_q, block_k, measure=True):
     def run(bl):
         return fa_k.flash_attention(q, k, v, causal=causal, block_q=bl["q"],
                                     block_k=bl["k"])
-    bq, bk = _fa_resolve(q, k, None, run, measure)
+    bq, bk = _fa_resolve("flash_attention", q, k, None, run, measure)
     return _fa_blocks(q.shape[2], k.shape[2], block_q or bq, block_k or bk)
 
 
@@ -320,7 +322,7 @@ def _bs_blocks(q, k, v, mask, block_q, block_k, measure=True):
         bq, bk = _fa_blocks(lq, lk, bl["q"], bl["k"])
         return fa_k.flash_attention_tiles(
             q, k, v, compile_layout(mask, lq, lk, bq, bk))
-    bq, bk = _fa_resolve(q, k, mask, run, measure)
+    bq, bk = _fa_resolve("flash_attention", q, k, mask, run, measure)
     return _fa_blocks(lq, lk, block_q or bq, block_k or bk)
 
 
@@ -409,14 +411,53 @@ def _fa_state_accepts(q, k, v, *, causal=True, kv_len=None, block_q=None,
     return q.shape[1] % k.shape[1] == 0
 
 
+def _state_blocks(q, k, v, causal, block_q, block_k):
+    """The blocks of a ``flash_attention_state`` call without ``kv_len``:
+    pinned, else resolved under the op's own key, whose dims carry
+    ``causal`` (causal calls walk the tiles kernel, full ones the dense
+    grid), in the ambient scope, so that a ring's per-shard calls read the
+    entry :func:`_fa_state_premeasure` wrote under the same mesh."""
+    if block_q is not None and block_k is not None:       # fully pinned
+        return _fa_blocks(q.shape[2], k.shape[2], block_q, block_k)
+
+    def run(bl):
+        return fa_k.flash_attention(q, k, v, causal=causal,
+                                    return_state=True, block_q=bl["q"],
+                                    block_k=bl["k"])[0]
+    bq, bk = _fa_resolve("flash_attention_state", q, k, None, run,
+                         extra=(("causal", int(causal)),))
+    return _fa_blocks(q.shape[2], k.shape[2], block_q or bq, block_k or bk)
+
+
 @registry.register("flash_attention_state", "cuda", plane="cuda",
                    cost=Cost.CUDA, accepts=_fa_state_accepts,
                    doc="GQA flash kernels emitting the (m, l) state")
 def _attn_state_cuda(q, k, v, *, causal=True, kv_len=None, block_q=None,
                      block_k=None):
-    bq, bk = _fa_blocks(q.shape[2], k.shape[2], block_q, block_k)
+    if kv_len is None:
+        bq, bk = _state_blocks(q, k, v, causal, block_q, block_k)
+    else:                     # decode and chunk prefixes: the lens kernel
+        bq, bk = _fa_blocks(q.shape[2], k.shape[2], block_q, block_k)
     return fa_k.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
                                 return_state=True, block_q=bq, block_k=bk)
+
+
+def _fa_state_premeasure(q, k, v, *, causal=True):
+    """The ``flash_attention_state`` premeasure hook: measure (autotune
+    on) the blocks of the state kernels on these arguments under the
+    ambient scope (inside ``use_level(O3|O4)``, on shard-shaped tensors,
+    the ``...|mesh|<shape>`` entry a ring's per-shard calls read); returns
+    ``{"q": bq, "k": bk}``."""
+    name = registry.select("flash_attention_state", q, k, v,
+                           causal=causal).name
+    if name != "cuda":
+        raise ValueError(f"flash_attention_state: the {name!r} variant runs "
+                         f"no blocks to measure")
+    bq, bk = _state_blocks(q, k, v, causal, None, None)
+    return {"q": bq, "k": bk}
+
+
+blocking.PREMEASURE["flash_attention_state"] = _fa_state_premeasure
 
 
 @registry.register("flash_attention_state", "torch", plane="torch",

@@ -21,7 +21,7 @@ and the backward's start, where the gradients and moments sit beside a
 microbatch's activations (:func:`activation_bytes`, which grow with
 ``--batch`` x ``--seq``).  The mesh
 (``Trainer(mesh=...)``, ZeRO-1 moment sharding) is the LM half of mesh
-scope (ROADMAP queue 1 item 10b): ``mesh`` raises and the JAX Trainer's
+scope (ROADMAP queue 1 item 10b-ii): ``mesh`` raises and the JAX Trainer's
 ``zero1`` is not taken.  Step times read :func:`repro_torch.obs.trace.clock`.
 """
 from __future__ import annotations
@@ -171,7 +171,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "Trainer(mesh=...) shards the state over a mesh: the LM half "
-                "of mesh scope, not ported yet (ROADMAP queue 1 item 10b)")
+                "of mesh scope, not ported yet (ROADMAP queue 1 item 10b-ii)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lm = LM(cfg)

@@ -9,7 +9,13 @@ tensors run the hand-written kernels.  The fixed-cache decode stays a plain
 einsum, as in the JAX package.
 
 The paged paths write this step's K/V into the page pools in place (the JAX
-package returns updated copies); they return the same pool tensors.
+package returns updated copies); they return the same pool tensors.  Under
+an O3/O4 mesh whose ring is wider than one rank, the pools are this rank's
+shard of the ring-striped pool, whose layout ``serve/kvcache.py`` alone
+knows: a write lands only in the pages this rank owns (``kvcache.write``),
+a chunk's prefix is gathered over the ring (``kvcache.gather_row``) before
+``chunk_attention``, so the chunk is bitwise the one-card chunk, and
+decode's ``paged_attention`` dispatch selects the ring variant by scope.
 """
 from __future__ import annotations
 
@@ -118,14 +124,14 @@ def attention_decode_paged(x, p: Params, cfg, kpages, vpages, table, lens,
     dispatches ``paged_attention`` with ``lens + active`` live tokens, so
     the token just written is included."""
     from repro_torch.kernels.ops import paged_attention
+    from repro_torch.serve import kvcache
 
     B = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(x, p, cfg)                     # (B, 1, ., hd)
     q, k = _rope_qk(q, k, cos, sin, cfg)                  # (B, ., 1, hd)
-    wp, wo = write_page.long(), write_off.long()
-    kpages[wp, :, wo, :] = k[:, :, 0].to(kpages.dtype)    # (B, hk, hd)
-    vpages[wp, :, wo, :] = v[:, 0].to(vpages.dtype)
+    kvcache.write(kpages, vpages, write_page, write_off, k[:, :, 0],
+                  v[:, 0], kvcache.pool_ring())           # (B, hk, hd)
 
     out = paged_attention(q, kpages, vpages, table, lens + active)
     out = out.transpose(1, 2).reshape(B, 1, h * hd).to(x.dtype)
@@ -139,21 +145,27 @@ def attention_chunk(x, p: Params, cfg, kpages, vpages, table_row, start: int,
     and to the chunk itself (causal) through ``chunk_attention``.  Pad
     tokens past the chunk's valid length carry ``page_idx == 0`` (trash)."""
     from repro_torch.kernels.ops import chunk_attention, page_gather
+    from repro_torch.serve import kvcache
 
     _, C, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(x, p, cfg)                     # (1, C, ., hd)
     q, k = _rope_qk(q, k, cos, sin, cfg)                  # (1, ., C, hd)
     v = v.transpose(1, 2)
-    pi, wo = page_idx.long(), write_off.long()
-    kpages[pi, :, wo, :] = k[0].transpose(0, 1).to(kpages.dtype)
-    vpages[pi, :, wo, :] = v[0].transpose(0, 1).to(vpages.dtype)
+    plan = kvcache.pool_ring()
+    kvcache.write(kpages, vpages, page_idx, write_off, k[0].transpose(0, 1),
+                  v[0].transpose(0, 1), plan)
 
     # gathered after the write: the chunk's keys sit at positions >= start,
     # which the prefix mask keeps dead; the chunk is seen through kc / vc
-    kp = page_gather(kpages, table_row[None])             # (1, hk, cap, hd)
-    vp = page_gather(vpages, table_row[None])
+    if plan is None:
+        kp = page_gather(kpages, table_row[None])         # (1, hk, cap, hd)
+        vp = page_gather(vpages, table_row[None])
+    else:
+        kp, vp = (t[None] for t in kvcache.gather_row((kpages, vpages),
+                                                      table_row, plan))
     plen = torch.full((1,), start, dtype=torch.int32, device=x.device)
     out = chunk_attention(q, kp, vp, plen, k, v)          # (1, h, C, hd)
     out = out.transpose(1, 2).reshape(1, C, h * hd).to(x.dtype)
     return linear(out, p["wo"]), kpages, vpages
+

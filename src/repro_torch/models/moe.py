@@ -23,7 +23,7 @@ Every tensor op is a gather, a scatter without accumulation or a sort: no
 atomics, so two runs on the card give the same bits.  Only the dustbin row
 may receive more than one token.  ``groups`` is 1 at chip scope (the JAX
 package's default without a mesh); a mesh's data-parallel groups are the LM
-half of mesh scope (ROADMAP queue 1 item 10b).
+half of mesh scope (ROADMAP queue 1 item 10b-ii).
 
 Aux losses: the load-balancing loss ``sum(load * importance) * E`` and the
 router z-loss ``mean(logsumexp(logits) ** 2)``, returned for the caller to

@@ -30,8 +30,17 @@ submitted at once, so the loop never waits on an arrival)
 one heartbeat per loop iteration with the decoding occupancy to a
 :class:`~repro_torch.runtime.fault_tolerance.HeartbeatStore`.
 
-Not ported: the ring-sharded pool (the LM half of mesh scope, ROADMAP
-queue 1 item 10b).
+Execution levels (DESIGN.md §10, §13), as in the JAX engines: each engine
+pins ``execlevel.current()`` at construction, as it pins the plane.  The
+fixed engine's prefill runs under the pinned level, so at O3/O4 a prompt
+the ring divides takes ring attention
+(:mod:`repro_torch.distributed.attention`); its decode runs outside the
+level.  The continuous engine stripes its page pool over the pinned mesh's
+ring (each rank allocates its ``P / W`` pages; the table and lens stay
+whole on every rank) and serves under the pinned level, so decode takes
+``paged_attention``/``ring``.  Every rank of the world runs the same
+engine on the same requests; the collectives leave the same bits on every
+rank, so the ranks' host loops stay in step.
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import registry
+from repro_torch.core import execlevel, registry
+from repro_torch.distributed.collectives import ambient_ring_plan
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.models.lm import LM
 from repro_torch.obs import metrics as obs_metrics
@@ -102,6 +112,10 @@ class Engine:
         self.sampling = sampling
         # the plane requested when the engine was built, kept for every call
         self.active_backend = registry.requested_backend()
+        # the level and mesh too: prefill re-enters them on every call, so
+        # at O3/O4 a prompt the ring divides takes ring attention; decode
+        # (one token against the resident cache) runs outside them
+        self.active_level = execlevel.current()
 
     def generate(self, tokens: torch.Tensor, *, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None, seed: int = 0,
@@ -131,8 +145,11 @@ class Engine:
     def _generate(self, tokens, max_new_tokens, eos_id, seed,
                   frontend_embeds):
         B = tokens.shape[0]
-        logits, cache = self.lm.prefill(self.params, tokens, frontend_embeds,
-                                        max_len=self.max_len)
+        lvl = self.active_level
+        with execlevel.use_level(lvl.level, lvl.mesh):
+            logits, cache = self.lm.prefill(self.params, tokens,
+                                            frontend_embeds,
+                                            max_len=self.max_len)
         gen = _generator(logits.device, seed)
         nxt = sample_token(gen, logits, self.sampling)
         outs = [nxt]
@@ -184,7 +201,8 @@ class ContinuousEngine:
     active slots, and every ``EOS_CHECK_EVERY`` iterations the demux of
     the *previous* window's device tokens.  ``decode_inputs`` records the
     (shape, storage) signature of every decode step's inputs; admissions
-    and recycles leave it a single entry.  ``heartbeats`` (default: an
+    and recycles leave it a single entry.  ``ring`` is the width the pool
+    is striped over (1 on one card).  ``heartbeats`` (default: an
     in-process :class:`HeartbeatStore`) receives one beat per iteration as
     ``worker``."""
 
@@ -208,9 +226,16 @@ class ContinuousEngine:
         self.sampling = sampling
         self.chunk_size = chunk_size
         self.active_backend = registry.requested_backend()
+        self.active_level = execlevel.current()
+        with execlevel.use_level(self.active_level.level,
+                                 self.active_level.mesh):
+            plan = ambient_ring_plan()
+        self.ring = plan.size if plan is not None else 1
         cfg = lm.cfg
         self.device = params["embed"].device
-        self.spec = make_spec(cfg, num_slots=num_slots, max_tokens=max_len)
+        self.spec = make_spec(cfg, num_slots=num_slots, max_tokens=max_len,
+                              ring=self.ring)
+        # this rank's P / W pages of the pool; the table and lens whole
         self.state = init_cache_state(cfg, self.spec, device=self.device)
         self.sched = Scheduler(self.spec, cfg.serve_queue_depth)
         self._active = torch.zeros((num_slots,), dtype=torch.int32,
@@ -228,10 +253,12 @@ class ContinuousEngine:
         ``(outputs, ServeStats)``."""
         reqs = [Request(rid=i, prompt=np.asarray(p, np.int32).reshape(-1),
                         max_new=int(m)) for i, (p, m) in enumerate(requests)]
-        if self.active_backend is None:
-            return self._serve(reqs, eos_id, seed, collect_stats)
-        with registry.use_backend(self.active_backend):
-            return self._serve(reqs, eos_id, seed, collect_stats)
+        lvl = self.active_level
+        with execlevel.use_level(lvl.level, lvl.mesh):
+            if self.active_backend is None:
+                return self._serve(reqs, eos_id, seed, collect_stats)
+            with registry.use_backend(self.active_backend):
+                return self._serve(reqs, eos_id, seed, collect_stats)
 
     def _upload_tables(self) -> None:
         """Copy the scheduler's table/lens into the same device buffers."""

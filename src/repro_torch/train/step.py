@@ -11,7 +11,7 @@ in f32, as the JAX package's ``lax.scan`` does, then scales the sums by
 state is left as it is.
 
 ``shard_batch`` places a batch on a mesh: the LM half of mesh scope
-(ROADMAP queue 1 item 10b), it raises.
+(ROADMAP queue 1 item 10b-ii), it raises.
 """
 from __future__ import annotations
 
@@ -109,4 +109,4 @@ def make_eval_step(lm, loss_fn: Optional[Callable] = None) -> Callable:
 def shard_batch(mesh, batch: Pytree) -> Pytree:
     raise NotImplementedError(
         "shard_batch places a batch on a mesh: the LM half of mesh scope, "
-        "not ported yet (ROADMAP queue 1 item 10b)")
+        "not ported yet (ROADMAP queue 1 item 10b-ii)")
