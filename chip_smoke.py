@@ -50,7 +50,8 @@
              < 1e-5
      SpGEMM  benchmarks/spgemm.py: n = 2048, block 8, clustered 0.02 /
              0.08 / 0.2 and banded bw 31 / 127, relative error < 1e-3
-   j. The paths of a and b at mesh scope (after b): 4 ranks on the one
+   j. The paths of a and b at mesh scope (after b; j, k and l run in one
+      world of 4 ranks, spawned once): 4 ranks on the one
       card, gloo with every collective staged through host memory (NCCL
       refuses two ranks on one card; the plans print their transports),
       over the meshes O3 (data 4), (data 2, model 2) and O4 (pod 2, data
@@ -82,6 +83,30 @@
       step within (a)'s bound, launches equal to O2's, the pool a rank
       O2's pages over 4 up to the ring rounding.  Every result the same
       bits on every rank.  Not scaling numbers.
+   l. Training at mesh scope (after k, in its world): (l1) ring
+      attention's backward on O3 (data 4) and O4 (pod 2, data 2), each
+      rank its row of B 4, 16/8 heads, L 512, d 128 (the mesh trainer's
+      layout), bf16 and f32, zig-zag causal and contiguous full, against
+      the chip backward on the same rows, the forward and backward
+      launches a rank held to the count reckoned from the pieces; the
+      backward kernels against the plain backward at (l2)'s per-shard
+      shapes.  (l2) qwen3-1.7b at full width, cut to the depth the
+      mesh-aware training count fits and capped at 4 layers, through
+      Trainer(mesh=make_mesh(data=4)) at O3 for 4 steps of 4 x 2048
+      tokens of the learnable pattern (ZeRO-1 moments, the ring forward
+      and backward on the kernels, launches reckoned), against the O2
+      Trainer at the same depth on rank 0: losses falling and within 2e-2
+      of O2's, every rank the same parameter bits after each step, the
+      moments a rank a quarter of O2's, step times, peak memory, the
+      collectives' bytes (the ZeRO-1 reduce-scatter and all-gather
+      against the plan) and host seconds from their trace spans; in f32 at 2 layers the
+      gradients within 1e-4 of O2's and 3 steps' losses within 1e-5
+      relative.  (l3) f32, 2 layers: a save at 2, a crash before step 3
+      and a resume on (data 4) bitwise equal to the uninterrupted run; the
+      same
+      checkpoint at O2 on one rank with replan's 4 microbatches, losses
+      within 1e-5.  (l4) compressed_psum over pod at O4 within one int8
+      step a participant of the exact sum.  Not scaling numbers.
    c. Serving qwen3-1.7b at full width (28 layers, bf16, seeded random
       weights): Engine.generate on 4 prompts of 512 tokens, 32 new tokens,
       greedy (the prefill runs the tiles kernel), and ContinuousEngine.serve
@@ -114,9 +139,9 @@
       3 and a crash at 5 through TrainingSupervisor, resumed in a fresh
       state, bitwise equal to an uninterrupted run.
    e. Serving the MoE family (run after step 4, once the card is free of
-      the earlier phases' models): qwen3-moe-30b-a3b at full width and
-      full depth (48 layers, 128 experts, top-8, 30.5 B parameters in
-      bf16 with f32 routers) through the Engine and the ContinuousEngine
+      the earlier phases' models): qwen3-moe-30b-a3b at full width cut to
+      12 of its 48 layers (128 experts, top-8, 8.1 B parameters in bf16
+      with f32 routers) through the Engine and the ContinuousEngine
       at phase c's sizes (the tiles, tiles-state and both lens kernels),
       its decode step beside the time to read its weights once, peak
       memory and a profile with the MoE ops in a group of their own; then
@@ -125,7 +150,7 @@
       prefill logits and every token's top-k expert sets in every layer,
       cuda plane against the torch plane; (f) two ContinuousEngine runs
       give the same tokens bitwise; the share of top-k sets that agree
-      between the planes at full depth in bf16 is printed, not held.
+      between the planes at that depth in bf16 is printed, not held.
    f. Serving the SSM and hybrid families (after e, once its models are
       dropped): mamba2-370m (48 layers, attention-free, f32 parameters,
       bf16 activations) and zamba2-7b (81 layers: 13 groups of 6 mamba2
@@ -2245,6 +2270,10 @@ D_REL_TOL = 1e-3
 # -- phase 2e: serving the MoE family ----------------------------------------
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
+#: qwen3-moe-30b-a3b at full width, cut to 12 of its 48 layers (8.1 B
+#: parameters): the phase's time, to make room for phase 2l in the run's
+#: limit (PR 21's whole-model numbers are in PERF.md).
+MOE_SERVE_LAYERS = 12
 #: arctic-480b at full width, cut to 2 of its 35 layers (476.8 B parameters
 #: do not fit one card; 2 layers are 27.7 B, 55.4 GB in bf16):
 #: Engine.generate on 2 prompts of 256 tokens, 8 new, and the
@@ -2291,14 +2320,15 @@ def run_moe_path(torch, wrappers) -> dict:
     """Phase 2e: the MoE family.  (a-moe) qwen3-moe-30b-a3b at full width
     in f32 with 2 layers: the prefill logits and every token's top-k expert
     sets in every layer, cuda plane against the torch plane.  Then
-    qwen3-moe-30b-a3b at full width and full depth (48 layers, 128
-    experts, top-8; bf16, router f32, seeded random weights) through the
+    qwen3-moe-30b-a3b at full width cut to MOE_SERVE_LAYERS of its 48
+    layers (128 experts, top-8; bf16, router f32, seeded random weights)
+    through the
     Engine (4 x 512 prompt tokens, 32 new) and the ContinuousEngine (phase
     2c's 8 requests, 4 slots, chunks of 128, capacity 1152, pages of 64),
     the launch counts reset just before each engine's measured run and
     read just after; (f) a second ContinuousEngine run gives the same
     tokens bitwise; the share of (token, layer) top-k sets that agree
-    between the planes in bf16 at full depth (printed, not held); a
+    between the planes in bf16 at that depth (printed, not held); a
     profile of each engine with the MoE ops in a group of their own.
     Then arctic-480b at full width with 2 layers through both engines (56/8
     heads).  Returns the phase's numbers."""
@@ -2323,7 +2353,8 @@ def run_moe_path(torch, wrappers) -> dict:
 
     out = {}
     out["free_gb"], out["allocated_gb"] = free_card(torch)
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_SERVE_LAYERS)
     g = torch.Generator(device="cuda").manual_seed(2)
     prompts = torch.randint(0, cfg.vocab_size, (FIXED_BATCH, FIXED_PROMPT),
                             generator=g, device="cuda")
@@ -2446,7 +2477,7 @@ def run_moe_path(torch, wrappers) -> dict:
                              f"{out['f_equal']}/{len(reqs)} requests equal")
     lap("(f)")
 
-    # bf16 at full depth: how often the planes route a token alike
+    # bf16 at MOE_SERVE_LAYERS: how often the planes route a token alike
     _, rc = prefill_routes(lm, params, None)
     _, rt = prefill_routes(lm, params, "torch")
     out["route_share"] = agreeing(rc, rt)
@@ -3002,11 +3033,12 @@ def run_frontend_path(torch, wrappers, train_wrappers) -> dict:
 
 # -- phase 2j: mesh scope ----------------------------------------------------
 
-#: Ranks of phase 2j's world, all on the one card: gloo, every collective
+#: Ranks of the mesh phases' one world (2j, 2k and 2l,
+#: :func:`run_mesh_world`), all on the one card: gloo, every collective
 #: staged through host memory (NCCL refuses two ranks on one card,
 #: "Duplicate GPU detected").  Its times are not scaling numbers.
 MESH_RANKS = 4
-#: Seconds phase 2j's world may take, spawn and set-up included.
+#: Seconds phase 2j may take on a rank, spawn and set-up included.
 MESH_TIMEOUT_S = 300
 #: The JAX suites' tolerances (tests/test_distributed_numerics.py,
 #: test_sparse.py, test_spgemm.py): (rtol, atol) per path.
@@ -3233,19 +3265,15 @@ def mesh_rank(rank: int, world: int, device: str, inp: dict) -> dict:
     return out
 
 
-def run_mesh_path(torch, inp: dict, device: str = "cuda") -> dict:
-    """Phase 2j: :func:`mesh_rank` on a world of :data:`MESH_RANKS` ranks,
-    the ranks' results held against each other (every gathered result the
-    same bits on every rank), then, in this process, which has no process
-    group, ``use_level(O3)`` on the one-process mesh: every selection
-    degrades to chip and gives the O2 bits."""
-    from repro_torch.launch.world import run_world
-
+def mesh_path_results(torch, ranks: list, inp: dict,
+                      device: str = "cuda") -> dict:
+    """Phase 2j's results: :func:`mesh_rank` 's on every rank of the world,
+    held against each other (every gathered result the same bits on every
+    rank), then, in this process, which has no process group,
+    ``use_level(O3)`` on the one-process mesh: every selection degrades to
+    chip and gives the O2 bits."""
     t = time.perf_counter()
-    ranks = run_world(mesh_rank, MESH_RANKS, args=(device, inp),
-                      timeout=MESH_TIMEOUT_S)
-    out = {"world_s": time.perf_counter() - t, "rank0": ranks[0],
-           "launches": sum(r["launches"] for r in ranks)}
+    out = {"rank0": ranks[0], "launches": sum(r["launches"] for r in ranks)}
     for r, res in enumerate(ranks[1:], 1):
         if res["digests"] != ranks[0]["digests"]:
             bad = [k for k in res["digests"]
@@ -3309,14 +3337,12 @@ def report_mesh_path(mesh: dict) -> None:
 
 # -- phase 2k: serving at mesh scope ------------------------------------------
 
-#: Ranks of phase 2k's world, on the one card as phase 2j's: gloo, every
-#: collective staged through host memory.  Its times are not scaling
-#: numbers.
-RING_RANKS = 4
-#: Seconds phase 2k's world may take, spawn and set-up included.
+#: Phase 2k runs in phase 2j's world (:func:`run_mesh_world`), on its
+#: MESH_RANKS ranks.
+#: Seconds phase 2k may take on a rank.
 RING_TIMEOUT_S = 600
 #: (k2): the Engine at O3 on one prompt of RING_PROMPT tokens (a multiple
-#: of 2 x RING_RANKS: the zig-zag layout's half-blocks), RING_NEW new.
+#: of 2 x MESH_RANKS: the zig-zag layout's half-blocks), RING_NEW new.
 RING_PROMPT, RING_NEW = 8192, 32
 #: (k1) the JAX suite's tolerances (tests/test_ring_attention.py:154,
 #: :192): (rtol, atol) of ring against chip attention; bf16 inputs with
@@ -3732,15 +3758,10 @@ def ring_serve_rank(rank: int, world: int, device: str) -> dict:
     return out
 
 
-def run_ring_path(torch, device: str = "cuda") -> dict:
-    """Phase 2k: :func:`ring_serve_rank` on a world of :data:`RING_RANKS`
-    ranks; every rank's results the same bits."""
-    from repro_torch.launch.world import run_world
-
-    t = time.perf_counter()
-    ranks = run_world(ring_serve_rank, RING_RANKS, args=(device,),
-                      timeout=RING_TIMEOUT_S)
-    out = {"world_s": time.perf_counter() - t, "rank0": ranks[0]}
+def ring_path_results(ranks: list) -> dict:
+    """Phase 2k's results: :func:`ring_serve_rank` 's on every rank of the
+    world; every rank's results the same bits."""
+    out = {"rank0": ranks[0]}
     for r, res in enumerate(ranks[1:], 1):
         if res["digests"] != ranks[0]["digests"]:
             bad = [k for k in res["digests"]
@@ -3794,12 +3815,672 @@ def report_ring_path(ring: dict, card: str) -> None:
         f"(O2 on the same rank {k3['o2_tok_s']:.1f}); launches a rank "
         f"{k3['o3_launches']} (O2's the same); pool "
         f"{k3['o3_pool_bytes'] / 1e6:.1f} MB a rank ({k3['o3_pages']} pages "
-        f"over {RING_RANKS}) against O2's {k3['o2_pool_bytes'] / 1e6:.1f} "
+        f"over {MESH_RANKS}) against O2's {k3['o2_pool_bytes'] / 1e6:.1f} "
         f"MB ({k3['o2_pages']} pages)")
-    log(f"  every result the same bits on all {RING_RANKS} ranks; seconds "
+    log(f"  every result the same bits on all {MESH_RANKS} ranks; seconds "
         f"by step (slowest rank) " + ", ".join(
             f"{k} {v:.1f}" for k, v in ring["seconds"].items())
         + f"; a rank's set-up {ring['setup_s']:.2f} s")
+
+
+# -- phase 2l: training at mesh scope ------------------------------------------
+
+#: (l2): qwen3-1.7b at full width through Trainer(mesh=make_mesh(data=4))
+#: at O3, MESH_TRAIN_STEPS AdamW steps of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ
+#: tokens of the learnable pattern (the zig-zag ring: 8 half-blocks of
+#: 256), at the depth the mesh-aware count fits, capped at
+#: MESH_TRAIN_MAX_LAYERS for the phase's time.
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 4, 2048
+MESH_TRAIN_MAX_LAYERS = 4
+#: (l2)'s bf16 bar: each mesh loss within this of the O2 Trainer's.
+MESH_BF16_LOSS_TOL = 2e-2
+#: (l2)'s f32 checks and (l3): 2 layers, 4 x MESH_CHECK_SEQ tokens; the
+#: losses within MESH_F32_LOSS_RTOL relative of O2's, the gradients within
+#: MESH_GRAD_REL_TOL of each leaf's largest entry.
+MESH_CHECK_LAYERS, MESH_CHECK_SEQ = 2, 1024
+MESH_F32_LOSS_RTOL, MESH_GRAD_REL_TOL = 1e-5, 1e-4
+#: (l2)'s f32 losses and (l3): MESH_CHECK_STEPS steps; (l3) saves at step
+#: MESH_SAVE_AT, the data source fails at MESH_CRASH_AT (the next step's
+#: batch), the run resumes to MESH_CHECK_STEPS; the elastic shrink's
+#: losses within MESH_ELASTIC_TOL of the uninterrupted run's.
+MESH_CHECK_STEPS = 3
+MESH_SAVE_AT, MESH_CRASH_AT, MESH_ELASTIC_TOL = 2, 2, 1e-5
+#: (l4): elements each rank exchanges through compressed_psum.
+COMPRESS_N = 1 << 20
+
+
+def collective_tally(tracer) -> dict:
+    """One traced step's low-level collectives, from their
+    ``collective:<kind>`` spans (repro_torch.distributed.collectives):
+    operand ``bytes`` and host ``seconds`` by kind, and ``stage_s``, the
+    seconds of gloo-host's staging copies inside them (each copy waits for
+    the kernels queued before it)."""
+    if tracer.dropped:
+        raise AssertionError(f"(l2) the tracer dropped {tracer.dropped} "
+                             f"events")
+    out = {"bytes": {}, "seconds": {}, "stage_s": 0.0}
+    for ev in tracer.events():
+        if ev["ph"] != "X" or not ev["name"].startswith("collective:"):
+            continue
+        kind, sec = ev["name"].split(":", 1)[1], ev["dur"] / 1e6
+        if kind == "stage":
+            out["stage_s"] += sec
+            continue
+        out["bytes"][kind] = out["bytes"].get(kind, 0) + ev["args"]["bytes"]
+        out["seconds"][kind] = out["seconds"].get(kind, 0.0) + sec
+    return out
+
+
+def ring_bwd_tol(torch, dtype, pieces: int) -> tuple[float, float]:
+    """(l1)'s bars for ring gradients against the chip backward: f32,
+    :func:`bwd_tol`; bf16, two ulps relative and, absolute (times the chip
+    gradient's largest entry, at least 1), half an ulp (2^-8 relative) for
+    each of the ``pieces`` bf16 partial gradients the ring adds up (each
+    kernel call rounds its piece's f32 sums to bf16 once, where the chip's
+    one call rounds the whole sum once)."""
+    if dtype == torch.float32:
+        return bwd_tol(torch, dtype)
+    return 2.0 ** -7, pieces * 2.0 ** -8
+
+
+def ring_bwd_launches(W: int, zigzag: bool) -> dict:
+    """One ring call's launches a rank, forward and backward, reckoned from
+    ``distributed/attention.py``'s pieces: zig-zag, 2 causal half-block
+    pieces (tiles state) and W full ones (dense state), so W + 2 of each
+    gradient kernel; full, W of each; one delta kernel either way."""
+    pieces = W + 2 if zigzag else W
+    return {"tiles_state": 2 if zigzag else 0, "flash_attention": W,
+            "fa_bwd_delta": 1, "fa_bwd_dkdv": pieces, "fa_bwd_dq": pieces}
+
+
+def hold_ring_backward_kernels(torch, device: str, cfg, ring: int) -> list:
+    """Phase 2l's backward kernels against flash_attention_tiles_bwd_plain
+    at the shapes (l2)'s ring gives them per shard (:func:`ring_shard_calls`
+    of MESH_TRAIN_SEQ tokens, all MESH_TRAIN_BATCH rows: each rank's sequence
+    shard of the whole batch), in bf16, on the layout each piece walks (a
+    causal half-block pair over ``causal_layout``, a full one over the
+    all-live grid), from the plain forward's o and lse.  Held at
+    :func:`bwd_tol`; returns (what, max |grad - plain| over the plain's
+    largest) rows.  On host tensors (a rehearsal) there is no kernel to
+    hold."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import causal_layout, grid_layout
+
+    if device != "cuda":
+        return []
+    dtype = torch.bfloat16
+    rtol, atol = bwd_tol(torch, dtype)
+    hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(31)
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=device).to(dtype)
+
+    rows = []
+    B = MESH_TRAIN_BATCH
+    for lq, lk, causal in ring_shard_calls(MESH_TRAIN_SEQ, ring):
+        q, k, v = randn(B, hq, lq, d), randn(B, hk, lk, d), randn(B, hk, lk,
+                                                                  d)
+        do = randn(B, hq, lq, d)
+        layout = causal_layout(lq, lk, 128, 128) if causal \
+            else grid_layout(lq, lk, 128, 128, False)
+        o, m, l = fa_k.flash_attention_tiles_plain(q, k, v, layout,
+                                                   return_state=True)
+        lse = fa_k.softmax_lse(m, l)
+        want = fa_k.flash_attention_tiles_bwd_plain(q, k, v, o, lse, do,
+                                                    layout)
+        delta = fa_k.fa_bwd_delta(o, do)
+        dk, dv = fa_k.fa_bwd_dkdv(q, k, v, do, lse, delta, layout,
+                                  d ** -0.5)
+        dq = fa_k.fa_bwd_dq(q, k, v, do, lse, delta, layout, d ** -0.5)
+        torch.cuda.synchronize()
+        what = f"(l1) shard {'causal' if causal else 'full'} {lq}x{lk}"
+        torch.testing.assert_close(
+            delta, (do.float() * o.float()).sum(-1), rtol=1e-5, atol=1e-5,
+            msg=lambda msg: f"{what}: delta: {msg}")
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            scale = max(1.0, float(w.float().abs().max()))
+            torch.testing.assert_close(
+                g.float(), w.float(), rtol=rtol, atol=atol * scale,
+                msg=lambda msg: f"{what}: {name}: {msg}")
+            errs.append(float((g.float() - w.float()).abs().max())
+                        / float(w.float().abs().max()))
+        rows.append((what, max(errs)))
+    return rows
+
+
+def bits_digest(torch, tree) -> str:
+    """A digest of every leaf's bits, computed on the leaves' device: the
+    raw bits as int64, weighted by position, summed with wrapping (integer
+    sums, so any order gives the same digest); ranks compare them."""
+    from repro_torch.utils.tree import tree_leaves
+
+    out = []
+    for x in tree_leaves(tree):
+        flat = x.detach().reshape(-1)
+        bits = flat.view({2: torch.int16, 4: torch.int32}[
+            flat.element_size()]).to(torch.int64)
+        chunk, total = 1 << 24, 0
+        for s in range(0, bits.numel(), chunk):
+            part = bits[s:s + chunk]
+            w = torch.arange(s, s + part.numel(), device=part.device) \
+                % 65521 + 1
+            total = total + int((part * w).sum())
+        out.append(total)
+    return str(out)
+
+
+def mesh_train_layers(cfg, card_bytes: float) -> tuple[int, int]:
+    """(l2)'s depth: (the most layers ``train_peak_bytes`` counts into the
+    card at data width MESH_RANKS with MESH_RANKS ranks sharing it, each
+    rank a row of MESH_TRAIN_SEQ positions and its own TRAIN_SLACK_BYTES;
+    that, capped at MESH_TRAIN_MAX_LAYERS)."""
+    from repro_torch.launch.train import TRAIN_SLACK_BYTES, train_peak_bytes
+
+    tokens = MESH_TRAIN_BATCH // MESH_RANKS * MESH_TRAIN_SEQ
+    room = card_bytes - MESH_RANKS * TRAIN_SLACK_BYTES
+    fit = max((n for n in range(1, cfg.num_layers + 1) if train_peak_bytes(
+        dataclasses.replace(cfg, num_layers=n), tokens,
+        data_width=MESH_RANKS, ranks_per_card=MESH_RANKS) <= room),
+        default=0)
+    return fit, min(fit, MESH_TRAIN_MAX_LAYERS)
+
+
+def mesh_train_rank(rank: int, world: int, device: str, tmp: str) -> dict:
+    """One rank of phase 2l.  (l1) ring attention's backward on O3 (data 4)
+    and O4 (pod 2, data 2), this rank's row of ATTN_SHAPE's batch (the
+    mesh trainer's layout), zig-zag causal and contiguous full, in bf16 and
+    f32, against the chip backward (``_Attention`` over the whole sequence)
+    on the same rows, launches held to :func:`ring_bwd_launches`; the
+    backward kernels held at (l2)'s per-shard shapes.  (l2) qwen3-1.7b at
+    full width through ``Trainer(mesh=make_mesh(data=4))`` at O3, step by
+    step (each step's parameter bits digested), with the launch counts and
+    the collectives' bytes and host seconds read from their trace spans
+    over the steps; on rank 0
+    the O2 Trainer at the same depth on the same batches; in f32 at 2
+    layers the gradients of the mesh loss summed over the ranks against
+    O2's, and the losses of MESH_CHECK_STEPS steps.  (l3) in f32 at 2
+    layers: a save at MESH_SAVE_AT, a crash at MESH_CRASH_AT and a resume
+    on (data 4), its
+    parameters' bits against the uninterrupted run's; on rank 0 the same
+    checkpoint restored at O2 with ``replan(1, ...)``'s microbatches.  (l4)
+    ``compressed_psum`` over ``pod`` at O4 against the exact sum.  Returns
+    the rows, the launches and digests (the ranks must agree)."""
+    import shutil
+
+    import torch
+
+    t_start = time.perf_counter()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        gc.collect()
+        torch.cuda.empty_cache()
+    import torch.distributed as dist
+    import torch.distributed.tensor  # noqa: F401  (timed with the imports)
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecLevel, use_level
+    from repro_torch.distributed.attention import ring_attention
+    from repro_torch.distributed.collectives import reduce_plan
+    from repro_torch.distributed.sharding import sharded_rows
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.lm import LM
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.optim.compress import compressed_psum
+    from repro_torch.runtime import replan
+    from repro_torch.train.step import mesh_loss, shard_batch, value_and_grad
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    wrappers = {"flash_attention": fa_k.flash_attention,
+                "flash_attention_lens": fa_k.flash_attention_lens,
+                "flash_attention_tiles": fa_k.flash_attention_tiles}
+    bwd = {k: getattr(fa_k, k) for k in BWD_KERNELS}
+
+    def reset():
+        reset_attention_counts(wrappers)
+        for w in bwd.values():
+            w.launches = 0
+
+    def counts():
+        n = read_attention_counts(wrappers)
+        n.update({k: w.launches for k, w in bwd.items()})
+        return n
+
+    O3, O4 = ExecLevel.O3, ExecLevel.O4
+    meshes = {"O3": (O3, make_mesh(data=world, device_type=device)),
+              "O4": (O4, make_mesh(data=world // 2, pod=2,
+                                   device_type=device))}
+    out = {"rows": [], "digests": {}, "seconds": {},
+           "setup_s": time.perf_counter() - t_start}
+
+    # -- (l1) ring attention's backward ------------------------------------
+    t = time.perf_counter()
+    B, hq, hk, L, d = ATTN_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        rng = np.random.default_rng(33)
+        q, k, v, do = (torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=device).to(dtype)
+            for shape in ((B, hq, L, d), (B, hk, L, d), (B, hk, L, d),
+                          (B, hq, L, d)))
+        for layout, causal, order in (("zigzag", True, "zigzag"),
+                                      ("full", False, "contiguous")):
+            for key, (level, mesh) in meshes.items():
+                plan = reduce_plan(mesh)
+                want = ring_bwd_launches(plan.width, layout == "zigzag")
+                rtol, atol = ring_bwd_tol(torch, dtype, want["fa_bwd_dq"])
+                i, n = plan.shard_index(), B // plan.width
+                mine = [x[i * n:(i + 1) * n] for x in (q, k, v, do)]
+                leaves = [x.clone().requires_grad_(True) for x in mine[:3]]
+                chip = torch.autograd.grad(ops.flash_attention(
+                    *leaves, causal=causal), leaves, mine[3])
+                reset()
+                sync()
+                t0 = time.perf_counter()
+                with use_level(level, mesh), sharded_rows(plan):
+                    got = torch.autograd.grad(ring_attention(
+                        *leaves, causal=causal, order=order), leaves,
+                        mine[3])
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                got_n = counts()
+                what = f"(l1) ring backward {layout} {dname} on {key}"
+                errs = []
+                for name, g, w in zip(("dq", "dk", "dv"), got, chip):
+                    scale = max(1.0, float(w.float().abs().max()))
+                    torch.testing.assert_close(
+                        g.float(), w.float(), rtol=rtol, atol=atol * scale,
+                        msg=lambda m: f"{what}: {name}: {m}")
+                    errs.append(float((g.float() - w.float()).abs().max()))
+                have = {k_: got_n[k_] for k_ in want}
+                if on_card and have != want:
+                    raise AssertionError(f"{what}: launches {have}, "
+                                         f"reckoned {want}")
+                out["rows"].append(("l1", f"{layout} {dname} {key}",
+                                    max(errs), ms, have))
+    del q, k, v, do, leaves, chip, got
+    cfg = get_config(ARCH)
+    out["holds"] = hold_ring_backward_kernels(
+        torch, device, cfg, reduce_plan(meshes["O3"][1]).width)
+    out["seconds"]["l1"] = time.perf_counter() - t
+
+    # -- (l2) qwen3-1.7b at full width, Trainer(mesh=...) at O3 ---------------
+    t = time.perf_counter()
+    level, mesh = meshes["O3"]
+    plan = reduce_plan(mesh)
+    card = torch.cuda.get_device_properties(0).total_memory if on_card \
+        else 80e9
+    fit, layers = mesh_train_layers(cfg, card)
+    cfgn = dataclasses.replace(cfg, num_layers=layers)
+    data = learnable_data(MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)
+    res = {"fit_layers": fit, "layers": layers}
+    # each step traced: the collectives' spans give their bytes and host
+    # seconds (collective_tally)
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        with use_level(level, mesh):
+            trainer = Trainer(cfgn, mesh=mesh, lr=TRAIN_LR,
+                              total_steps=MESH_TRAIN_STEPS, device=device)
+            res["moment_bytes"] = sum(
+                x.numel() * x.element_size() for x in tree_leaves(
+                    (trainer.state.opt_state.mu, trainer.state.opt_state.nu)))
+            res["param_count"] = sum(x.numel() for x in
+                                     tree_leaves(trainer.state.params))
+            losses, steps_s, digests, tallies = [], [], [], []
+            reset()
+            for i in range(MESH_TRAIN_STEPS):
+                sync()
+                TRACER.clear()
+                TRACER.enable()
+                t0 = time.perf_counter()
+                h = trainer.fit(data, i + 1, log_every=1)["history"]
+                sync()
+                steps_s.append(time.perf_counter() - t0)
+                TRACER.disable()
+                tallies.append(collective_tally(TRACER))
+                losses.append(h[-1]["loss"])
+                digests.append(bits_digest(torch, trainer.state.params))
+            res["launches"] = counts()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card \
+            else 0.0
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    res["losses"], res["step_s"], res["collectives"] = losses, steps_s, \
+        tallies
+    out["digests"]["l2 params by step"] = str(digests)
+    # the launches reckoned from the code: per step and layer the zig-zag
+    # ring forward twice (remat) and its backward once
+    per = ring_bwd_launches(plan.width, True)
+    want = {k_: MESH_TRAIN_STEPS * layers * n * (2 if k_ in (
+        "tiles_state", "flash_attention") else 1) for k_, n in per.items()}
+    have = {k_: res["launches"][k_] for k_ in want}
+    if on_card and have != want:
+        raise AssertionError(f"(l2) launches over {MESH_TRAIN_STEPS} steps "
+                             f"{have}, reckoned {want}")
+    del trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:                       # the O2 Trainer, same depth and data
+        o2 = Trainer(cfgn, lr=TRAIN_LR, total_steps=MESH_TRAIN_STEPS,
+                     device=device)
+        res["o2_moment_bytes"] = sum(
+            x.numel() * x.element_size() for x in tree_leaves(
+                (o2.state.opt_state.mu, o2.state.opt_state.nu)))
+        res["o2_losses"], res["o2_step_s"] = [], []
+        for i in range(MESH_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            h = o2.fit(data, i + 1, log_every=1)["history"]
+            sync()
+            res["o2_step_s"].append(time.perf_counter() - t0)
+            res["o2_losses"].append(h[-1]["loss"])
+        del o2
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        diffs = [abs(a - b) for a, b in zip(res["losses"],
+                                            res["o2_losses"])]
+        res["max_loss_diff"] = max(diffs)
+        if not all(np.isfinite(res["losses"])) or \
+                not res["losses"][-1] < res["losses"][0] or \
+                res["max_loss_diff"] > MESH_BF16_LOSS_TOL:
+            raise AssertionError(f"(l2) bf16 losses {res['losses']}, O2's "
+                                 f"{res['o2_losses']}")
+        if res["moment_bytes"] * plan.width != res["o2_moment_bytes"]:
+            raise AssertionError(f"(l2) moment bytes a rank "
+                                 f"{res['moment_bytes']}, O2's "
+                                 f"{res['o2_moment_bytes']}")
+    dist.barrier()
+
+    # f32 at 2 layers: the gradients, then the losses of MESH_CHECK_STEPS
+    # steps (which (l3) reuses as its uninterrupted run)
+    cfg32 = dataclasses.replace(cfg, num_layers=MESH_CHECK_LAYERS,
+                                dtype="float32", param_dtype="float32")
+    lm32 = LM(cfg32)
+    data32 = learnable_data(MESH_TRAIN_BATCH, MESH_CHECK_SEQ)
+    params = lm32.init(0, device=device)
+    batch = data32.batch(0)
+    with use_level(level, mesh), sharded_rows(plan):
+        _, g = value_and_grad(mesh_loss(lm32.loss, plan), params,
+                              shard_batch(mesh, batch))
+    g = tree_map(plan.psum_all, g)
+    if rank == 0:
+        _, g2 = value_and_grad(lm32.loss, params, {
+            k_: torch.as_tensor(v_, device=device) for k_, v_ in
+            batch.items()})
+        rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(tree_leaves(g), tree_leaves(g2))]
+        res["grad_rel"] = max(rel)
+        if res["grad_rel"] > MESH_GRAD_REL_TOL:
+            raise AssertionError(f"(l2) f32 gradients: max |mesh - O2| / "
+                                 f"max |O2| {res['grad_rel']}")
+        del g2
+    del g, params
+
+    def run32(**kw):
+        with use_level(level, mesh):
+            tr = Trainer(cfg32, mesh=mesh, lr=TRAIN_LR,
+                         total_steps=MESH_CHECK_STEPS, device=device, **kw)
+            return tr, tr.fit(data32, MESH_CHECK_STEPS,
+                              log_every=1)["history"]
+    tr, hist = run32()
+    res["f32_losses"] = [h["loss"] for h in hist]
+    ref_digest = bits_digest(torch, tr.state.params)
+    del tr
+    if rank == 0:
+        o2 = Trainer(cfg32, lr=TRAIN_LR, total_steps=MESH_CHECK_STEPS,
+                     device=device)
+        res["f32_o2_losses"] = [h["loss"] for h in o2.fit(
+            data32, MESH_CHECK_STEPS, log_every=1)["history"]]
+        del o2
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["f32_losses"],
+                                                      res["f32_o2_losses"]))
+        res["f32_loss_rel"] = rel
+        if rel > MESH_F32_LOSS_RTOL:
+            raise AssertionError(f"(l2) f32 losses {res['f32_losses']}, "
+                                 f"O2's {res['f32_o2_losses']}")
+    out["l2"] = res
+    out["seconds"]["l2"] = time.perf_counter() - t
+
+    # -- (l3) save, crash, resume at mesh scope; the elastic shrink -----------
+    t = time.perf_counter()
+    ck = os.path.join(tmp, "ckpt")
+
+    class Crashing:
+        """data32, failing at MESH_CRASH_AT."""
+
+        def batch(self, i):
+            if i == MESH_CRASH_AT:
+                raise RuntimeError(f"injected failure at step {i}")
+            return data32.batch(i)
+
+    with use_level(level, mesh):
+        tr = Trainer(cfg32, mesh=mesh, lr=TRAIN_LR,
+                     total_steps=MESH_CHECK_STEPS, device=device,
+                     ckpt_dir=ck, save_every=MESH_SAVE_AT)
+        try:
+            tr.fit(Crashing(), MESH_CHECK_STEPS, log_every=1)
+            raise AssertionError("(l3) the injected failure did not fire")
+        except RuntimeError as exc:
+            if "injected failure" not in str(exc):
+                raise
+    del tr
+    tr, hist = run32(ckpt_dir=ck)
+    l3 = {"resumed_at": hist[0]["step"] - 1,
+          "bitwise": bits_digest(torch, tr.state.params) == ref_digest}
+    del tr
+    if l3["resumed_at"] != MESH_SAVE_AT or not l3["bitwise"]:
+        raise AssertionError(f"(l3) resumed at {l3['resumed_at']}, bitwise "
+                             f"equal to the uninterrupted run: "
+                             f"{l3['bitwise']}")
+    if rank == 0:                       # the elastic shrink: one rank, O2
+        shrink = replan(1, model=1, global_batch=MESH_TRAIN_BATCH,
+                        per_replica_batch=1)
+        el = Trainer(cfg32, lr=TRAIN_LR, total_steps=MESH_CHECK_STEPS,
+                     device=device, microbatches=shrink.microbatches)
+        # the mesh run's checkpoint of MESH_SAVE_AT (the resumed run wrote
+        # a later one beside it), restored whole as Trainer restores
+        el.state = Checkpointer(ck).restore(el.state, step=MESH_SAVE_AT)
+        l3["elastic_microbatches"] = shrink.microbatches
+        l3["elastic_losses"] = [h["loss"] for h in el.fit(
+            data32, MESH_CHECK_STEPS, log_every=1)["history"]]
+        del el
+        want = res["f32_losses"][MESH_SAVE_AT:]
+        l3["elastic_diff"] = max(abs(a - b) for a, b in
+                                 zip(l3["elastic_losses"], want))
+        if len(l3["elastic_losses"]) != len(want) or \
+                l3["elastic_diff"] > MESH_ELASTIC_TOL:
+            raise AssertionError(f"(l3) elastic shrink: losses "
+                                 f"{l3['elastic_losses']}, the uninterrupted "
+                                 f"run's {want}")
+        shutil.rmtree(ck)
+    dist.barrier()
+    out["l3"] = l3
+    out["seconds"]["l3"] = time.perf_counter() - t
+
+    # -- (l4) compressed_psum over pod at O4 ----------------------------------
+    t = time.perf_counter()
+    level, mesh = meshes["O4"]
+
+    def x_of(r):
+        g_ = torch.Generator(device=device).manual_seed(100 + r)
+        return torch.rand(COMPRESS_N, generator=g_, device=device) * 2 - 1
+    with use_level(level, mesh):
+        got = compressed_psum(x_of(rank), "pod")
+    data_w = world // 2                  # (pod 2, data 2): pod-major ranks
+    peers = [p * data_w + rank % data_w for p in range(2)]
+    xs = [x_of(r) for r in peers]
+    exact = sum(xs)
+    scale = max(float(x.abs().max()) for x in xs) / 127.0
+    err = float((got - exact).abs().max())
+    bound = len(peers) * scale
+    if not err <= bound:
+        raise AssertionError(f"(l4) compressed_psum over pod: max |got - "
+                             f"exact| {err} above {bound}")
+    out["l4"] = {"err": err, "bound": bound, "peers": peers}
+    out["seconds"]["l4"] = time.perf_counter() - t
+    return out
+
+
+#: Seconds phase 2l may take on a rank.
+MESH_TRAIN_TIMEOUT_S = 300
+
+
+def train_path_results(ranks: list) -> dict:
+    """Phase 2l's results: :func:`mesh_train_rank` 's on every rank; every
+    rank's digests (the parameters after each step of (l2)) the same, the
+    main path's launches summed over the ranks."""
+    out = {"rank0": ranks[0]}
+    for r, res in enumerate(ranks[1:], 1):
+        if res["digests"] != ranks[0]["digests"]:
+            raise AssertionError(f"phase 2l: rank {r} holds other parameter "
+                                 f"bits than rank 0 after (l2)'s steps")
+    out["launches"] = {
+        "flash_attention": sum(r["l2"]["launches"]["flash_attention"]
+                               for r in ranks),
+        "flash_attention_tiles": sum(r["l2"]["launches"]["tiles_state"]
+                                     for r in ranks),
+        **{k: sum(r["l2"]["launches"][k] for r in ranks)
+           for k in BWD_KERNELS}}
+    out["ranks"] = [{"step_s": r["l2"]["step_s"], "peak_gb":
+                     r["l2"]["peak_gb"], "collectives":
+                     r["l2"]["collectives"]} for r in ranks]
+    out["setup_s"] = max(r["setup_s"] for r in ranks)
+    out["seconds"] = {k: max(r["seconds"][k] for r in ranks)
+                      for k in ranks[0]["seconds"]}
+    return out
+
+
+def report_train_mesh_path(mt: dict, card: str) -> None:
+    """Log phase 2l's rows and checks (:func:`train_path_results`)."""
+    r0 = mt["rank0"]
+    for _, label, err, ms, n in r0["rows"]:
+        log(f"  (l1) ring backward {label}: max |ring - chip| of dq, dk, dv "
+            f"{err:.3g}, {ms:.2f} ms forward and backward on rank 0, "
+            f"launches a rank {n} (as reckoned)")
+    for what, err in r0["holds"]:
+        log(f"  {what}: backward kernels against the plain backward, max "
+            f"|diff| / max |plain| {err:.3g}")
+    l2, l3, l4 = r0["l2"], r0["l3"], r0["l4"]
+    W = MESH_RANKS
+    n = l2["param_count"]
+    log(f"  (l2) {ARCH} at full width, {l2['layers']} of 28 layers (the "
+        f"mesh-aware count fits {l2['fit_layers']} on {card} at data width "
+        f"{W} with {W} ranks on the card; capped at {MESH_TRAIN_MAX_LAYERS}"
+        f"), {n} parameters, Trainer(mesh=make_mesh(data={W})) at O3, "
+        f"{MESH_TRAIN_STEPS} steps of {MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} "
+        f"tokens: losses {l2['losses']} against O2's {l2['o2_losses']} (max "
+        f"|diff| {l2['max_loss_diff']:.4g}, bar {MESH_BF16_LOSS_TOL}); "
+        f"moments {l2['moment_bytes'] / 1e9:.3f} GB a rank against O2's "
+        f"{l2['o2_moment_bytes'] / 1e9:.3f}; every rank the same parameter "
+        f"bits after each step")
+    for r, rk in enumerate(mt["ranks"]):
+        later = rk["collectives"][1:]
+        coll_s = sum(sum(c["seconds"].values()) for c in later)
+        stage_s = sum(c["stage_s"] for c in later)
+        step_s = sum(rk["step_s"][1:])
+        log(f"  (l2) rank {r}: step seconds "
+            f"{[round(x, 3) for x in rk['step_s']]} (O2 on rank 0 "
+            f"{[round(x, 3) for x in l2['o2_step_s']]}), peak "
+            f"{rk['peak_gb']:.2f} GB; collective bytes a step "
+            + ", ".join(f"{k} {v}" for k, v in later[0]["bytes"].items())
+            + f"; host-staged collectives (their spans) {coll_s:.2f} s of "
+            f"steps 2-{len(rk['step_s'])}'s {step_s:.2f} s "
+            f"({coll_s / max(step_s, 1e-9):.3f}), of which staging copies "
+            f"{stage_s:.2f} s (with the wait for kernels queued before "
+            f"them); by kind "
+            + ", ".join(f"{k} {sum(c['seconds'][k] for c in later):.2f} s"
+                        for k in later[0]["seconds"]))
+    c0 = mt["ranks"][0]["collectives"][1]["bytes"]
+    log(f"  (l2) the plan's ZeRO-1 bytes a rank a step: reduce-scatter "
+        f"{2 * n} (each bf16 gradient whole), all-gather {2 * n // W} (its "
+        f"bf16 tile); measured {c0.get('reduce_scatter', 0)} and "
+        f"{c0.get('all_gather', 0)}")
+    log(f"  (l2) f32 at {MESH_CHECK_LAYERS} layers: gradients max |mesh - "
+        f"O2| / max |O2| {l2['grad_rel']:.3g} (bar {MESH_GRAD_REL_TOL}); "
+        f"losses {l2['f32_losses']} against O2's {l2['f32_o2_losses']} (max "
+        f"relative {l2['f32_loss_rel']:.3g}, bar {MESH_F32_LOSS_RTOL})")
+    log(f"  (l3) f32 at {MESH_CHECK_LAYERS} layers on (data {W}): saved at "
+        f"{MESH_SAVE_AT}, crashed fetching step {MESH_CRASH_AT + 1}, "
+        f"resumed at "
+        f"{l3['resumed_at']}: parameters bitwise equal to the uninterrupted "
+        f"run on every rank; restored at O2 on one rank with "
+        f"{l3['elastic_microbatches']} microbatches (replan): losses "
+        f"{l3['elastic_losses']}, max |diff| {l3['elastic_diff']:.3g} (bar "
+        f"{MESH_ELASTIC_TOL})")
+    log(f"  (l4) compressed_psum over pod at O4, {COMPRESS_N} elements a "
+        f"rank: max |got - exact| {l4['err']:.4g}, bound {l4['bound']:.4g} "
+        f"(one int8 step a participant)")
+    log(f"  seconds by step (slowest rank) " + ", ".join(
+        f"{k} {v:.1f}" for k, v in mt["seconds"].items())
+        + f"; a rank's set-up {mt['setup_s']:.2f} s")
+
+
+# -- the mesh phases' one world ------------------------------------------------
+
+def mesh_world_rank(rank: int, world: int, device: str, inp: dict,
+                    tmp: str, phases: tuple) -> dict:
+    """One rank of the mesh phases' world: ``phases`` of "2j"
+    (:func:`mesh_rank`), "2k" (:func:`ring_serve_rank`) and "2l"
+    (:func:`mesh_train_rank`) in turn, each timed."""
+    run = {"2j": lambda: mesh_rank(rank, world, device, inp),
+           "2k": lambda: ring_serve_rank(rank, world, device),
+           "2l": lambda: mesh_train_rank(rank, world, device, tmp)}
+    out = {}
+    for phase in phases:
+        t = time.perf_counter()
+        out[phase] = run[phase]()
+        out[phase]["phase_s"] = time.perf_counter() - t
+    return out
+
+
+def run_mesh_world(torch, inp: dict, device: str = "cuda",
+                   phases: tuple = ("2j", "2k", "2l")) -> dict:
+    """Phases 2j, 2k and 2l in one world of :data:`MESH_RANKS` ranks (one
+    spawn, one load of the kernel library a rank), then each phase's
+    results from every rank's; ``world_s`` the world's wall time and
+    ``phase_s`` each phase's on its slowest rank.  A temporary directory
+    holds 2l's checkpoints and goes with the world."""
+    import shutil
+
+    from repro_torch.launch.world import run_world
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    timeout = sum({"2j": MESH_TIMEOUT_S, "2k": RING_TIMEOUT_S,
+                   "2l": MESH_TRAIN_TIMEOUT_S}[p] for p in phases)
+    t = time.perf_counter()
+    try:
+        ranks = run_world(mesh_world_rank, MESH_RANKS,
+                          args=(device, inp, tmp, phases), timeout=timeout)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"world_s": time.perf_counter() - t,
+           "phase_s": {p: max(r[p]["phase_s"] for r in ranks)
+                       for p in phases}}
+    if "2j" in phases:
+        out["2j"] = mesh_path_results(torch, [r["2j"] for r in ranks], inp,
+                                      device)
+    if "2k" in phases:
+        out["2k"] = ring_path_results([r["2k"] for r in ranks])
+    if "2l" in phases:
+        out["2l"] = train_path_results([r["2l"] for r in ranks])
+    return out
 
 
 # -- phase 2i: measured dispatch ---------------------------------------------
@@ -4433,28 +5114,30 @@ def main() -> int:
                              f"path: {missing}")
     launches.update(sparse_launches)
 
-    # -- phase 2j: the paper's path at mesh scope, counted on every rank ----
+    # -- phases 2j, 2k, 2l: mesh scope, one world, counted on every rank ----
     t_path = time.perf_counter()
-    mesh = run_mesh_path(torch, mesh_inputs(csr, z_np, a_np, b_np, spd_np,
-                                            bcg_np))
-    log(f"phase 2j: mesh scope, {MESH_RANKS} ranks on the one card (gloo, "
-        f"staged through host memory; not scaling numbers), in "
+    world = run_mesh_world(torch, mesh_inputs(csr, z_np, a_np, b_np, spd_np,
+                                              bcg_np))
+    log(f"phases 2j, 2k and 2l: one world of {MESH_RANKS} ranks on the one "
+        f"card (gloo, staged through host memory; not scaling numbers), in "
         f"{time.perf_counter() - t_path:.2f} s (the world "
-        f"{mesh['world_s']:.2f} s): matmul launches over the ranks "
+        f"{world['world_s']:.2f} s; each phase on its slowest rank: "
+        + ", ".join(f"{p} {v:.2f} s" for p, v in world["phase_s"].items())
+        + ")")
+    mesh, ring, mtrain = world["2j"], world["2k"], world["2l"]
+    log(f"phase 2j: mesh scope: matmul launches over the ranks "
         f"{mesh['launches']}")
     report_mesh_path(mesh)
     launches["matmul"] += mesh["launches"]
-
-    # -- phase 2k: serving at mesh scope, counted on every rank -------------
-    t_path = time.perf_counter()
-    ring = run_ring_path(torch)
-    log(f"phase 2k: serving at mesh scope, {RING_RANKS} ranks on the one "
-        f"card (gloo, staged through host memory; not scaling numbers), in "
-        f"{time.perf_counter() - t_path:.2f} s (the world "
-        f"{ring['world_s']:.2f} s): attention launches over the ranks "
-        f"{ring['launches']}")
+    log(f"phase 2k: serving at mesh scope: attention launches over the "
+        f"ranks {ring['launches']}")
     report_ring_path(ring, smi[0])
     for k, n in ring["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"phase 2l: training at mesh scope: launches over the ranks "
+        f"{mtrain['launches']}")
+    report_train_mesh_path(mtrain, smi[0])
+    for k, n in mtrain["launches"].items():
         launches[k] = launches.get(k, 0) + n
 
     # -- phase 2c: the serve path, counted ----------------------------------
@@ -4516,7 +5199,8 @@ def main() -> int:
     log(f"phase 2d: {ARCH} training path and its checks in "
         f"{time.perf_counter() - t_path:.2f} s, kernel launches over "
         f"{TRAIN_STEPS} steps: {train['launches']}")
-    launches.update({k: train["launches"][k] for k in BWD_KERNELS})
+    for k in BWD_KERNELS:                       # phase 2l counted some
+        launches[k] = launches.get(k, 0) + train["launches"][k]
     log(f"{ARCH} training (full width, bf16 parameters, f32 AdamW moments, "
         f"remat; init {train['init_s']:.2f} s) on {smi[0]}: "
         f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
@@ -4728,7 +5412,8 @@ def main() -> int:
         launches[name] += sum(moe[run][k] for k in kinds
                               for run in ("fixed_launches", "cont_launches",
                                           "arctic_launches"))
-    log(f"{MOE_ARCH} ({moe['params']} parameters, "
+    log(f"{MOE_ARCH} at {MOE_SERVE_LAYERS} of 48 layers ({moe['params']} "
+        f"parameters, "
         f"{moe['param_gb']:.2f} GB: bf16, routers f32; init "
         f"{moe['init_s']:.2f} s; peak memory allocated "
         f"{moe['peak_gb']:.2f} GB) on {smi[0]}:")
@@ -4751,7 +5436,8 @@ def main() -> int:
         f"{len(SERVE_REQS)} requests bitwise equal")
     agree, pairs = moe["route_share"]
     by_layer = moe["route_share_by_layer"]
-    log(f"  bf16, 48 layers, cuda vs torch plane (printed, not held): top-k "
+    log(f"  bf16, {MOE_SERVE_LAYERS} layers, cuda vs torch plane (printed, "
+        f"not held): top-k "
         f"sets agree on {agree}/{pairs} (token, layer) pairs "
         f"({agree / pairs:.4f}); by layer "
         + " ".join(f"{x:.3f}" for x in by_layer))

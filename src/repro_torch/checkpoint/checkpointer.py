@@ -26,9 +26,17 @@ Fault-tolerance contract, as in the JAX package: a step directory is
 written under ``.tmp-...`` and renamed into place, then LATEST is swapped,
 so a crash mid-save never corrupts the restore point; ``save_async``
 copies the tree to host memory at once and writes it in a background
-thread; the newest ``keep`` checkpoints are kept.  Partition specs,
-meshes and shardings (the elastic re-mesh on restore) are the LM half of
-mesh scope (ROADMAP queue 1 item 10b-ii) and raise.
+thread; the newest ``keep`` checkpoints are kept.
+
+Elastic restore, as in the JAX package: ``save(..., specs=)`` writes the
+logical PartitionSpecs (axis names, no device ids) into the manifest, one
+string per leaf (``str(spec)``, the reference's strings: a tree of the
+stacked specs, ``distributed.partition``'s ``stacked=True``, whose layer
+lists are collapsed into dicts); ``restore(..., shardings=)`` takes a
+NamedSharding tree in the template's structure, built for the *current*
+mesh (which may differ from the saver's), and each rank keeps its own
+tile of every leaf.  The mesh trainer hands ``save`` the moments whole and
+lets one rank write.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.sharding import PartitionSpec
 from repro_torch.utils.tree import tree_paths
 
 __all__ = ["Checkpointer"]
@@ -67,6 +76,8 @@ def _paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
     ``(path, [[group 0 layer 0's leaf, ...], ...])``."""
     if tree is None:
         return []
+    if isinstance(tree, PartitionSpec):
+        return [(prefix, tree)]
     if _is_layer_list(tree):
         layers = [_paths(x) if isinstance(x, list) else tree_paths(x)
                   for x in tree]
@@ -120,41 +131,62 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
-def _rebuild(tree, prefix: str, get, layer: Optional[tuple] = None):
+def _rebuild(tree, prefix: str, get, layer: Optional[tuple] = None,
+             shard=None):
     """``tree``'s structure with each leaf replaced by ``get(path)`` (entry
     ``layer`` of it, an index a stacked dim, inside a list of layers), in
-    the leaf's dtype and on its device."""
+    the leaf's dtype and on its device; ``shard``, a NamedSharding tree of
+    the same structure (or None), cuts each leaf to this rank's tile."""
     if tree is None:
         return None
     if layer is None and _is_layer_list(tree):
-        return _rebuild_layers(tree, prefix, get, ())
+        return _rebuild_layers(tree, prefix, get, (), shard)
     if isinstance(tree, dict):
-        return {k: _rebuild(v, f"{prefix}[{k!r}]", get, layer)
+        return {k: _rebuild(v, f"{prefix}[{k!r}]", get, layer,
+                            None if shard is None else shard[k])
                 for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_rebuild(getattr(tree, f), f"{prefix}.{f}",
-                                     get, layer) for f in tree._fields))
+                                     get, layer,
+                                     None if shard is None
+                                     else getattr(shard, f))
+                            for f in tree._fields))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(x, f"{prefix}[{i}]", get, layer)
+        return type(tree)(_rebuild(x, f"{prefix}[{i}]", get, layer,
+                                   None if shard is None else shard[i])
                           for i, x in enumerate(tree))
     t = get(prefix)
     if layer is not None:
         t = t[layer]
+    if shard is not None:
+        from repro_torch.distributed.sharding import local_slice
+        t = local_slice(t, shard)
     return t.to(device=tree.device, dtype=tree.dtype)
 
 
-def _rebuild_layers(tree: list, prefix: str, get, index: tuple) -> list:
+def _rebuild_layers(tree: list, prefix: str, get, index: tuple,
+                    shard=None) -> list:
     """A layer list (or a list of them) rebuilt from the stacked leaves:
     entry i of the list at ``index`` takes index + (i,)."""
-    return [_rebuild_layers(x, prefix, get, index + (i,))
-            if isinstance(x, list) else _rebuild(x, prefix, get, index + (i,))
+    return [_rebuild_layers(x, prefix, get, index + (i,),
+                            None if shard is None else shard[i])
+            if isinstance(x, list) else
+            _rebuild(x, prefix, get, index + (i,),
+                     None if shard is None else shard[i])
             for i, x in enumerate(tree)]
 
 
-def _mesh_scope(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Checkpointer: {what} is the LM half of mesh scope, not ported "
-        f"yet (ROADMAP queue 1 item 10b-ii)")
+def _spec_strings(tree, specs) -> list:
+    """``str(spec)`` of each leaf of ``tree`` in leaf order, from a spec
+    tree over the same paths (the stacked one: layer lists collapsed)."""
+    by_path = {p: s for p, s in _paths(specs)}
+    want = [p for p, _ in _paths(tree)]
+    if sorted(want) != sorted(by_path) or not all(
+            isinstance(s, PartitionSpec) for s in by_path.values()):
+        missing = sorted(set(want) - set(by_path))
+        raise ValueError(f"the specs do not match the tree's leaves: "
+                         f"missing {missing[:4]}")
+    return [str(by_path[p]) for p in want]
 
 
 class Checkpointer:
@@ -183,22 +215,23 @@ class Checkpointer:
         return sorted(steps)
 
     # ------------------------------------------------------------------
-    def _snapshot(self, tree: Pytree, specs) -> list:
-        if specs is not None:
-            raise _mesh_scope("embedding partition specs")
-        return [(p, *_to_host(leaf)) for p, leaf in _paths(tree)]
+    def _snapshot(self, tree: Pytree, specs) -> tuple[list, Optional[list]]:
+        strings = None if specs is None else _spec_strings(tree, specs)
+        return [(p, *_to_host(leaf)) for p, leaf in _paths(tree)], strings
 
     def save(self, step: int, tree: Pytree, *, specs: Pytree = None) -> None:
-        """Blocking save."""
-        self._write(step, self._snapshot(tree, specs))
+        """Blocking save.  ``specs``: an optional PartitionSpec tree to
+        embed (module docstring)."""
+        self._write(step, *self._snapshot(tree, specs))
 
     def save_async(self, step: int, tree: Pytree, *,
                    specs: Pytree = None) -> None:
         """Snapshot now (device -> host), write in the background."""
         self.wait()
-        host = self._snapshot(tree, specs)
+        host, strings = self._snapshot(tree, specs)
         self._thread = threading.Thread(target=self._write,
-                                        args=(step, host), daemon=True)
+                                        args=(step, host, strings),
+                                        daemon=True)
         self._thread.start()
 
     def wait(self) -> None:
@@ -206,7 +239,8 @@ class Checkpointer:
             self._thread.join()
             self._thread = None
 
-    def _write(self, step: int, host: list) -> None:
+    def _write(self, step: int, host: list,
+               specs: Optional[list] = None) -> None:
         final = self._step_dir(step)
         tmp = os.path.join(self.dir, f".tmp-{step:08d}-{os.getpid()}")
         os.makedirs(tmp, exist_ok=True)
@@ -217,7 +251,7 @@ class Checkpointer:
                  "shape": list(arr.shape)}
                 for i, (p, arr, dt) in enumerate(host)
             ],
-            "specs": None,
+            "specs": specs,
         }
         for i, (_, arr, dt) in enumerate(host):
             _save_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr, dt)
@@ -241,9 +275,11 @@ class Checkpointer:
     def restore(self, template: Pytree, *, step: Optional[int] = None,
                 mesh=None, shardings: Pytree = None) -> Pytree:
         """Restore into the structure of ``template``: each leaf by its
-        path, in the template leaf's dtype and on its device."""
-        if mesh is not None or shardings is not None:
-            raise _mesh_scope("restoring onto a mesh")
+        path, in the template leaf's dtype and on its device.
+        ``shardings``: an optional NamedSharding tree in the template's
+        structure, built for the current mesh; each leaf is cut to this
+        rank's tile of it (the elastic re-mesh).  ``mesh`` names that mesh
+        and is not read otherwise, as in the JAX package."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -267,4 +303,4 @@ class Checkpointer:
                                           e["dtype"])
             return loaded[path]
 
-        return _rebuild(template, "", get)
+        return _rebuild(template, "", get, shard=shardings)

@@ -1,5 +1,6 @@
-"""repro_torch.distributed — sharding rules, the hierarchical collectives
-plane (axis-role reduction, ring and Cannon plans, DESIGN.md §8), and the
+"""repro_torch.distributed — sharding rules, the parameters' partition
+rules (``partition``), the hierarchical collectives plane (axis-role
+reduction, ring and Cannon plans, DESIGN.md §8), ring attention, and the
 mesh-scoped numerics (counterpart of ``repro.distributed``).
 
 ``repro_torch.distributed.numerics`` is deliberately NOT imported here: it

@@ -17,9 +17,11 @@ schedule eagerly on every rank at once (SPMD over ``torch.distributed``):
 every rank holds Q, K and V whole, slices its own shard, meets the other
 ranks only through the plan's collectives, and ends with the output
 gathered whole over the ring, so the caller gets a plain tensor of the chip
-variant's shape and call sites never change.  The reference's ``lax.cond``
-on the ring index is a plain Python ``if`` on this rank's
-:meth:`RingPlan.ring_index`.
+variant's shape and call sites never change.  Under the mesh trainer
+(``distributed.sharding.sharded_rows``) each rank holds its own batch rows
+instead, and two all-to-alls stand for the gathers GSPMD inserts around
+the reference's ring.  The reference's ``lax.cond`` on the ring index is a
+plain Python ``if`` on this rank's :meth:`RingPlan.ring_index`.
 
 Causal masking is **zig-zag balanced**: :func:`zigzag_perm` deals each rank
 the half-blocks ``(s, 2W-1-s)``, so every rank owns one early and one late
@@ -34,13 +36,22 @@ pair:
 so a layer's ring prefill launches, per rank, 2 tiles-state kernels and W
 dense-grid state kernels.
 
+The backward (the reference differentiates its scan over
+``RingPlan.shift``) is a ``torch.autograd.Function`` in the global-lse
+form: the forward keeps this rank's shards, its output rows and their
+log-sum-exp over every key; the backward takes ``D = rowsum(dO o)`` once
+(``fa_bwd_delta``) and, per hop, ``fa_bwd_dkdv`` and ``fa_bwd_dq`` over the
+pieces the forward walked, each against the global lse, so the pieces'
+gradients add up exactly.  dQ accumulates locally in f32; dK and dV travel
+with their panel and come home after the last hop, one more rotation.  A
+zig-zag layer launches per rank one delta kernel and W + 2 of each of the
+other two; on host tensors the pieces take the plain backward.
+
 The variant registers as ``flash_attention``/``ring`` with
 ``scope='mesh'`` and degrades to the chip kernel as the reference's does:
 no ambient mesh, a 1-wide ring, or a length the ring does not divide all
 select the chip variant, and an explicit ``variant=`` still pins.  Rich
-``MaskSpec`` masks stay chip-scoped.  The port's state kernels have no
-backward through ``(m, l)``, so ring attention on tensors that require
-grad raises (ROADMAP queue 1 item 10b-ii).
+``MaskSpec`` masks stay chip-scoped.
 
 Decode (:func:`paged_ring_attention`, ``paged_attention``/``ring``)
 inverts the movement: the page pool stays pinned, striped over the ring
@@ -59,8 +70,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import registry
+from repro_torch.distributed import sharding
 from repro_torch.distributed.collectives import (RingPlan, ambient_ring_plan,
                                                  ring_plan)
+from repro_torch.kernels import _lib
+from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.serve.kvcache import shard_view
 
 __all__ = ["ring_attention", "paged_ring_attention", "zigzag_perm"]
@@ -110,16 +124,6 @@ def _merge(carry, upd):
             acc * a[..., None] + accu * b[..., None])
 
 
-def _concat(lo, hi):
-    """Concatenate two half-block states along the sequence axis."""
-    return tuple(torch.cat([a, b], dim=2) for a, b in zip(lo, hi))
-
-
-def _split(st, half: int):
-    return (tuple(x[:, :, :half] for x in st),
-            tuple(x[:, :, half:] for x in st))
-
-
 def _state_fn(plane: str, block_q, block_k):
     """Per-shard flash dispatch with the chip plane pinned."""
     def state(q, k, v, *, causal):
@@ -130,47 +134,185 @@ def _state_fn(plane: str, block_q, block_k):
     return state
 
 
-def _ring_run(plan: RingPlan, ql, kl, vl, *, causal: bool, zigzag: bool,
-              state) -> torch.Tensor:
-    """This rank's output rows: hop 0 on its own panel, then ``W - 1``
-    rotations, normalised at the end."""
-    W, r = plan.size, plan.ring_index()
-    half = ql.shape[2] // 2
+def _hop_pieces(h: int, r: int, n: int, *, causal: bool, zigzag: bool):
+    """The (q rows, visiting keys, causal) pieces rank ``r`` computes at
+    hop ``h``, as slices of its ``n`` rows and of the visiting panel's
+    ``n`` keys (the panel started on rank ``(r - h) mod W``; ``h <= r`` is
+    an earlier one).  The forward and the backward walk the same pieces."""
+    every, lo, hi = slice(0, n), slice(0, n // 2), slice(n // 2, n)
     if not causal:
-        st = state(ql, kl, vl, causal=False)
-    elif not zigzag:
-        st = state(ql, kl, vl, causal=True)
-    else:
-        q_lo, q_hi = ql[:, :, :half], ql[:, :, half:]
-        k_lo, k_hi = kl[:, :, :half], kl[:, :, half:]
-        v_lo, v_hi = vl[:, :, :half], vl[:, :, half:]
-        st_lo = state(q_lo, k_lo, v_lo, causal=True)
-        st_hi = _merge(state(q_hi, k_lo, v_lo, causal=False),
-                       state(q_hi, k_hi, v_hi, causal=True))
-        st = _concat(st_lo, st_hi)
+        return [(every, every, False)]
+    if not zigzag:
+        if h == 0:
+            return [(every, every, True)]
+        return [(every, every, False)] if h <= r else []
+    if h == 0:
+        return [(lo, lo, True), (hi, lo, False), (hi, hi, True)]
+    if h <= r:                      # k_lo visible to every row
+        return [(every, lo, False)]
+    return [(hi, every, False)]     # q_hi sees the whole panel
 
+
+def _merge_rows(carry, upd, rows: slice, n: int):
+    """``upd`` merged into rows ``rows`` of the (m, l, acc) carry of ``n``
+    rows; a fresh carry is empty (m = NEG_INF, l = 0), which the first
+    merge into a row replaces bit for bit."""
+    if carry is None:
+        m, l, acc = upd
+        shape = m.shape[:2] + (n,)
+        carry = (torch.full(shape, fa_k.NEG_INF, device=m.device),
+                 torch.zeros(shape, device=m.device),
+                 acc.new_zeros(shape + acc.shape[3:]))
+    part = _merge(tuple(x[:, :, rows] for x in carry), upd)
+    for x, y in zip(carry, part):
+        x[:, :, rows] = y
+    return carry
+
+
+def _ring_forward(plan: RingPlan, ql, kl, vl, *, causal: bool,
+                  zigzag: bool, state):
+    """This rank's output rows and their log-sum-exp over every key: hop 0
+    on its own panel, then ``W - 1`` rotations, normalised at the end."""
+    W, r, n = plan.size, plan.ring_index(), ql.shape[2]
+    carry = None
+    kv = torch.stack((kl, vl))          # K and V travel together
+    for h in range(W):
+        if h:
+            kv = plan.shift(kv)
+        for rows, keys, c in _hop_pieces(h, r, n, causal=causal,
+                                         zigzag=zigzag):
+            st = state(ql[:, :, rows], kv[0][:, :, keys], kv[1][:, :, keys],
+                       causal=c)
+            carry = _merge_rows(carry, st, rows, n)
+    m, l, acc = carry
+    o = (acc / l.clamp_min(1e-30)[..., None]).to(ql.dtype)
+    return o, fa_k.softmax_lse(m, l)
+
+
+def _piece_grads(q, k, v, o, do, lse, delta, *, causal: bool, block_q,
+                 block_k, kernels: bool):
+    """(dq, dk, dv) of one piece from the global ``lse`` and ``delta`` of
+    its rows: the backward kernels over the layout the piece's forward
+    walked (a causal half-block pair over ``causal_layout``, a full pair
+    over the all-live grid), or their plain version."""
+    from repro_torch.kernels.ops import _fa_blocks
+    from repro_torch.sparse.maskcompiler import causal_layout, grid_layout
+
+    lq, lk = q.shape[2], k.shape[2]
+    bq, bk = _fa_blocks(lq, lk, block_q, block_k)
+    layout = causal_layout(lq, lk, bq, bk) if causal \
+        else grid_layout(lq, lk, bq, bk, False)
+    scale = q.shape[3] ** -0.5
+    if not kernels:
+        return fa_k.flash_attention_tiles_bwd_plain(q, k, v, o, lse, do,
+                                                    layout, scale=scale)
+    q, k, v, do, lse, delta = (t.contiguous()
+                               for t in (q, k, v, do, lse, delta))
+    dk, dv = fa_k.fa_bwd_dkdv(q, k, v, do, lse, delta, layout, scale)
+    return fa_k.fa_bwd_dq(q, k, v, do, lse, delta, layout, scale), dk, dv
+
+
+def _ring_backward(plan: RingPlan, ql, kl, vl, o, lse, do, *, causal: bool,
+                   zigzag: bool, block_q, block_k, kernels: bool):
+    """dq, dk, dv of this rank's shards in the global-lse form: ``D =
+    rowsum(dO o)`` once, then per hop the pieces the forward walked, each
+    from the global ``lse``.  dQ accumulates here in f32; dK and dV (f32)
+    travel with their panel and come home after the last hop, one more
+    rotation (the transpose of the forward's)."""
+    W, r, n = plan.size, plan.ring_index(), ql.shape[2]
+    delta = fa_k.fa_bwd_delta(o, do) if kernels else None
+    dq = torch.zeros(ql.shape, dtype=torch.float32, device=ql.device)
     kv = torch.stack((kl, vl))
-    for h in range(1, W):
-        # K and V travel together: one rotation a hop
-        kv = plan.shift(kv)
-        kl, vl = kv[0], kv[1]
-        # the visiting panel started on rank j = (r - h) mod W; h <= r
-        # is j < r
-        if not causal:
-            st = _merge(st, state(ql, kl, vl, causal=False))
-        elif not zigzag:
-            if h <= r:              # earlier blocks are wholly visible
-                st = _merge(st, state(ql, kl, vl, causal=False))
-        elif h <= r:                # k_lo visible to every row
-            st = _merge(st, state(ql, kl[:, :, :half], vl[:, :, :half],
-                                  causal=False))
-        else:                       # q_hi sees the whole panel
-            lo, hi = _split(st, half)
-            hi = _merge(hi, state(ql[:, :, half:], kl, vl, causal=False))
-            st = _concat(lo, hi)
+    dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kv.device)
+    for h in range(W):
+        if h:
+            kv, dkv = plan.shift(kv), plan.shift(dkv)
+        for rows, keys, c in _hop_pieces(h, r, n, causal=causal,
+                                         zigzag=zigzag):
+            gq, gk, gv = _piece_grads(
+                ql[:, :, rows], kv[0][:, :, keys], kv[1][:, :, keys],
+                o[:, :, rows], do[:, :, rows], lse[:, :, rows],
+                None if delta is None else delta[:, :, rows], causal=c,
+                block_q=block_q, block_k=block_k, kernels=kernels)
+            dq[:, :, rows] += gq.float()
+            dkv[0][:, :, keys] += gk.float()
+            dkv[1][:, :, keys] += gv.float()
+    dkv = plan.shift(dkv)               # home: this rank's own panel
+    return dq.to(ql.dtype), dkv[0].to(kl.dtype), dkv[1].to(vl.dtype)
 
-    m, l, acc = st
-    return (acc / l.clamp_min(1e-30)[..., None]).to(ql.dtype)
+
+class _RingAttention(torch.autograd.Function):
+    """The ring over this rank's shards (q rows, its K/V panel), with the
+    backward of :func:`_ring_backward`; saves the shards, o and the global
+    lse."""
+
+    @staticmethod
+    def forward(ctx, ql, kl, vl, plan, causal, zigzag, plane, block_q,
+                block_k):
+        o, lse = _ring_forward(plan, ql, kl, vl, causal=causal,
+                               zigzag=zigzag,
+                               state=_state_fn(plane, block_q, block_k))
+        ctx.save_for_backward(ql, kl, vl, o, lse)
+        ctx.args = (plan, causal, zigzag, block_q, block_k,
+                    plane == "cuda" and not _lib.on_host(ql, kl, vl))
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        ql, kl, vl, o, lse = ctx.saved_tensors
+        plan, causal, zigzag, block_q, block_k, kernels = ctx.args
+        dq, dk, dv = _ring_backward(plan, ql, kl, vl, o, lse, do,
+                                    causal=causal, zigzag=zigzag,
+                                    block_q=block_q, block_k=block_k,
+                                    kernels=kernels)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The ring's tiled all-to-all; its transpose swaps the dims."""
+
+    @staticmethod
+    def forward(ctx, x, plan, split_dim, concat_dim):
+        ctx.args = (plan, split_dim, concat_dim)
+        return plan.all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, split_dim, concat_dim = ctx.args
+        return plan.all_to_all(g, concat_dim, split_dim), None, None, None
+
+
+class _OwnTile(torch.autograd.Function):
+    """This ring position's tile of ``dim`` of a tensor every rank holds
+    whole; its transpose all-gathers the tiles' gradients, so the whole
+    tensor's gradient is whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim):
+        ctx.args = (plan, dim)
+        n = x.shape[dim] // plan.size
+        return x.narrow(dim, plan.ring_index() * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, dim = ctx.args
+        return plan.all_gather(g.contiguous(), dim), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The ring's tiles of ``dim`` concatenated on every rank; its
+    transpose keeps this position's tile of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim):
+        ctx.args = (plan, dim)
+        return plan.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, dim = ctx.args
+        n = g.shape[dim] // plan.size
+        return g.narrow(dim, plan.ring_index() * n, n), None, None
 
 
 def ring_attention(q, k, v, *, causal: bool = True, mask=None, block_q=None,
@@ -181,9 +323,17 @@ def ring_attention(q, k, v, *, causal: bool = True, mask=None, block_q=None,
     causal: balanced masking) or 'contiguous' (default for full attention,
     which has no mask to balance).  ``block_q``/``block_k`` pin the
     per-shard kernel tiles, as on chip.  ``mask`` is honoured only when
-    trivially dense (it lowers to the causal flag).  Every rank of the
-    ring calls it with the same whole q, k and v and gets the whole
-    output."""
+    trivially dense (it lowers to the causal flag).
+
+    Outside :func:`~repro_torch.distributed.sharding.sharded_rows` every
+    rank of the ring calls it with the same whole q, k and v and gets the
+    whole output (and, differentiated, the whole gradients).  Inside it
+    (the mesh trainer), each rank holds its own rows of the batch, as the
+    reference's batch sharding over the same pod x data axes: one
+    all-to-all hands every rank all rows of its sequence shard (the
+    reference's gather of B before the ring), and one more hands each rank
+    back its own rows (the scatter after it); each is the other's
+    transpose in the backward."""
     if mask is not None:
         if not mask.trivial_dense:
             raise ValueError(
@@ -209,22 +359,30 @@ def ring_attention(q, k, v, *, causal: bool = True, mask=None, block_q=None,
         raise ValueError(
             f"sequence length {L} does not split into {need} "
             f"{'half-' if zigzag else ''}blocks for a ring of {W}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "ring attention has no backward: the port's state kernels do "
-            "not differentiate through (m, l) (ROADMAP queue 1 item "
-            "10b-ii); call it under torch.no_grad()")
+    rows = sharding.rows_plan()
+    if rows is not None and (rows.mesh is not plan.mesh
+                             or rows.batch_axes != plan.axes):
+        raise ValueError(
+            f"ring attention over {plan.axes} with the rows sharded over "
+            f"{rows.batch_axes} of another mesh: run the step under "
+            f"use_level on the trainer's mesh")
     plane = registry.resolve_backend(q, k, v)
-    n, r = L // W, plan.ring_index()
+    hq, hk = q.shape[1], k.shape[1]
+    qkv = torch.cat([q, k, v], dim=1)   # one collective for the three
     if zigzag:
         order_t, inv_t = _perm_index(L, W, q.device)
-        mine = order_t[r * n:(r + 1) * n]
-        ql, kl, vl = (t.index_select(2, mine) for t in (q, k, v))
+        qkv = qkv.index_select(2, order_t)
+    if rows is None:
+        mine = _OwnTile.apply(qkv, plan, 2)
     else:
-        ql, kl, vl = (t.narrow(2, r * n, n) for t in (q, k, v))
-    out = _ring_run(plan, ql, kl, vl, causal=causal, zigzag=zigzag,
-                    state=_state_fn(plane, block_q, block_k))
-    out = plan.all_gather(out, dim=2)
+        mine = _AllToAll.apply(qkv, plan, 2, 0)
+    ql, kl, vl = mine.split([hq, hk, hk], dim=1)
+    out = _RingAttention.apply(ql, kl, vl, plan, causal, zigzag, plane,
+                               block_q, block_k)
+    if rows is None:
+        out = _Gather.apply(out, plan, 2)
+    else:
+        out = _AllToAll.apply(out, plan, 0, 2)
     return out.index_select(2, inv_t) if zigzag else out
 
 

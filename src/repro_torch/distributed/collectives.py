@@ -34,13 +34,19 @@ mesh's device type, and never changed after a failure:
 
     nccl       the tensors' own device (one card per rank)
     gloo       host tensors, directly
-    gloo-host  CUDA tensors staged through host memory: copied out, reduced
-               by gloo, copied back (NCCL refuses two ranks on one card,
-               and gloo's own CUDA paths are not taken)
+    gloo-host  CUDA tensors staged through host memory: laid out on the
+               card, copied out into pinned buffers, reduced by gloo,
+               copied back (NCCL refuses two ranks on one card, and gloo's
+               own CUDA paths are not taken)
 
 :meth:`ReducePlan.transports` names the transport of each collective the
 plan runs.  Sums are deterministic: gloo's and NCCL's all-reduce leave
 the same bits on every rank, run to run.
+
+**Tracing.**  While :data:`repro_torch.obs.trace.TRACER` is on, each plan
+execution is a ``collectives.<kind>`` event, each low-level collective a
+``collective:<kind>`` span with its operand bytes and transport, and a
+gloo-host staging copy a ``collective:stage`` span inside it.
 """
 from __future__ import annotations
 
@@ -127,8 +133,11 @@ def mesh_groups(mesh) -> MeshGroups:
     names = tuple(mesh.mesh_dim_names)
     ranks = mesh.mesh                    # tensor of global ranks
     me = dist.get_rank()
-    axis = {n: mesh.get_group(n) for n in names}
-    coords = {n: mesh.get_local_rank(n) for n in names}
+    # a rank outside a mesh over the world's first ranks makes the groups
+    # with the others and has no place in them
+    member = me in ranks.flatten().tolist()
+    axis = {n: mesh.get_group(n) for n in names} if member else {}
+    coords = {n: mesh.get_local_rank(n) for n in names} if member else {}
     pair = {}
     for i, j in itertools.combinations(range(len(names)), 2):
         rest = [d for d in range(len(names)) if d not in (i, j)]
@@ -138,7 +147,7 @@ def mesh_groups(mesh) -> MeshGroups:
             g = dist.new_group(ranks=row)
             if me in row:
                 pair[(names[i], names[j])] = g
-    backend = str(dist.get_backend(axis[names[0]]))
+    backend = str(dist.get_backend(axis[names[0]] if member else None))
     out = MeshGroups(axis=axis, pair=pair, coords=coords,
                      transport=transport_of(backend, mesh.device_type))
     _GROUPS[id(mesh)] = (mesh, out)
@@ -154,53 +163,83 @@ def _dist():
     return dist
 
 
+def _span(kind: str, x: torch.Tensor, transport: str):
+    """A span over one low-level collective, named ``collective:<kind>``,
+    with its operand bytes and transport (the tracer's no-op while it is
+    off)."""
+    return obs_trace.TRACER.span(f"collective:{kind}", cat="collectives",
+                                 bytes=x.numel() * x.element_size(),
+                                 transport=transport)
+
+
 def _staged(transport: str, x: torch.Tensor):
-    """``(tensor to hand gloo or NCCL, device to return to)``."""
+    """``(tensor to hand gloo or NCCL, device to return to)``.  A CUDA
+    tensor that gloo-host stages is copied into pinned host memory (a DMA
+    at the link's rate; PyTorch's caching host allocator keeps the buffer
+    for the next call), under a ``collective:stage`` span: the copy waits
+    for the kernels queued before it."""
     if transport == "gloo-host" and x.device.type != "cpu":
-        return x.detach().to("cpu"), x.device
+        with obs_trace.TRACER.span("collective:stage", cat="collectives"):
+            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            h.copy_(x)
+        return h, x.device
     return x, None
 
 
+def _out(h: torch.Tensor, shape, device) -> torch.Tensor:
+    """A buffer for a collective's result on the device of ``h``, the
+    tensor handed to the transport: the card's for NCCL, pinned host
+    memory when staged."""
+    return torch.empty(shape, dtype=h.dtype, device=h.device,
+                       pin_memory=device is not None)
+
+
 def _back(out: torch.Tensor, device) -> torch.Tensor:
-    return out if device is None else out.to(device)
+    """The result on the caller's device; a staged copy back is queued on
+    the stream (the pinned buffer is not reused until it has run)."""
+    return out if device is None else out.to(device, non_blocking=True)
 
 
 def all_reduce(x: torch.Tensor, group, transport: str, op=None
                ) -> torch.Tensor:
     """A new tensor: ``x`` reduced (default: summed) over ``group``."""
     dist = _dist()
-    h, dev = _staged(transport, x)
-    out = h.clone()
-    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
-    return _back(out, dev)
+    with _span("all_reduce", x, transport):
+        h, dev = _staged(transport, x)
+        out = h if dev is not None else h.clone()    # staged: a copy
+        dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+        return _back(out, dev)
 
 
 def reduce_scatter(x: torch.Tensor, group, n: int, transport: str,
                    dim: int = 0) -> torch.Tensor:
     """Sum over ``group`` and keep this rank's ``1/n`` tile of ``dim``
-    (tiled, in group-rank order)."""
+    (tiled, in group-rank order), contiguous.  Layout moves run on ``x``'s
+    device."""
     dist = _dist()
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
-    h, dev = _staged(transport, x)
-    h = h.movedim(dim, 0).contiguous()
-    out = h.new_empty((h.shape[0] // n,) + tuple(h.shape[1:]))
-    fn(out, h, group=group)
-    return _back(out.movedim(0, dim), dev)
+    with _span("reduce_scatter", x, transport):
+        h, dev = _staged(transport, x.movedim(dim, 0).contiguous())
+        out = _out(h, (h.shape[0] // n,) + tuple(h.shape[1:]), dev)
+        fn(out, h, group=group)
+        return _back(out, dev).movedim(0, dim).contiguous()
 
 
 def all_gather(x: torch.Tensor, group, n: int, transport: str,
                dim: int = 0) -> torch.Tensor:
     """The ``n`` tiles of ``group`` concatenated along ``dim`` in
-    group-rank order."""
+    group-rank order, contiguous (a restored checkpoint's layout, so that
+    the products that read it take the same kernels).  Layout moves run on
+    ``x``'s device."""
     dist = _dist()
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    h, dev = _staged(transport, x)
-    h = h.movedim(dim, 0).contiguous()
-    out = h.new_empty((h.shape[0] * n,) + tuple(h.shape[1:]))
-    fn(out, h, group=group)
-    return _back(out.movedim(0, dim), dev)
+    with _span("all_gather", x, transport):
+        h, dev = _staged(transport, x.movedim(dim, 0).contiguous())
+        out = _out(h, (h.shape[0] * n,) + tuple(h.shape[1:]), dev)
+        fn(out, h, group=group)
+        return _back(out, dev).movedim(0, dim).contiguous()
 
 
 def all_to_all(x: torch.Tensor, group, n: int, transport: str,
@@ -208,30 +247,31 @@ def all_to_all(x: torch.Tensor, group, n: int, transport: str,
     """Tiled all-to-all: ``x`` cut into ``n`` tiles along ``split_dim``,
     tile ``j`` to group rank ``j``, the tiles received concatenated along
     ``concat_dim`` in group-rank order (``jax.lax.all_to_all(...,
-    tiled=True)``)."""
+    tiled=True)``).  Layout moves run on ``x``'s device."""
     dist = _dist()
-    h, dev = _staged(transport, x)
-    send = torch.stack(h.chunk(n, dim=split_dim)).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return _back(torch.cat(list(recv.unbind(0)), dim=concat_dim), dev)
+    with _span("all_to_all", x, transport):
+        h, dev = _staged(transport, torch.stack(x.chunk(n, dim=split_dim))
+                         .contiguous())
+        recv = _out(h, h.shape, dev)
+        dist.all_to_all_single(recv, h, group=group)
+        return torch.cat(list(_back(recv, dev).unbind(0)), dim=concat_dim)
 
 
 def rotate(x: torch.Tensor, group, n: int, transport: str) -> torch.Tensor:
     """Group rank ``i`` sends ``x`` to ``i + 1`` (mod n) and returns what
     ``i - 1`` sent (``batch_isend_irecv``)."""
     dist = _dist()
-    h, dev = _staged(transport, x)
-    h = h.contiguous()
-    me = dist.get_rank(group)
-    out = torch.empty_like(h)
-    ops = [dist.P2POp(dist.isend, h,
-                      dist.get_global_rank(group, (me + 1) % n)),
-           dist.P2POp(dist.irecv, out,
-                      dist.get_global_rank(group, (me - 1) % n))]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return _back(out, dev)
+    with _span("rotate", x, transport):
+        h, dev = _staged(transport, x.contiguous())
+        me = dist.get_rank(group)
+        out = _out(h, h.shape, dev)
+        ops = [dist.P2POp(dist.isend, h,
+                          dist.get_global_rank(group, (me + 1) % n)),
+               dist.P2POp(dist.irecv, out,
+                          dist.get_global_rank(group, (me - 1) % n))]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return _back(out, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +405,37 @@ class ReducePlan:
         sizes = tuple(self.topo.size(a) for a in self.batch_axes)
         return flat_index(self.batch_axes, sizes, self.groups.coords)
 
+    # -- ZeRO: one flat shard over every batch axis --------------------------
+
+    def zero_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Sum ``x`` over every batch axis and keep this rank's tile of
+        ``dim`` (tile :meth:`shard_index`, pod-major): the layout a dim of
+        ``zero1_specs`` sharded over ``(pod, data)`` takes.  One
+        reduce-scatter over the batch axes' group."""
+        _plan_event("zero_scatter", self.batch_axes, dim=dim,
+                    bytes=x.numel() * x.element_size())
+        g = self.groups
+        return reduce_scatter(x, g.group(self.batch_axes), self.width,
+                              g.transport, dim)
+
+    def zero_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The inverse of :meth:`zero_scatter`'s tiling: every rank's tile
+        concatenated along ``dim`` in pod-major order.  One all-gather over
+        the batch axes' group."""
+        _plan_event("zero_gather", self.batch_axes, dim=dim,
+                    bytes=x.numel() * x.element_size())
+        g = self.groups
+        return all_gather(x, g.group(self.batch_axes), self.width,
+                          g.transport, dim)
+
+    def psum_all(self, x: torch.Tensor, op=None) -> torch.Tensor:
+        """All-reduce over every batch axis at once (one collective over
+        their group; ``op`` default sum): the scalars of the mesh trainer
+        (token counts, the clip's squared norm, the loss)."""
+        _plan_event("psum_all", self.batch_axes)
+        g = self.groups
+        return all_reduce(x, g.group(self.batch_axes), g.transport, op)
+
 
 def reduce_plan(mesh, topo: Optional[MeshTopology] = None) -> ReducePlan:
     """Build the :class:`ReducePlan` for ``mesh`` from its axis roles.
@@ -466,6 +537,17 @@ class RingPlan:
         _plan_event("ring_all_gather", self.axes, size=self.size)
         return all_gather(x, self._group(), self.size,
                           mesh_groups(self.mesh).transport, dim)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """Tiled all-to-all over the ring: ``x`` cut into :attr:`size`
+        tiles along ``split_dim``, tile ``j`` to ring position ``j``, the
+        tiles received concatenated along ``concat_dim`` in ring order.
+        Its transpose swaps the two dims."""
+        _plan_event("ring_all_to_all", self.axes, size=self.size)
+        return all_to_all(x, self._group(), self.size,
+                          mesh_groups(self.mesh).transport, split_dim,
+                          concat_dim)
 
 
 def ring_plan(mesh, topo: Optional[MeshTopology] = None) -> RingPlan:

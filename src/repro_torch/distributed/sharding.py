@@ -15,12 +15,23 @@ DTensor's implicit redistribution:
 
     shard(x, sharding)   a full tensor every rank holds -> its DTensor
                          (each rank keeps its own slice; no communication)
+    local_slice(x, s)    the same slice as a plain tensor
     gather(x)            a DTensor -> the full tensor on every rank (an
                          all-gather per sharded mesh axis, inner first)
+
+Where GSPMD knows from the batch's sharding that each device holds its own
+rows, eager code must be told: inside :func:`sharded_rows` (the mesh
+trainer's step) the activations' batch dim is sharded over a plan's batch
+axes, each rank holding its own rows, and the ops that reach across rows
+read it (:func:`rows_plan`): ring attention moves rows and sequence
+shards between the ranks, the MoE layer's load-balancing statistics are
+global means.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import contextlib
+import threading
+from typing import Any, Iterator, Optional
 
 import torch
 
@@ -29,9 +40,33 @@ from repro_torch.core.sharding import NamedSharding, PartitionSpec as P
 from repro_torch.core.topology import LocalMesh
 
 __all__ = ["active_mesh", "batch_axes", "bspec", "constrain", "spec",
-           "named", "shard", "gather", "is_sharded", "MODEL"]
+           "named", "shard", "local_slice", "gather", "is_sharded",
+           "sharded_rows", "rows_plan", "MODEL"]
 
 MODEL = "model"
+
+_rows = threading.local()
+
+
+@contextlib.contextmanager
+def sharded_rows(plan) -> Iterator[Any]:
+    """Within the block the activations' batch dim is sharded over the
+    batch axes of ``plan`` (a :class:`~repro_torch.distributed.collectives.
+    ReducePlan`): each rank holds rows ``[i B / W, (i + 1) B / W)`` of the
+    global batch, ``i`` its :meth:`shard_index`.  Thread-local, like the
+    execution level (the remat recompute re-enters it on the autograd
+    engine's thread, ``models.transformer``)."""
+    prev = getattr(_rows, "plan", None)
+    _rows.plan = plan
+    try:
+        yield plan
+    finally:
+        _rows.plan = prev
+
+
+def rows_plan():
+    """The plan of the enclosing :func:`sharded_rows`, or None."""
+    return getattr(_rows, "plan", None)
 
 
 def active_mesh() -> Optional[Any]:
@@ -107,11 +142,9 @@ def _coord(mesh, axes: tuple[str, ...]) -> tuple[int, int]:
     return idx, n
 
 
-def shard(x: torch.Tensor, sharding: NamedSharding):
-    """The DTensor of a full tensor that every rank holds: each rank keeps
-    its own slice of every sharded dim (no communication)."""
-    from torch.distributed.tensor import DTensor
-
+def local_slice(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's slice of a full tensor that every rank holds: every dim
+    the sharding splits narrowed to this rank's tile (a view)."""
     loc = x
     for d in range(x.dim()):
         axes = sharding.axes_of(d)
@@ -119,6 +152,15 @@ def shard(x: torch.Tensor, sharding: NamedSharding):
             i, n = _coord(sharding.mesh, axes)
             step = x.shape[d] // n
             loc = loc.narrow(d, i * step, step)
+    return loc
+
+
+def shard(x: torch.Tensor, sharding: NamedSharding):
+    """The DTensor of a full tensor that every rank holds: each rank keeps
+    its own slice of every sharded dim (no communication)."""
+    from torch.distributed.tensor import DTensor
+
+    loc = local_slice(x, sharding)
     return DTensor.from_local(loc.contiguous(), sharding.mesh,
                               sharding.placements, run_check=False,
                               shape=x.shape, stride=x.contiguous().stride())

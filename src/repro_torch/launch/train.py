@@ -19,14 +19,27 @@ larger of the step's two peaks: the AdamW update's
 (:func:`update_peak_bytes`, :data:`UPDATE_PEAK_BYTES` a bf16 parameter)
 and the backward's start, where the gradients and moments sit beside a
 microbatch's activations (:func:`activation_bytes`, which grow with
-``--batch`` x ``--seq``).  The mesh
-(``Trainer(mesh=...)``, ZeRO-1 moment sharding) is the LM half of mesh
-scope (ROADMAP queue 1 item 10b-ii): ``mesh`` raises and the JAX Trainer's
-``zero1`` is not taken.  Step times read :func:`repro_torch.obs.trace.clock`.
+``--batch`` x ``--seq``).  Step times read
+:func:`repro_torch.obs.trace.clock`.
+
+``Trainer(cfg, mesh=make_mesh(data=W))`` trains at mesh scope over the
+data axes (pod x data), on a world the caller started: the parameters
+replicated, the AdamW moments sharded by ``zero1_specs`` (``zero1=False``
+keeps them whole), the step of ``train.step.make_mesh_train_step``; under
+``use_level(O3|O4)`` attention runs over the ring on the trainer's mesh.
+A mesh whose ``model`` axis is wider than 1 raises (the model axis's
+compute split is ROADMAP queue 1 item 10b-iii).  Its checkpoints hold the
+moments whole, written by rank 0 with the stacked partition specs, and a
+restore keeps each rank's tiles for the current mesh, which may differ
+from the saver's.  The counts take the data width and the ranks that
+share a card: moments and the update's transients divide by the width,
+and the card holds every rank's peak.  ``main`` has no mesh option, as
+the JAX package's has none.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 from typing import Optional
@@ -36,14 +49,24 @@ import torch
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import execlevel
 from repro_torch.core.containers import resolve_device
+from repro_torch.core.sharding import NamedSharding, PartitionSpec as P
+from repro_torch.core.topology import topology_of
 from repro_torch.data import ByteCorpus, SyntheticLM
+from repro_torch.distributed.collectives import reduce_plan
+from repro_torch.distributed.partition import (map_specs, param_specs,
+                                               zero1_specs)
 from repro_torch.models.lm import LM
 from repro_torch.obs.trace import clock
 from repro_torch.optim import adamw
+from repro_torch.optim.adamw import AdamState
 from repro_torch.optim.schedules import cosine, wsd
 from repro_torch.runtime import HeartbeatStore, Monitor
-from repro_torch.train import create, make_train_step
+from repro_torch.train import (TrainState, abstract_state, create,
+                               make_train_step)
+from repro_torch.train.step import (make_mesh_train_step, mesh_state,
+                                    moment_dims, whole_state)
 
 __all__ = ["reduce_config", "Trainer", "main", "update_peak_bytes",
            "activation_bytes", "train_peak_bytes"]
@@ -61,6 +84,11 @@ UPDATE_PEAK_BYTES = 26
 #: Bytes a bf16 parameter holds before the update: its own 2, an f32
 #: gradient and two f32 moments.
 GRAD_AND_MOMENT_BYTES = 14
+#: Of those counts, the gradient's bytes (whole on every rank until the
+#: mesh step reduce-scatters it), the two moments' and the update's
+#: transient copies': at mesh scope the last two divide by the data width.
+GRAD_BYTES, MOMENT_BYTES = 4, 8
+UPDATE_TRANSIENT_BYTES = UPDATE_PEAK_BYTES - 2 - GRAD_BYTES - MOMENT_BYTES
 #: Activation bytes a token holds at the backward's start, per entry of
 #: the (padded) vocabulary: the logits in bf16 (2), their f32 copy (4),
 #: the log-softmax (4), its f32 gradient (4) and the bf16 gradient (2).
@@ -77,13 +105,18 @@ LAYER_BYTES, LAYER_BYTES_NO_REMAT = 2, 16
 TRAIN_SLACK_BYTES = 5_000_000_000
 
 
-def update_peak_bytes(cfg: ModelConfig) -> int:
-    """The memory training ``cfg`` holds at the AdamW update's peak:
-    :data:`UPDATE_PEAK_BYTES` a bf16 parameter, the parameter's own bytes
-    beside the rest at another ``cfg.pdtype`` (activations are freed by
-    then)."""
+def update_peak_bytes(cfg: ModelConfig, *, data_width: int = 1,
+                      ranks_per_card: int = 1) -> int:
+    """The memory training ``cfg`` holds on a card at the AdamW update's
+    peak: :data:`UPDATE_PEAK_BYTES` a bf16 parameter, the parameter's own
+    bytes beside the rest at another ``cfg.pdtype`` (activations are freed
+    by then).  At mesh scope a rank holds its parameters and gradient whole
+    and ``1 / data_width`` of the moments and transients, and
+    ``ranks_per_card`` ranks share the card."""
     size = torch.empty((), dtype=cfg.pdtype).element_size()
-    return cfg.param_count() * (UPDATE_PEAK_BYTES - 2 + size)
+    per = size + GRAD_BYTES \
+        + (MOMENT_BYTES + UPDATE_TRANSIENT_BYTES) / data_width
+    return int(ranks_per_card * cfg.param_count() * per)
 
 
 def activation_bytes(cfg: ModelConfig, tokens: int) -> int:
@@ -96,16 +129,22 @@ def activation_bytes(cfg: ModelConfig, tokens: int) -> int:
                      + layer * cfg.num_layers * cfg.d_model)
 
 
-def train_peak_bytes(cfg: ModelConfig, tokens: int) -> int:
+def train_peak_bytes(cfg: ModelConfig, tokens: int, *, data_width: int = 1,
+                     ranks_per_card: int = 1) -> int:
     """The memory a training step of ``cfg`` on microbatches of ``tokens``
-    positions holds at its peak: the larger of the AdamW update's
-    (:func:`update_peak_bytes`) and the backward's start (the parameters,
-    gradients and moments, :data:`GRAD_AND_MOMENT_BYTES` a bf16 parameter,
-    beside :func:`activation_bytes`)."""
+    positions (a rank's, at mesh scope) holds on a card at its peak: the
+    larger of the AdamW update's (:func:`update_peak_bytes`) and the
+    backward's start (the parameters, gradients and moments,
+    :data:`GRAD_AND_MOMENT_BYTES` a bf16 parameter with the moments divided
+    by ``data_width``, beside :func:`activation_bytes`), times the
+    ``ranks_per_card`` ranks that share the card."""
     size = torch.empty((), dtype=cfg.pdtype).element_size()
-    backward = cfg.param_count() * (GRAD_AND_MOMENT_BYTES - 2 + size) \
+    backward = cfg.param_count() * (size + GRAD_BYTES
+                                    + MOMENT_BYTES / data_width) \
         + activation_bytes(cfg, tokens)
-    return max(update_peak_bytes(cfg), backward)
+    return max(update_peak_bytes(cfg, data_width=data_width,
+                                 ranks_per_card=ranks_per_card),
+               int(ranks_per_card * backward))
 
 
 def reduce_config(cfg: ModelConfig, scale: float, *,
@@ -162,62 +201,153 @@ class Trainer:
     """Owns state + step + checkpointing; the loop a launcher runs.  The
     schedule is WSD for minicpm configs and cosine otherwise, as in the
     JAX package.  The state lives on ``device`` (the card unless the
-    caller names another)."""
+    caller names another).  With ``mesh`` (module docstring) every rank of
+    the world constructs it; ``heartbeats`` (default an in-process store)
+    is where ``fit`` posts each step, a ``FileHeartbeatStore`` shared by
+    the ranks letting one rank's :attr:`monitor` see them all."""
 
     def __init__(self, cfg: ModelConfig, *, mesh=None, microbatches: int = 1,
                  ckpt_dir: Optional[str] = None, save_every: int = 50,
-                 lr: float = 3e-4, total_steps: int = 1000, seed: int = 0,
-                 device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) shards the state over a mesh: the LM half "
-                "of mesh scope, not ported yet (ROADMAP queue 1 item 10b-ii)")
+                 lr: float = 3e-4, total_steps: int = 1000,
+                 zero1: bool = True, seed: int = 0, device=None,
+                 heartbeats: Optional[HeartbeatStore] = None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.plan = _data_plan(mesh)
         self.device = resolve_device(device)
         self.lm = LM(cfg)
         sched = wsd(lr, total_steps) if cfg.name.startswith("minicpm") \
             else cosine(lr, total_steps)
         self.opt = adamw(sched)
-        self.step_fn = make_train_step(self.lm, self.opt,
-                                       microbatches=microbatches)
         self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
         self.save_every = save_every
-        self.heartbeats = HeartbeatStore()
+        self.heartbeats = heartbeats if heartbeats is not None \
+            else HeartbeatStore()
         self.monitor = Monitor(self.heartbeats)
-        self.state = create(self.lm, self.opt, seed, device=self.device)
+        if self.plan is None:
+            self.step_fn = make_train_step(self.lm, self.opt,
+                                           microbatches=microbatches)
+            self.state = create(self.lm, self.opt, seed, device=self.device)
+        else:
+            a = abstract_state(self.lm, self.opt)
+            self.param_specs = param_specs(a.params)
+            self.moment_specs = zero1_specs(a.params, mesh) if zero1 \
+                else self.param_specs
+            self.dims = moment_dims(self.moment_specs, a.params, self.plan)
+            self.step_fn = make_mesh_train_step(
+                self.lm, self.opt, self.plan, self.dims,
+                microbatches=microbatches)
+            self.state = mesh_state(self.lm.init(seed, device=self.device),
+                                    self.opt, self.plan, self.dims)
         if self.ckpt and self.ckpt.latest_step() is not None:
-            self.state = self.ckpt.restore(self.state)
-            print(f"resumed from step {int(self.state.step)}")
+            if self.plan is None:
+                self.state = self.ckpt.restore(self.state)
+            else:
+                self.state = self.ckpt.restore(
+                    self.state, mesh=mesh, shardings=self.shardings())
+            self._say(f"resumed from step {int(self.state.step)}")
+
+    # -- mesh scope -----------------------------------------------------------
+
+    def _say(self, text: str) -> None:
+        if self.plan is None or self.plan.shard_index() == 0:
+            print(text)
+
+    def shardings(self) -> TrainState:
+        """The state's NamedSharding tree on the trainer's mesh (a rank
+        keeps its tiles of the moments)."""
+        def named(spec):
+            return NamedSharding(self.mesh, spec)
+        rep = named(P())
+        p = map_specs(named, self.param_specs)
+        m = map_specs(named, self.moment_specs)
+        return TrainState(step=rep, params=p,
+                          opt_state=AdamState(count=rep, mu=m, nu=m))
+
+    def checkpoint_specs(self) -> TrainState:
+        """The state's specs as the checkpointer writes them: the stacked
+        ones (``stacked=True``), whose strings are the reference's."""
+        a = abstract_state(self.lm, self.opt)
+        p = param_specs(a.params, stacked=True)
+        m = zero1_specs(a.params, self.mesh, stacked=True) \
+            if self.moment_specs is not self.param_specs else p
+        return TrainState(step=P(), params=p,
+                          opt_state=AdamState(count=P(), mu=m, nu=m))
+
+    def save(self, step: int) -> None:
+        """Checkpoint the state: at mesh scope the moments gathered whole
+        (every rank takes part) and rank 0 writes with the stacked specs,
+        the others waiting until it has."""
+        if self.plan is None:
+            self.ckpt.save(step, self.state)
+            return
+        whole = whole_state(self.state, self.plan, self.dims)
+        if self.plan.shard_index() == 0:
+            self.ckpt.save(step, whole, specs=self.checkpoint_specs())
+        self.plan.psum_all(torch.zeros(1, device=self.device))  # a barrier
 
     def fit(self, data, steps: int, *, log_every: int = 10,
-            worker: int = 0) -> dict:
+            worker: Optional[int] = None) -> dict:
         """Steps from the state's step up to ``steps``.  The history holds,
         every ``log_every`` steps and at the first, the step, its loss and
         grad norm, and the seconds since ``fit`` began (host clock, read
-        after the loss, which waits for the step to finish)."""
+        after the loss, which waits for the step to finish).  Heartbeats go
+        out as ``worker`` (default: this rank's index over the data axes at
+        mesh scope, else 0).  At mesh scope under ``use_level(O3|O4)`` the
+        steps run at that level on the trainer's mesh, so that attention
+        runs over its ring."""
+        if worker is None:
+            worker = 0 if self.plan is None else self.plan.shard_index()
+        ctx = execlevel.current()
+        level = execlevel.use_level(ctx.level, self.mesh) \
+            if self.plan is not None and ctx.level >= execlevel.ExecLevel.O3 \
+            else contextlib.nullcontext()
         history = []
         start = int(self.state.step)
         t0 = clock()
-        for i in range(start, steps):
-            batch = {k: torch.as_tensor(v, device=self.device)
-                     for k, v in data.batch(i).items()}
-            self.state, metrics = self.step_fn(self.state, batch)
-            self.heartbeats.post(worker, i)
-            if (i + 1) % log_every == 0 or i == start:
-                loss = float(metrics["loss"])
-                dt = clock() - t0
-                print(f"step {i+1:5d} loss {loss:.4f} "
-                      f"({dt/(i-start+1):.2f}s/step)")
-                history.append({"step": i + 1, "loss": loss,
-                                "grad_norm": float(metrics["grad_norm"]),
-                                "time_s": dt})
-            if self.ckpt and (i + 1) % self.save_every == 0:
-                self.ckpt.save_async(i + 1, self.state)
+        with level:
+            for i in range(start, steps):
+                batch = data.batch(i)
+                if self.plan is None:
+                    batch = {k: torch.as_tensor(v, device=self.device)
+                             for k, v in batch.items()}
+                self.state, metrics = self.step_fn(self.state, batch)
+                self.heartbeats.post(worker, i)
+                if (i + 1) % log_every == 0 or i == start:
+                    loss = float(metrics["loss"])
+                    dt = clock() - t0
+                    self._say(f"step {i+1:5d} loss {loss:.4f} "
+                              f"({dt/(i-start+1):.2f}s/step)")
+                    history.append({"step": i + 1, "loss": loss,
+                                    "grad_norm": float(metrics["grad_norm"]),
+                                    "time_s": dt})
+                if self.ckpt and (i + 1) % self.save_every == 0:
+                    if self.plan is None:
+                        self.ckpt.save_async(i + 1, self.state)
+                    else:
+                        self.save(i + 1)
         if self.ckpt:
             self.ckpt.wait()
-            self.ckpt.save(steps, self.state)
+            self.save(steps)
         return {"history": history,
                 "final_loss": history[-1]["loss"] if history else None}
+
+
+def _data_plan(mesh):
+    """The mesh's ReducePlan over its data axes, None without a mesh or
+    where they are one rank wide (the chip step then runs); a model axis
+    wider than 1 raises."""
+    if mesh is None:
+        return None
+    topo = topology_of(mesh)
+    if topo.extent("model") > 1:
+        raise NotImplementedError(
+            f"Trainer(mesh=...) on {topo.describe()}: the model axis's "
+            f"compute split (Megatron products, expert parallelism) is not "
+            f"ported yet (ROADMAP queue 1 item 10b-iii); train over the data "
+            f"axes with a model axis of 1")
+    plan = reduce_plan(mesh, topo)
+    return plan if plan.width > 1 else None
 
 
 def main(argv=None) -> int:

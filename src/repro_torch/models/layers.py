@@ -30,10 +30,13 @@ DRAW_WHOLE_ELEMENTS = 1 << 30
 def dense_init(gen: torch.Generator, shape, scale: float | None = None,
                dtype=torch.float32, device=None) -> torch.Tensor:
     """Truncated-normal (+-2 sigma) fan-in init, drawn in f32 from ``gen``
-    on ``device`` (the generator's device), then cast to ``dtype``."""
+    on ``device`` (the generator's device), then cast to ``dtype``.  On the
+    ``meta`` device nothing is drawn: an empty tensor of the shape."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
     dev = device or gen.device
+    if torch.device(dev).type == "meta":        # shapes only (abstract_state)
+        return torch.empty(shape, dtype=dtype, device=dev)
 
     def draw(s):
         w = torch.empty(s, dtype=torch.float32, device=dev)

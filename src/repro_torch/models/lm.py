@@ -88,6 +88,13 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll) / n, n
 
 
+class MetaGenerator:
+    """The generator :meth:`LM.init` hands the layers' initialisers on the
+    ``meta`` device (``torch.Generator`` has no meta device): it names the
+    device; ``dense_init`` draws nothing there."""
+    device = torch.device("meta")
+
+
 @dataclasses.dataclass(frozen=True)
 class LM:
     cfg: ModelConfig
@@ -103,11 +110,17 @@ class LM:
     # ------------------------------------------------------------------
     def init(self, seed: int = 0, *, device=None) -> Params:
         """Random weights from a ``torch.Generator`` seeded with ``seed``,
-        made on ``device`` (the card unless the caller names another)."""
+        made on ``device`` (the card unless the caller names another); on
+        ``meta``, tensors of the weights' shapes and dtypes, nothing drawn
+        or allocated."""
         self._check_family()
         cfg = self.cfg
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(seed)
+        dev = resolve_device(device)
+        if dev.type == "meta":          # shapes and dtypes only, no draws
+            gen = MetaGenerator()
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         p: Params = {
             "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
                                 scale=cfg.d_model ** -0.5, dtype=cfg.pdtype),

@@ -21,9 +21,15 @@ The dispatch is the JAX package's, step for step:
 
 Every tensor op is a gather, a scatter without accumulation or a sort: no
 atomics, so two runs on the card give the same bits.  Only the dustbin row
-may receive more than one token.  ``groups`` is 1 at chip scope (the JAX
-package's default without a mesh); a mesh's data-parallel groups are the LM
-half of mesh scope (ROADMAP queue 1 item 10b-ii).
+may receive more than one token.  ``groups`` is 1 by default (the JAX
+package's default without a mesh).  At mesh scope the JAX package takes as
+many groups as the data width, each group one data shard's tokens with its
+own capacity; the port's mesh trainer gives each rank its own rows
+(``distributed.sharding.sharded_rows``), so a rank's one group is the
+reference's group of that shard.  The load-balancing loss there is a
+product of global means: inside ``sharded_rows`` the expert load is
+averaged over the ranks (an all-reduce, no gradient), and the importance
+stays this rank's, which the trainer's sum over the ranks makes global.
 
 Aux losses: the load-balancing loss ``sum(load * importance) * E`` and the
 router z-loss ``mean(logsumexp(logits) ** 2)``, returned for the caller to
@@ -37,6 +43,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import dense_init
 
 Params = dict[str, Any]
@@ -119,6 +126,9 @@ def moe_apply(x: torch.Tensor, p: Params, cfg, *,
     assign = torch.zeros((G, t, E), dtype=torch.int64,
                          device=x.device).scatter_(2, gate_i, 1)  # (G, t, E)
     load = assign.float().mean(dim=(0, 1)) / k
+    rows = sharding.rows_plan()
+    if rows is not None and rows.width > 1:    # the global mean over ranks
+        load = rows.psum_all(load) / rows.width
     importance = probs.mean(dim=(0, 1))
     aux_lb = torch.sum(load * importance) * E
     aux_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)

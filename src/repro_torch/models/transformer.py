@@ -19,7 +19,8 @@ import contextlib
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.core import registry
+from repro_torch.core import execlevel, registry
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -149,13 +150,24 @@ def stack_apply(x, layers: list[Params], block_fn: Callable, cfg, *,
 
 def _recompute_on_this_plane():
     """checkpoint's (forward, recompute) contexts: the recompute runs under
-    the plane requested now.  ``use_backend`` is thread-local, and the
-    autograd engine runs a CUDA backward (and so the recompute) on a
-    thread of its own, where the request would otherwise be lost."""
+    the plane requested now, at the execution level and on the mesh of now,
+    and with the rows sharded as now.  ``use_backend``, ``use_level`` and
+    ``sharded_rows`` are thread-local, and the autograd engine runs a CUDA
+    backward (and so the recompute) on a thread of its own, where they
+    would otherwise be lost."""
     plane = registry.requested_backend()
-    return (contextlib.nullcontext(),
-            registry.use_backend(plane) if plane is not None
-            else contextlib.nullcontext())
+    level = execlevel.current()
+    rows = sharding.rows_plan()
+
+    @contextlib.contextmanager
+    def recompute():
+        with contextlib.ExitStack() as stack:
+            if plane is not None:
+                stack.enter_context(registry.use_backend(plane))
+            stack.enter_context(execlevel.use_level(level.level, level.mesh))
+            stack.enter_context(sharding.sharded_rows(rows))
+            yield
+    return contextlib.nullcontext(), recompute()
 
 
 def stack_init(gen: torch.Generator, cfg, block_init: Callable,

@@ -70,10 +70,13 @@ def adamw(schedule: Callable, *, b1: float = 0.9, b2: float = 0.95,
                                            device=device),
                          mu=tree_map(z, params), nu=tree_map(z, params))
 
-    def update(grads, state: AdamState, params):
+    def update(grads, state: AdamState, params, *, grad_norm=None):
+        """``grad_norm``, when given, is the clip's norm (the mesh trainer's
+        global norm over every rank's gradient slices) in place of
+        ``global_norm(grads)``."""
         scale = None
         if clip is not None:
-            gn = global_norm(grads)
+            gn = global_norm(grads) if grad_norm is None else grad_norm
             scale = torch.clamp(clip / torch.clamp(gn, min=1e-12), max=1.0)
 
         count = state.count + 1

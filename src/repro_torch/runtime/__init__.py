@@ -1,10 +1,12 @@
-"""repro_torch.runtime — fault tolerance for the training loop
-(counterpart of ``repro.runtime``; the elastic re-mesh is mesh scope)."""
+"""repro_torch.runtime — fault tolerance and the elastic re-mesh for the
+training loop (counterpart of ``repro.runtime``)."""
+from repro_torch.runtime.elastic import ElasticPlan, replan
 from repro_torch.runtime.fault_tolerance import (FileHeartbeatStore,
                                                  Heartbeat, HeartbeatStore,
                                                  Monitor,
                                                  TrainingSupervisor,
                                                  WorkerState)
 
-__all__ = ["WorkerState", "Heartbeat", "HeartbeatStore",
-           "FileHeartbeatStore", "Monitor", "TrainingSupervisor"]
+__all__ = ["ElasticPlan", "replan", "WorkerState", "Heartbeat",
+           "HeartbeatStore", "FileHeartbeatStore", "Monitor",
+           "TrainingSupervisor"]

@@ -2,9 +2,10 @@
 (counterpart of ``repro.train.state``).
 
 A NamedTuple of trees, as in the JAX package, so that the checkpointer
-writes it under the JAX package's leaf paths.  ``abstract_state`` (the
-JAX package's ``jax.eval_shape`` of :func:`create`) serves its dry-run and
-mesh shardings, mesh scope here, and is not ported.
+writes it under the JAX package's leaf paths.  :func:`abstract_state` is
+the JAX package's ``jax.eval_shape`` of :func:`create`: the same tree on
+the ``meta`` device, shapes and dtypes with no storage, which the mesh
+trainer's partition specs and the tests read.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from repro_torch.core.containers import resolve_device
 
 Pytree = Any
 
-__all__ = ["TrainState", "create"]
+__all__ = ["TrainState", "create", "abstract_state"]
 
 
 class TrainState(NamedTuple):
@@ -32,3 +33,9 @@ def create(lm, opt, seed: int = 0, *, device=None) -> TrainState:
     params = lm.init(seed, device=dev)
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       params=params, opt_state=opt.init(params))
+
+
+def abstract_state(lm, opt) -> TrainState:
+    """The state's tree of ``meta`` tensors: every leaf's shape and dtype,
+    no allocation (arctic-480b's 480 B parameters included)."""
+    return create(lm, opt, device="meta")

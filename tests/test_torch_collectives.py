@@ -125,6 +125,95 @@ def test_transport_by_backend_and_device():
     assert tcoll.transport_of("gloo", "cpu") == "gloo"
 
 
+class _StubDist:
+    """``torch.distributed`` as the low-level collectives call it, for one
+    rank: each call records the devices of the buffers it is handed."""
+
+    class ReduceOp:
+        SUM, MAX = "sum", "max"
+
+    class P2POp:
+        def __init__(self, fn, tensor, peer):
+            self.fn, self.tensor = fn, tensor
+
+    class _Req:
+        def wait(self):
+            return True
+
+    def __init__(self):
+        self.devices = []
+
+    def _seen(self, *tensors):
+        self.devices.append(tuple(t.device for t in tensors))
+
+    def all_reduce(self, out, op=None, group=None):
+        self._seen(out)
+
+    def reduce_scatter_tensor(self, out, x, group=None):
+        self._seen(out, x)
+
+    def all_gather_into_tensor(self, out, x, group=None):
+        self._seen(out, x)
+
+    def all_to_all_single(self, out, x, group=None):
+        self._seen(out, x)
+
+    def get_rank(self, group=None):
+        return 0
+
+    def get_global_rank(self, group, r):
+        return r
+
+    def isend(self):
+        pass
+
+    def irecv(self):
+        pass
+
+    def batch_isend_irecv(self, ops):
+        self._seen(*(op.tensor for op in ops))
+        return [self._Req() for _ in ops]
+
+
+COLLECTIVE_CALLS = {
+    "all_reduce": lambda x, t: tcoll.all_reduce(x, None, t),
+    "reduce_scatter": lambda x, t: tcoll.reduce_scatter(x, None, 2, t, 1),
+    "all_gather": lambda x, t: tcoll.all_gather(x, None, 2, t, 1),
+    "all_to_all": lambda x, t: tcoll.all_to_all(x, None, 2, t, 0, 1),
+    "rotate": lambda x, t: tcoll.rotate(x, None, 2, t)}
+
+
+@pytest.mark.parametrize("transport,device", [("nccl", "meta"),
+                                              ("gloo", "cpu")])
+@pytest.mark.parametrize("kind", sorted(COLLECTIVE_CALLS))
+def test_result_buffers_stay_on_the_tensors_device(monkeypatch, kind,
+                                                   transport, device):
+    """Unstaged (NCCL on the card, gloo on the host) every buffer a
+    collective hands the transport lies on the input's device, and so
+    does its result (``meta`` stands in for the card); while the tracer
+    is on, the call is one ``collective:<kind>`` span with its operand
+    bytes and transport."""
+    import torch
+
+    from repro_torch.obs import trace as obs_trace
+
+    stub = _StubDist()
+    monkeypatch.setattr(tcoll, "_dist", lambda: stub)
+    x = torch.empty((4, 6), dtype=torch.bfloat16, device=device)
+    tracer = obs_trace.TRACER
+    tracer.clear()
+    with tracer.tracing():
+        out = COLLECTIVE_CALLS[kind](x, transport)
+    assert out.device == x.device
+    assert stub.devices and all(d == x.device for call in stub.devices
+                                for d in call), stub.devices
+    spans = [e for e in tracer.events() if e["ph"] == "X"
+             and e["name"].startswith("collective:")]
+    tracer.clear()
+    assert [(e["name"], e["args"]["bytes"], e["args"]["transport"])
+            for e in spans] == [(f"collective:{kind}", 48, transport)]
+
+
 # ---------------------------------------------------------------------------
 # execution on a 4-rank gloo world
 # ---------------------------------------------------------------------------
