@@ -107,6 +107,39 @@
       checkpoint at O2 on one rank with replan's 4 microbatches, losses
       within 1e-5.  (l4) compressed_psum over pod at O4 within one int8
       step a participant of the exact sum.  Not scaling numbers.
+   m. The model axis's compute split (after l, in its world; one spawn
+      for j, k, l and m): (m1) qwen3-1.7b's MLP and attention blocks at
+      full width (d 2048, ff 6144, 16/8 heads of 128; B 4, L 512) in bf16
+      and f32, forward and backward, split over (data 2, model 2) at O3
+      (the data ring at 8/4 heads) and over (model 4) (the chip kernels
+      at 4/2 heads), each against the O2 block on the rank's rows: the
+      output, the input's and every parameter's gradient (the shards'
+      gathered) within the JAX suites' f32 tolerance and phase l's ring
+      bar in bf16, the all-reduce bytes a rank equal to the count
+      reckoned from distributed/model_split.py's pairs, the attention
+      launches a rank as reckoned at the local heads; the tiles, dense
+      grid and lens kernels at 4/2 heads and the backward kernels at
+      (m2)'s ring shard shapes at 8/4 against their plain versions.  (m2)
+      qwen3-1.7b at full width cut to 4 layers through
+      Trainer(mesh=make_mesh(data=2, model=2)) at O3, 3 steps of 4 x 1024
+      tokens of the learnable pattern, against the O2 Trainer on rank 0:
+      losses falling and within 2e-2 of O2's, the ranks at one model
+      coordinate the same parameter bits after each step, parameter bytes
+      a rank as reckoned from the specs, moment bytes beside O2's, step
+      times, peak memory, collective bytes and host seconds by kind from
+      the spans; in f32 at 2 layers the gradients within 1e-4 of O2's and
+      3 losses within 1e-5 relative.  (m3) qwen3-moe-30b-a3b at full width
+      cut to 2 layers, 64 experts a rank, one step at (data 2, model 2):
+      the loss within 2e-2 and aux_lb within 1e-3 of O2's at the mesh's
+      dispatch groups.  (m4) qwen3-1.7b whole through the Engine at O3 on
+      (model 4), 4 prompts of 512, 32 new, greedy, in bf16, and in f32 at
+      2 layers: the prefill's last logits within (a)'s bound of O2's
+      (a-f32's in f32), tokens equal to O2's or the rows parting where
+      O2's top-2 margin is 1e-3 or less in f32 and within that logit
+      bound in bf16,
+      tiles launches a rank one a layer and no lens launch (the fixed
+      Engine's decode attends by einsum), the KV cache a rank a quarter
+      of O2's, every rank the same tokens.  Not scaling numbers.
    c. Serving qwen3-1.7b at full width (28 layers, bf16, seeded random
       weights): Engine.generate on 4 prompts of 512 tokens, 32 new tokens,
       greedy (the prefill runs the tiles kernel), and ContinuousEngine.serve
@@ -3893,11 +3926,14 @@ def ring_bwd_launches(W: int, zigzag: bool) -> dict:
             "fa_bwd_delta": 1, "fa_bwd_dkdv": pieces, "fa_bwd_dq": pieces}
 
 
-def hold_ring_backward_kernels(torch, device: str, cfg, ring: int) -> list:
+def hold_ring_backward_kernels(torch, device: str, cfg, ring: int, *,
+                               seq: int = MESH_TRAIN_SEQ,
+                               batch: int = MESH_TRAIN_BATCH) -> list:
     """Phase 2l's backward kernels against flash_attention_tiles_bwd_plain
     at the shapes (l2)'s ring gives them per shard (:func:`ring_shard_calls`
-    of MESH_TRAIN_SEQ tokens, all MESH_TRAIN_BATCH rows: each rank's sequence
-    shard of the whole batch), in bf16, on the layout each piece walks (a
+    of ``seq`` tokens, all ``batch`` rows: each rank's sequence shard of
+    the whole batch; phase 2m passes its own, and ``cfg`` at its local
+    heads), in bf16, on the layout each piece walks (a
     causal half-block pair over ``causal_layout``, a full one over the
     all-live grid), from the plain forward's o and lse.  Held at
     :func:`bwd_tol`; returns (what, max |grad - plain| over the plain's
@@ -3918,8 +3954,8 @@ def hold_ring_backward_kernels(torch, device: str, cfg, ring: int) -> list:
             np.float32), device=device).to(dtype)
 
     rows = []
-    B = MESH_TRAIN_BATCH
-    for lq, lk, causal in ring_shard_calls(MESH_TRAIN_SEQ, ring):
+    B = batch
+    for lq, lk, causal in ring_shard_calls(seq, ring):
         q, k, v = randn(B, hq, lq, d), randn(B, hk, lk, d), randn(B, hk, lk,
                                                                   d)
         do = randn(B, hq, lq, d)
@@ -3935,7 +3971,8 @@ def hold_ring_backward_kernels(torch, device: str, cfg, ring: int) -> list:
                                   d ** -0.5)
         dq = fa_k.fa_bwd_dq(q, k, v, do, lse, delta, layout, d ** -0.5)
         torch.cuda.synchronize()
-        what = f"(l1) shard {'causal' if causal else 'full'} {lq}x{lk}"
+        what = f"(l1) shard {'causal' if causal else 'full'} {lq}x{lk}" \
+            f" {hq}/{hk} heads"
         torch.testing.assert_close(
             delta, (do.float() * o.float()).sum(-1), rtol=1e-5, atol=1e-5,
             msg=lambda msg: f"{what}: delta: {msg}")
@@ -4432,16 +4469,720 @@ def report_train_mesh_path(mt: dict, card: str) -> None:
         + f"; a rank's set-up {mt['setup_s']:.2f} s")
 
 
+# -- phase 2m: the model axis's compute split --------------------------------
+
+#: (m1): the blocks' rows, B x L of ATTN_SHAPE; the bf16 bar is phase 2l's
+#: ring bar with one piece a model rank (each rank's partial product is
+#: rounded to bf16 once before the all-reduce adds them).
+MA_BLOCK_MESHES = (("data2 model2", 2, 2), ("model4", 1, 4))
+#: (m2): qwen3-1.7b at full width cut to MA_TRAIN_LAYERS layers through
+#: Trainer(mesh=make_mesh(data=2, model=2)) at O3, MA_TRAIN_STEPS steps of
+#: MA_TRAIN_BATCH x MA_TRAIN_SEQ tokens; its f32 checks at
+#: MESH_CHECK_LAYERS layers on MA_TRAIN_BATCH x MA_CHECK_SEQ tokens.
+MA_TRAIN_LAYERS, MA_TRAIN_STEPS = 4, 3
+MA_TRAIN_BATCH, MA_TRAIN_SEQ, MA_CHECK_SEQ = 4, 1024, 512
+#: (m3): qwen3-moe-30b-a3b at full width cut to MA_MOE_LAYERS layers, one
+#: step of MA_TRAIN_BATCH x MA_MOE_SEQ tokens; aux_lb within MA_AUX_TOL of
+#: O2's.
+MA_MOE_LAYERS, MA_MOE_SEQ, MA_AUX_TOL = 2, 512, 1e-3
+#: (m4): qwen3-1.7b whole through the Engine at O3 on (model 4): FIXED_BATCH
+#: prompts of FIXED_PROMPT tokens, FIXED_NEW new, greedy.
+MA_ENGINE_MODEL = 4
+#: Seconds phase 2m may take on a rank.
+MODEL_AXIS_TIMEOUT_S = 300
+
+
+def model_axis_tol(torch, dtype, pieces: int) -> tuple[float, float]:
+    """(m1)'s bars, relative and (times the O2 tensor's largest entry, at
+    least 1) absolute: f32, :func:`bwd_tol` (the JAX suites' 1e-5); bf16,
+    :func:`ring_bwd_tol` with ``pieces`` partial products."""
+    if dtype == torch.float32:
+        return bwd_tol(torch, dtype)
+    return ring_bwd_tol(torch, dtype, pieces)
+
+
+def model_axis_block_bytes(block: str, rows: int, L: int, cfg, elem: int
+                           ) -> int:
+    """The all-reduce bytes a rank of (m1)'s forward and backward of one
+    block, reckoned from ``distributed/model_split.py``'s pairs: the row
+    product's ``out_of`` and the input's ``into`` (rows x L x d each); the
+    attention block adds the lane floor's replicated ``wk`` and ``wv``
+    (d x kv heads x hd each) and qk_norm's two scales (hd each), whose
+    gradients ``into`` sums."""
+    act = 2 * rows * L * cfg.d_model
+    if block == "attn":
+        act += 2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim \
+            + 2 * cfg.head_dim
+    return act * elem
+
+
+def hold_local_head_kernels(torch, device: str, cfg, model: int) -> list:
+    """Kernels 8-10 against their plain versions at the local heads of a
+    model axis of ``model`` ranks (qwen3-1.7b's 16/8 heads: 4/2 at 4):
+    the tiles kernel at (m4)'s prefill shape (FIXED_BATCH x FIXED_PROMPT,
+    causal), the lens kernel at its decode (one query a row against
+    FIXED_PROMPT + FIXED_NEW cache slots, kv_len FIXED_PROMPT + 1), and the
+    dense grid at the same prefill shape, full; in bf16, each at
+    :func:`attn_tol`.  Returns (what, max |kernel - plain|) rows; none on
+    host tensors (a rehearsal)."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.sparse.maskcompiler import causal_layout
+
+    if device != "cuda":
+        return []
+    dtype = torch.bfloat16
+    rtol, atol = attn_tol(torch, dtype)
+    hq, hk, d = cfg.num_heads // model, cfg.num_kv_heads // model, \
+        cfg.head_dim
+    B, L, S = FIXED_BATCH, FIXED_PROMPT, FIXED_PROMPT + FIXED_NEW
+    rng = np.random.default_rng(43)
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=device).to(dtype)
+
+    rows = []
+    q, k, v = randn(B, hq, L, d), randn(B, hk, L, d), randn(B, hk, L, d)
+    layout = causal_layout(L, L, 128, 128)
+    cases = [(f"tiles {hq}/{hk} heads {L}x{L} causal",
+              fa_k.flash_attention_tiles(q, k, v, layout),
+              fa_k.flash_attention_tiles_plain(q, k, v, layout)),
+             (f"dense grid {hq}/{hk} heads {L}x{L} full",
+              fa_k.flash_attention(q, k, v, causal=False),
+              fa_k.flash_attention_plain(q, k, v, causal=False))]
+    q1, kc, vc = randn(B, hq, 1, d), randn(B, hk, S, d), randn(B, hk, S, d)
+    kv_len = torch.full((B,), L + 1, dtype=torch.int32, device=device)
+    cases.append((f"lens {hq}/{hk} heads 1x{S} kv_len {L + 1}",
+                  fa_k.flash_attention_lens(q1, kc, vc, kv_len=kv_len),
+                  fa_k.flash_attention_plain(q1, kc, vc, causal=False,
+                                             kv_len=kv_len)))
+    torch.cuda.synchronize()
+    for what, got, want in cases:
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol,
+                                   msg=lambda m: f"(m1) {what}: {m}")
+        rows.append((what, float((got.float() - want.float()).abs().max())))
+    return rows
+
+
+def model_axis_rank(rank: int, world: int, device: str, tmp: str) -> dict:
+    """One rank of phase 2m.  (m1) qwen3-1.7b's MLP and attention blocks
+    at full width, bf16 and f32, forward and backward, split over
+    (data 2, model 2) at O3 (the data ring at 8/4 heads) and over (model
+    4) (the chip kernels at 4/2 heads), against the O2 block on this
+    rank's rows: outputs and every gradient, the all-reduce bytes against
+    :func:`model_axis_block_bytes`, the attention launches against the
+    count at the local heads; kernels 8-13 against their plain versions at
+    the local heads.  (m2) qwen3-1.7b at MA_TRAIN_LAYERS layers through
+    ``Trainer(mesh=make_mesh(data=2, model=2))`` at O3, step by step (the
+    parameter bits digested, the collectives' spans read), against the O2
+    Trainer on rank 0; in f32 at MESH_CHECK_LAYERS layers the gradients and
+    MA_TRAIN_STEPS losses.  (m3) qwen3-moe-30b-a3b at MA_MOE_LAYERS layers,
+    64 experts a rank, one step and its loss and aux_lb against O2 on rank
+    0 (O2's dispatch groups the mesh's data shards, as the reference's
+    under its mesh).  (m4) qwen3-1.7b whole through the Engine at O3 on
+    (model 4) in bf16, and at MESH_CHECK_LAYERS layers in f32, against the
+    O2 Engine on rank 0.
+    Returns the rows, the launches and the digests."""
+    import torch
+
+    t_start = time.perf_counter()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        gc.collect()
+        torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecLevel, use_level
+    from repro_torch.distributed import model_split as ms
+    from repro_torch.distributed.collectives import reduce_plan
+    from repro_torch.distributed.partition import model_dims, param_specs
+    from repro_torch.distributed.sharding import sharded_rows
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer, rank_param_count
+    from repro_torch.models.attention import attention_apply, attention_init
+    from repro_torch.models.layers import mlp, mlp_init
+    from repro_torch.models.lm import LM
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.serve import Engine, SamplingParams
+    from repro_torch.train.step import (model_shard, mesh_loss,
+                                        shard_batch, value_and_grad)
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    wrappers = {"flash_attention": fa_k.flash_attention,
+                "flash_attention_lens": fa_k.flash_attention_lens,
+                "flash_attention_tiles": fa_k.flash_attention_tiles}
+    bwd = {k: getattr(fa_k, k) for k in BWD_KERNELS}
+
+    def reset():
+        reset_attention_counts(wrappers)
+        for w in bwd.values():
+            w.launches = 0
+
+    def counts():
+        n = read_attention_counts(wrappers)
+        n.update({k: w.launches for k, w in bwd.items()})
+        return n
+
+    O3 = ExecLevel.O3
+    meshes = {key: make_mesh(data=dw, model=mw, device_type=device)
+              for key, dw, mw in MA_BLOCK_MESHES}
+    out = {"rows": [], "holds": [], "digests": {}, "seconds": {},
+           "setup_s": time.perf_counter() - t_start}
+    cfg = get_config(ARCH)
+
+    # -- (m1) the blocks ---------------------------------------------------
+    t = time.perf_counter()
+    B, _, _, L, d = ATTN_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        cfgd = dataclasses.replace(cfg, dtype=dname, param_dtype=dname)
+        gen = torch.Generator(device=device).manual_seed(41)
+        blocks = {"attn": attention_init(gen, cfgd),
+                  "mlp": mlp_init(gen, cfgd.d_model, cfgd.d_ff, dtype)}
+        mdims = model_dims(param_specs({"layers": [blocks]}))["layers"][0]
+        rng = np.random.default_rng(47)
+        x, dy = (torch.as_tensor(rng.standard_normal(
+            (B, L, cfgd.d_model)).astype(np.float32), device=device).to(
+                dtype) for _ in range(2))
+        for key, mesh in meshes.items():
+            plan = reduce_plan(mesh)
+            split = ms.split_of(mesh, held=True)
+            n = B // plan.width
+            i = plan.shard_index() if plan.width > 1 else 0
+            rows, drows = x[i * n:(i + 1) * n], dy[i * n:(i + 1) * n]
+            cos, sin = LM(cfgd)._rope_tables(n, L, device)
+            fns = {"mlp": lambda h, p: mlp(h, p, cfgd.mlp_kind),
+                   "attn": lambda h, p: attention_apply(h, p, cfgd, cos,
+                                                        sin)}
+            for block in ("mlp", "attn"):
+                whole = blocks[block]
+                names = [p_ for p_, _ in tree_paths(whole)]
+                mds = []                # each leaf's model-split dim
+                tree_map(lambda x_, m_: mds.append(m_), whole,
+                         mdims[block])
+
+                def leaves_of(params):
+                    """(x, the leaves) as fresh autograd leaves, and the
+                    block's parameters over them."""
+                    got = [rows.clone().requires_grad_(True)] + [
+                        x_.detach().requires_grad_(True)
+                        for x_ in tree_leaves(params)]
+                    it = iter(got[1:])
+                    return got, tree_map(lambda _: next(it), params)
+                o2_in, o2_p = leaves_of(whole)
+                y2 = fns[block](o2_in[0], o2_p)
+                want = [y2.detach()] + list(torch.autograd.grad(
+                    y2, o2_in, drows))
+                mine, mine_p = leaves_of(tree_map(
+                    lambda p_, m_: model_shard(p_, m_, split), whole,
+                    mdims[block]))
+                reset()
+                sync()
+                TRACER.clear()
+                TRACER.enable()
+                t0 = time.perf_counter()
+                try:
+                    with use_level(O3, mesh), sharded_rows(plan), \
+                            ms.splitting(split):
+                        y = fns[block](mine[0], mine_p)
+                        grads = torch.autograd.grad(y, mine, drows)
+                    sync()
+                    ms_ = (time.perf_counter() - t0) * 1e3
+                finally:
+                    TRACER.disable()
+                tally = collective_tally(TRACER)
+                TRACER.clear()
+                have_n = counts()
+                got = [y.detach(), grads[0]] + [
+                    g if m_ is None else split.all_gather(g, m_)
+                    for m_, g in zip(mds, grads[1:])]
+                what = f"(m1) {block} {dname} on {key}"
+                rtol, atol = model_axis_tol(torch, dtype, split.size)
+                errs = []
+                for name, g, w in zip(["y", "dx"] + names, got, want):
+                    scale = max(1.0, float(w.float().abs().max()))
+                    torch.testing.assert_close(
+                        g.float(), w.float(), rtol=rtol, atol=atol * scale,
+                        msg=lambda m_: f"{what}: {name}: {m_}")
+                    errs.append(float((g.float() - w.float()).abs().max())
+                                / scale)
+                elem = torch.empty((), dtype=dtype).element_size()
+                reckoned = model_axis_block_bytes(block, n, L, cfgd, elem)
+                ar = tally["bytes"].get("all_reduce", 0)
+                if ar != reckoned:
+                    raise AssertionError(f"{what}: all-reduce bytes {ar}, "
+                                         f"reckoned {reckoned}")
+                if block == "attn":
+                    W = plan.width
+                    # one data rank: the chip's causal tiles walk, its
+                    # forward the state variant (the backward reads lse)
+                    want_n = ring_bwd_launches(W, True) if W > 1 else {
+                        "tiles_state": 1, "fa_bwd_delta": 1,
+                        "fa_bwd_dkdv": 1, "fa_bwd_dq": 1}
+                    have = {k_: have_n[k_] for k_ in want_n}
+                    if on_card and have != want_n:
+                        raise AssertionError(f"{what}: launches {have}, "
+                                             f"reckoned {want_n}")
+                else:
+                    have = {}
+                out["rows"].append(("m1", f"{block} {dname} {key}",
+                                    max(errs), ms_, tally["bytes"], have))
+        del blocks, x, dy
+    local = dataclasses.replace(cfg, num_heads=cfg.num_heads // 2,
+                                num_kv_heads=cfg.num_kv_heads // 2)
+    out["holds"] = hold_local_head_kernels(torch, device, cfg,
+                                           MA_ENGINE_MODEL) \
+        + hold_ring_backward_kernels(torch, device, local, 2,
+                                     seq=MA_TRAIN_SEQ, batch=MA_TRAIN_BATCH)
+    free()
+    out["seconds"]["m1"] = time.perf_counter() - t
+
+    # -- (m2) qwen3-1.7b, Trainer(mesh=make_mesh(data=2, model=2)) at O3 ----
+    t = time.perf_counter()
+    mesh = meshes["data2 model2"]
+    plan = reduce_plan(mesh)
+    split = ms.split_of(mesh, held=True)
+    cfgn = dataclasses.replace(cfg, num_layers=MA_TRAIN_LAYERS)
+    data = learnable_data(MA_TRAIN_BATCH, MA_TRAIN_SEQ)
+    res = {"layers": MA_TRAIN_LAYERS,
+           "reckoned_param_bytes": 2 * rank_param_count(cfgn, split.size),
+           "o2_param_bytes": 2 * sum(x.numel() for x in tree_leaves(
+               LM(cfgn).init(device="meta")))}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        with use_level(O3, mesh):
+            trainer = Trainer(cfgn, mesh=mesh, lr=TRAIN_LR,
+                              total_steps=MA_TRAIN_STEPS, device=device)
+            res["param_bytes"] = sum(x.numel() * x.element_size() for x in
+                                     tree_leaves(trainer.state.params))
+            res["moment_bytes"] = sum(
+                x.numel() * x.element_size() for x in tree_leaves(
+                    (trainer.state.opt_state.mu, trainer.state.opt_state.nu)))
+            losses, steps_s, digests, tallies = [], [], [], []
+            reset()
+            for i in range(MA_TRAIN_STEPS):
+                sync()
+                TRACER.clear()
+                TRACER.enable()
+                t0 = time.perf_counter()
+                h = trainer.fit(data, i + 1, log_every=1)["history"]
+                sync()
+                steps_s.append(time.perf_counter() - t0)
+                TRACER.disable()
+                tallies.append(collective_tally(TRACER))
+                losses.append(h[-1]["loss"])
+                digests.append(bits_digest(torch, trainer.state.params))
+            res["launches"] = counts()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card \
+            else 0.0
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    res["losses"], res["step_s"], res["collectives"] = losses, steps_s, \
+        tallies
+    res["model_index"] = split.index
+    out["digests"]["m2 params by step"] = str(digests)
+    per = ring_bwd_launches(plan.width, True)
+    want = {k_: MA_TRAIN_STEPS * MA_TRAIN_LAYERS * n_ * (2 if k_ in (
+        "tiles_state", "flash_attention") else 1) for k_, n_ in per.items()}
+    have = {k_: res["launches"][k_] for k_ in want}
+    if on_card and have != want:
+        raise AssertionError(f"(m2) launches over {MA_TRAIN_STEPS} steps "
+                             f"{have}, reckoned {want}")
+    if res["param_bytes"] != res["reckoned_param_bytes"]:
+        raise AssertionError(f"(m2) parameter bytes a rank "
+                             f"{res['param_bytes']}, reckoned from the specs "
+                             f"{res['reckoned_param_bytes']}")
+    del trainer
+    free()
+    dist.barrier()
+    if rank == 0:                       # the O2 Trainer, same depth and data
+        o2 = Trainer(cfgn, lr=TRAIN_LR, total_steps=MA_TRAIN_STEPS,
+                     device=device)
+        res["o2_moment_bytes"] = sum(
+            x.numel() * x.element_size() for x in tree_leaves(
+                (o2.state.opt_state.mu, o2.state.opt_state.nu)))
+        res["o2_losses"], res["o2_step_s"] = [], []
+        for i in range(MA_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            h = o2.fit(data, i + 1, log_every=1)["history"]
+            sync()
+            res["o2_step_s"].append(time.perf_counter() - t0)
+            res["o2_losses"].append(h[-1]["loss"])
+        del o2
+        free()
+        res["max_loss_diff"] = max(abs(a - b) for a, b in
+                                   zip(res["losses"], res["o2_losses"]))
+        if not all(np.isfinite(res["losses"])) or \
+                not res["losses"][-1] < res["losses"][0] or \
+                res["max_loss_diff"] > MESH_BF16_LOSS_TOL:
+            raise AssertionError(f"(m2) bf16 losses {res['losses']}, O2's "
+                                 f"{res['o2_losses']}")
+    dist.barrier()
+
+    # f32 at 2 layers: the gradients gathered whole, then the losses of
+    # MA_TRAIN_STEPS steps
+    cfg32 = dataclasses.replace(cfg, num_layers=MESH_CHECK_LAYERS,
+                                dtype="float32", param_dtype="float32")
+    lm32 = LM(cfg32)
+    data32 = learnable_data(MA_TRAIN_BATCH, MA_CHECK_SEQ)
+    params = lm32.init(0, device=device)
+    batch = data32.batch(0)
+    mdims = model_dims(param_specs(params))
+    shards = tree_map(lambda p, m: model_shard(p, m, split), params, mdims)
+    with use_level(O3, mesh), sharded_rows(plan), ms.splitting(split):
+        _, g = value_and_grad(mesh_loss(lm32.loss, plan), shards,
+                              shard_batch(mesh, batch))
+    g = tree_map(lambda x, m: x if m is None else split.all_gather(x, m),
+                 tree_map(plan.psum_all, g), mdims)
+    del shards
+    if rank == 0:
+        _, g2 = value_and_grad(lm32.loss, params, {
+            k_: torch.as_tensor(v_, device=device) for k_, v_ in
+            batch.items()})
+        rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(tree_leaves(g), tree_leaves(g2))]
+        res["grad_rel"] = max(rel)
+        if res["grad_rel"] > MESH_GRAD_REL_TOL:
+            raise AssertionError(f"(m2) f32 gradients: max |mesh - O2| / "
+                                 f"max |O2| {res['grad_rel']}")
+        del g2
+    del g, params
+    with use_level(O3, mesh):
+        tr = Trainer(cfg32, mesh=mesh, lr=TRAIN_LR,
+                     total_steps=MA_TRAIN_STEPS, device=device)
+        res["f32_losses"] = [h["loss"] for h in tr.fit(
+            data32, MA_TRAIN_STEPS, log_every=1)["history"]]
+    del tr
+    if rank == 0:
+        o2 = Trainer(cfg32, lr=TRAIN_LR, total_steps=MA_TRAIN_STEPS,
+                     device=device)
+        res["f32_o2_losses"] = [h["loss"] for h in o2.fit(
+            data32, MA_TRAIN_STEPS, log_every=1)["history"]]
+        del o2
+        res["f32_loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+            res["f32_losses"], res["f32_o2_losses"]))
+        if res["f32_loss_rel"] > MESH_F32_LOSS_RTOL:
+            raise AssertionError(f"(m2) f32 losses {res['f32_losses']}, "
+                                 f"O2's {res['f32_o2_losses']}")
+    free()
+    out["m2"] = res
+    out["seconds"]["m2"] = time.perf_counter() - t
+
+    # -- (m3) qwen3-moe-30b-a3b, 64 experts a rank ---------------------------
+    t = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mcfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MA_MOE_LAYERS)
+    mdata = learnable_data(MA_TRAIN_BATCH, MA_MOE_SEQ)
+    mbatch = mdata.batch(0)
+    m3 = {"experts_a_rank": mcfg.num_experts // split.size}
+    mlm = LM(mcfg)
+    with use_level(O3, mesh):
+        tr = Trainer(mcfg, mesh=mesh, lr=TRAIN_LR, total_steps=1,
+                     device=device)
+        free()                  # the whole parameters each rank drew
+        with sharded_rows(plan), ms.splitting(split), torch.no_grad():
+            _, metrics = mesh_loss(mlm.loss, plan)(
+                tr.state.params, shard_batch(mesh, mbatch))
+        m3["aux_lb"] = float(plan.psum_all(
+            metrics["aux_lb"].reshape(1))[0] / plan.width)
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        m3["loss"] = tr.fit(mdata, 1, log_every=1)["history"][0]["loss"]
+        sync()
+        m3["step_s"] = time.perf_counter() - t0
+        m3["launches"] = counts()
+        m3["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if on_card else 0.0
+    # the step's launches as (m2)'s, one step of MA_MOE_LAYERS layers
+    want = {k_: MA_MOE_LAYERS * n_ * (2 if k_ in (
+        "tiles_state", "flash_attention") else 1) for k_, n_ in per.items()}
+    have = {k_: m3["launches"][k_] for k_ in want}
+    if on_card and have != want:
+        raise AssertionError(f"(m3) launches of the step {have}, reckoned "
+                             f"{want}")
+    del tr
+    free()
+    dist.barrier()
+    if rank == 0:
+        # O2 on the whole batch, its dispatch groups the mesh's data shards
+        # (the reference's groups under its mesh: moe_apply's ``groups``)
+        import functools
+
+        from repro_torch.models import moe as moe_mod
+
+        real = moe_mod.moe_apply
+        moe_mod.moe_apply = functools.partial(real, groups=plan.width)
+        try:
+            with torch.no_grad():
+                loss, metrics = mlm.loss(mlm.init(0, device=device), {
+                    k_: torch.as_tensor(v_, device=device) for k_, v_ in
+                    mbatch.items()})
+        finally:
+            moe_mod.moe_apply = real
+        m3["o2_loss"], m3["o2_aux_lb"] = float(loss), \
+            float(metrics["aux_lb"])
+        del loss, metrics
+        free()
+        if not abs(m3["loss"] - m3["o2_loss"]) <= MESH_BF16_LOSS_TOL or \
+                not abs(m3["aux_lb"] - m3["o2_aux_lb"]) <= MA_AUX_TOL:
+            raise AssertionError(f"(m3) loss {m3['loss']} against O2's "
+                                 f"{m3['o2_loss']}, aux_lb {m3['aux_lb']} "
+                                 f"against {m3['o2_aux_lb']}")
+    dist.barrier()
+    out["m3"] = m3
+    out["seconds"]["m3"] = time.perf_counter() - t
+
+    # -- (m4) qwen3-1.7b whole through the Engine at O3 on (model 4) ---------
+    # in bf16 (the serve path's dtype), and in f32 at MESH_CHECK_LAYERS
+    # layers, where the split's other summation order moves the logits by
+    # ulps of f32 instead of bf16 (2c's (b) at the same depth)
+    t = time.perf_counter()
+    mesh4 = meshes["model4"]
+    prompts = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (FIXED_BATCH, FIXED_PROMPT)).astype(np.int32),
+        device=device)
+    greedy = SamplingParams(greedy=True)
+    max_len = FIXED_PROMPT + FIXED_NEW
+    m4 = {}
+    for dname in ("bfloat16", "float32"):
+        cfgd = dataclasses.replace(cfg, dtype=dname, param_dtype=dname)
+        if dname == "float32":
+            cfgd = dataclasses.replace(cfgd, num_layers=MESH_CHECK_LAYERS)
+        lm = LM(cfgd)
+        params = lm.init(0, device=device)
+        with use_level(O3, mesh4):
+            eng = Engine(lm, params, max_len=max_len, sampling=greedy)
+        with use_level(O3, mesh4), ms.splitting(eng.split):
+            logits, cache = lm.prefill(params, prompts, max_len=max_len)
+            kv_heads = ms.heads(cfgd)[1]    # this rank's (4 / 2 at model 4)
+        r = {"cache_bytes": sum(cache[k_].numel() * cache[k_].element_size()
+                                for k_ in ("k", "v")),
+             "model": eng.split.size, "kv_heads": kv_heads,
+             "layers": cfgd.num_layers}
+        del cache
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=FIXED_NEW)
+        sync()
+        r["generate_s"] = time.perf_counter() - t0
+        r["launches"] = counts()
+        out["digests"][f"m4 tokens {dname}"] = str(
+            toks.cpu().numpy().tolist())
+        want_n = {"tiles": cfgd.num_layers, "lens_decode": 0,
+                  "lens_prefix": 0}
+        have = {k_: r["launches"][k_] for k_ in want_n}
+        if on_card and have != want_n:
+            raise AssertionError(f"(m4) {dname} launches a rank {have}, "
+                                 f"reckoned {want_n} (one prefill at 4/2 "
+                                 f"heads; decode attends by einsum)")
+        dist.barrier()
+        if rank == 0:
+            o2 = Engine(lm, params, max_len=max_len, sampling=greedy)
+            logits2, cache2 = lm.prefill(params, prompts, max_len=max_len)
+            r["o2_cache_bytes"] = sum(cache2[k_].numel()
+                                      * cache2[k_].element_size()
+                                      for k_ in ("k", "v"))
+            del cache2
+            t0 = time.perf_counter()
+            toks2 = o2.generate(prompts, max_new_tokens=FIXED_NEW)
+            sync()
+            r["o2_generate_s"] = time.perf_counter() - t0
+            scale = float(logits2.float().abs().max())
+            r["logit_diff"] = float((logits.float()
+                                     - logits2.float()).abs().max())
+            r["logit_scale"] = scale
+            # (a)'s bound in bf16 (8 ulps of the scale), (a-f32)'s in f32
+            bound = (8 * 2.0 ** -8 if dname == "bfloat16" else 1e-3) * scale
+            if not r["logit_diff"] <= bound:
+                raise AssertionError(f"(m4) {dname} prefill logits: max |O3"
+                                     f" - O2| {r['logit_diff']} above "
+                                     f"{bound}")
+            r["token_agree"] = float((toks == toks2).float().mean())
+            if not torch.equal(toks, toks2):
+                # a differing token sits at a near-tie of the O2 run's
+                # logits where the rows part: in f32 a top-2 margin of
+                # 1e-3 or less (2c's (b)); in bf16 one within the bound the
+                # two runs' logits differ by
+                r["margins"] = first_split_margins(torch, lm, params,
+                                                   prompts, toks, toks2)
+                bar = bound if dname == "bfloat16" else 1e-3
+                if max(r["margins"]) > bar:
+                    raise AssertionError(f"(m4) {dname} tokens differ from "
+                                         f"O2's at top-2 margins "
+                                         f"{r['margins']}, above {bar}")
+            if r["cache_bytes"] * cfg.num_kv_heads != \
+                    r["o2_cache_bytes"] * kv_heads:
+                raise AssertionError(f"(m4) KV cache a rank "
+                                     f"{r['cache_bytes']} at {kv_heads} kv "
+                                     f"heads, O2's {r['o2_cache_bytes']}")
+            del o2
+        del params, eng, logits
+        free()
+        dist.barrier()
+        m4[dname] = r
+    out["m4"] = m4
+    out["seconds"]["m4"] = time.perf_counter() - t
+    return out
+
+
+def first_split_margins(torch, lm, params, prompts, toks, toks2) -> list:
+    """For each row whose tokens differ from O2's: the O2 run's top-2
+    logit margin at the first differing step, from a teacher-forced
+    prefill of the prompt and O2's tokens before it."""
+    out = []
+    for r in range(toks.shape[0]):
+        diff = (toks[r] != toks2[r]).nonzero()
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        seq = torch.cat([prompts[r], toks2[r, :j]])[None]
+        logits, _ = lm.prefill(params, seq)
+        top = torch.topk(logits[0].float(), 2).values
+        out.append(float(top[0] - top[1]))
+    return out
+
+
+def model_axis_results(ranks: list) -> dict:
+    """Phase 2m's results: :func:`model_axis_rank` 's on every rank; the
+    ranks at the same model coordinate the same parameter bits after each
+    of (m2)'s steps, every rank the same (m4) tokens, the launches summed
+    over the ranks."""
+    out = {"rank0": ranks[0]}
+    by_coord: dict = {}
+    for r, res in enumerate(ranks):
+        by_coord.setdefault(res["m2"]["model_index"], []).append(r)
+        for key in ("m4 tokens bfloat16", "m4 tokens float32"):
+            if res["digests"][key] != ranks[0]["digests"][key]:
+                raise AssertionError(f"phase 2m: rank {r}'s {key} differ "
+                                     f"from rank 0's")
+    for coord, rs in by_coord.items():
+        for r in rs[1:]:
+            if ranks[r]["digests"]["m2 params by step"] != \
+                    ranks[rs[0]]["digests"]["m2 params by step"]:
+                raise AssertionError(f"phase 2m: ranks {rs[0]} and {r} (model "
+                                     f"coordinate {coord}) hold other "
+                                     f"parameter bits after (m2)'s steps")
+    out["model_groups"] = by_coord
+    m1 = [n for r in ranks for _, label, _, _, _, n in r["rows"]
+          if label.startswith("attn")]
+    trained = [r[m]["launches"] for r in ranks for m in ("m2", "m3")]
+    out["launches"] = {
+        "flash_attention": sum(n["flash_attention"] for n in trained)
+        + sum(n.get("flash_attention", 0) for n in m1),
+        "flash_attention_tiles": sum(n["tiles_state"] for n in trained)
+        + sum(m4["launches"]["tiles"] for r in ranks
+              for m4 in r["m4"].values())
+        + sum(n.get("tiles_state", 0) + n.get("tiles", 0) for n in m1),
+        **{k: sum(n[k] for n in trained) + sum(n.get(k, 0) for n in m1)
+           for k in BWD_KERNELS}}
+    out["ranks"] = [{"step_s": r["m2"]["step_s"], "peak_gb":
+                     r["m2"]["peak_gb"], "collectives":
+                     r["m2"]["collectives"]} for r in ranks]
+    out["setup_s"] = max(r["setup_s"] for r in ranks)
+    out["seconds"] = {k: max(r["seconds"][k] for r in ranks)
+                      for k in ranks[0]["seconds"]}
+    return out
+
+
+def report_model_axis_path(ma: dict, card: str) -> None:
+    """Log phase 2m's rows and checks (:func:`model_axis_results`)."""
+    r0 = ma["rank0"]
+    for _, label, err, ms_, nbytes, n in r0["rows"]:
+        log(f"  (m1) {label}: max |split - O2| / max(1, max |O2|) over y, "
+            f"dx and every gradient {err:.3g}, {ms_:.2f} ms forward and "
+            f"backward on rank 0, collective bytes {nbytes} (all-reduce as "
+            f"reckoned)" + (f", launches {n} (as reckoned)" if n else ""))
+    for what, err in r0["holds"]:
+        log(f"  (m1) {what}: against the plain version, max |diff| "
+            f"{err:.3g}")
+    m2, m3, m4 = r0["m2"], r0["m3"], r0["m4"]
+    log(f"  (m2) {ARCH} at full width, {m2['layers']} layers, Trainer(mesh="
+        f"make_mesh(data=2, model=2)) at O3, {MA_TRAIN_STEPS} steps of "
+        f"{MA_TRAIN_BATCH} x {MA_TRAIN_SEQ} tokens: losses {m2['losses']} "
+        f"against O2's {m2['o2_losses']} (max |diff| "
+        f"{m2['max_loss_diff']:.4g}, bar {MESH_BF16_LOSS_TOL}); parameters "
+        f"{m2['param_bytes'] / 1e9:.4f} GB a rank (reckoned "
+        f"{m2['reckoned_param_bytes'] / 1e9:.4f}) against O2's "
+        f"{m2['o2_param_bytes'] / 1e9:.4f}, moments "
+        f"{m2['moment_bytes'] / 1e9:.4f} GB against "
+        f"{m2['o2_moment_bytes'] / 1e9:.4f}; ranks "
+        f"{ma['model_groups']} (by model coordinate) the same bits after "
+        f"each step")
+    for r, rk in enumerate(ma["ranks"]):
+        later = rk["collectives"][1:]
+        coll_s = sum(sum(c["seconds"].values()) for c in later)
+        step_s = sum(rk["step_s"][1:])
+        log(f"  (m2) rank {r}: step seconds "
+            f"{[round(x, 3) for x in rk['step_s']]} (O2 on rank 0 "
+            f"{[round(x, 3) for x in m2['o2_step_s']]}), peak "
+            f"{rk['peak_gb']:.2f} GB; collective bytes a step "
+            + ", ".join(f"{k} {v}" for k, v in later[0]["bytes"].items())
+            + f"; host-staged collectives {coll_s:.2f} s of steps 2-"
+            f"{len(rk['step_s'])}'s {step_s:.2f} s; by kind "
+            + ", ".join(f"{k} {sum(c['seconds'][k] for c in later):.2f} s"
+                        for k in later[0]["seconds"]))
+    log(f"  (m2) f32 at {MESH_CHECK_LAYERS} layers: gradients max |mesh - "
+        f"O2| / max |O2| {m2['grad_rel']:.3g} (bar {MESH_GRAD_REL_TOL}); "
+        f"losses {m2['f32_losses']} against O2's {m2['f32_o2_losses']} (max "
+        f"relative {m2['f32_loss_rel']:.3g}, bar {MESH_F32_LOSS_RTOL})")
+    log(f"  (m3) {MOE_ARCH} at {MA_MOE_LAYERS} layers, "
+        f"{m3['experts_a_rank']} experts a rank, one step of "
+        f"{MA_TRAIN_BATCH} x {MA_MOE_SEQ}: loss {m3['loss']:.5f} against "
+        f"O2's {m3['o2_loss']:.5f}, aux_lb {m3['aux_lb']:.6f} against "
+        f"{m3['o2_aux_lb']:.6f} (bars {MESH_BF16_LOSS_TOL}, {MA_AUX_TOL}); "
+        f"{m3['step_s']:.2f} s, peak {m3['peak_gb']:.2f} GB on rank 0; "
+        f"launches a rank {m3['launches']} (as reckoned)")
+    for dname, r in m4.items():
+        log(f"  (m4) {ARCH} at {r['layers']} layers in {dname}, Engine at "
+            f"O3 on (model {r['model']}): {FIXED_BATCH} x {FIXED_PROMPT} "
+            f"prompt tokens, {FIXED_NEW} new in {r['generate_s']:.2f} s (O2 "
+            f"{r['o2_generate_s']:.2f} s); prefill logits max |O3 - O2| "
+            f"{r['logit_diff']:.4g} of {r['logit_scale']:.4g}; tokens equal "
+            f"to O2's {r['token_agree']:.4f}"
+            + (f" (the rows part at O2's top-2 margins {r['margins']})"
+               if "margins" in r else "")
+            + f"; KV cache {r['cache_bytes'] / 1e6:.1f} MB a rank at "
+            f"{r['kv_heads']} kv heads against O2's "
+            f"{r['o2_cache_bytes'] / 1e6:.1f}; launches a rank "
+            f"{r['launches']}; every rank the same tokens")
+    log(f"  seconds by step (slowest rank) " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ma["seconds"].items())
+        + f"; a rank's set-up {ma['setup_s']:.2f} s")
+
+
 # -- the mesh phases' one world ------------------------------------------------
 
 def mesh_world_rank(rank: int, world: int, device: str, inp: dict,
                     tmp: str, phases: tuple) -> dict:
     """One rank of the mesh phases' world: ``phases`` of "2j"
-    (:func:`mesh_rank`), "2k" (:func:`ring_serve_rank`) and "2l"
-    (:func:`mesh_train_rank`) in turn, each timed."""
+    (:func:`mesh_rank`), "2k" (:func:`ring_serve_rank`), "2l"
+    (:func:`mesh_train_rank`) and "2m" (:func:`model_axis_rank`) in turn,
+    each timed."""
     run = {"2j": lambda: mesh_rank(rank, world, device, inp),
            "2k": lambda: ring_serve_rank(rank, world, device),
-           "2l": lambda: mesh_train_rank(rank, world, device, tmp)}
+           "2l": lambda: mesh_train_rank(rank, world, device, tmp),
+           "2m": lambda: model_axis_rank(rank, world, device, tmp)}
     out = {}
     for phase in phases:
         t = time.perf_counter()
@@ -4451,9 +5192,9 @@ def mesh_world_rank(rank: int, world: int, device: str, inp: dict,
 
 
 def run_mesh_world(torch, inp: dict, device: str = "cuda",
-                   phases: tuple = ("2j", "2k", "2l")) -> dict:
-    """Phases 2j, 2k and 2l in one world of :data:`MESH_RANKS` ranks (one
-    spawn, one load of the kernel library a rank), then each phase's
+                   phases: tuple = ("2j", "2k", "2l", "2m")) -> dict:
+    """Phases 2j, 2k, 2l and 2m in one world of :data:`MESH_RANKS` ranks
+    (one spawn, one load of the kernel library a rank), then each phase's
     results from every rank's; ``world_s`` the world's wall time and
     ``phase_s`` each phase's on its slowest rank.  A temporary directory
     holds 2l's checkpoints and goes with the world."""
@@ -4463,7 +5204,8 @@ def run_mesh_world(torch, inp: dict, device: str = "cuda",
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     timeout = sum({"2j": MESH_TIMEOUT_S, "2k": RING_TIMEOUT_S,
-                   "2l": MESH_TRAIN_TIMEOUT_S}[p] for p in phases)
+                   "2l": MESH_TRAIN_TIMEOUT_S,
+                   "2m": MODEL_AXIS_TIMEOUT_S}[p] for p in phases)
     t = time.perf_counter()
     try:
         ranks = run_world(mesh_world_rank, MESH_RANKS,
@@ -4480,6 +5222,8 @@ def run_mesh_world(torch, inp: dict, device: str = "cuda",
         out["2k"] = ring_path_results([r["2k"] for r in ranks])
     if "2l" in phases:
         out["2l"] = train_path_results([r["2l"] for r in ranks])
+    if "2m" in phases:
+        out["2m"] = model_axis_results([r["2m"] for r in ranks])
     return out
 
 
@@ -5114,13 +5858,13 @@ def main() -> int:
                              f"path: {missing}")
     launches.update(sparse_launches)
 
-    # -- phases 2j, 2k, 2l: mesh scope, one world, counted on every rank ----
+    # -- phases 2j-2m: mesh scope, one world, counted on every rank ---------
     t_path = time.perf_counter()
     world = run_mesh_world(torch, mesh_inputs(csr, z_np, a_np, b_np, spd_np,
                                               bcg_np))
-    log(f"phases 2j, 2k and 2l: one world of {MESH_RANKS} ranks on the one "
-        f"card (gloo, staged through host memory; not scaling numbers), in "
-        f"{time.perf_counter() - t_path:.2f} s (the world "
+    log(f"phases 2j, 2k, 2l and 2m: one world of {MESH_RANKS} ranks on "
+        f"the one card (gloo, staged through host memory; not scaling "
+        f"numbers), in {time.perf_counter() - t_path:.2f} s (the world "
         f"{world['world_s']:.2f} s; each phase on its slowest rank: "
         + ", ".join(f"{p} {v:.2f} s" for p, v in world["phase_s"].items())
         + ")")
@@ -5138,6 +5882,12 @@ def main() -> int:
         f"{mtrain['launches']}")
     report_train_mesh_path(mtrain, smi[0])
     for k, n in mtrain["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    maxis = world["2m"]
+    log(f"phase 2m: the model axis's compute split: launches over the ranks "
+        f"{maxis['launches']}")
+    report_model_axis_path(maxis, smi[0])
+    for k, n in maxis["launches"].items():
         launches[k] = launches.get(k, 0) + n
 
     # -- phase 2c: the serve path, counted ----------------------------------

@@ -35,8 +35,10 @@ stacked specs, ``distributed.partition``'s ``stacked=True``, whose layer
 lists are collapsed into dicts); ``restore(..., shardings=)`` takes a
 NamedSharding tree in the template's structure, built for the *current*
 mesh (which may differ from the saver's), and each rank keeps its own
-tile of every leaf.  The mesh trainer hands ``save`` the moments whole and
-lets one rank write.
+tile of every leaf, over the data axes and over ``model`` alike (the
+trainer's shards of the leaves the model axis splits), in storage laid
+out as a whole leaf's.  The mesh trainer hands ``save`` the parameters and
+moments whole and lets one rank write.
 """
 from __future__ import annotations
 
@@ -160,7 +162,7 @@ def _rebuild(tree, prefix: str, get, layer: Optional[tuple] = None,
         t = t[layer]
     if shard is not None:
         from repro_torch.distributed.sharding import local_slice
-        t = local_slice(t, shard)
+        t = local_slice(t, shard).contiguous()
     return t.to(device=tree.device, dtype=tree.dtype)
 
 

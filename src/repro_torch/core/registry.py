@@ -97,7 +97,8 @@ from repro_torch.obs import drift as obs_drift
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
-__all__ = ["Variant", "SelectContext", "OperatorRegistry", "REGISTRY",
+__all__ = ["calibration_ranks", "Variant", "SelectContext",
+           "OperatorRegistry", "REGISTRY",
            "Cost", "register", "unregister", "dispatch", "select",
            "explain", "select_context", "variants", "ops", "use_backend",
            "requested_backend", "resolve_backend", "device_type_of",
@@ -453,14 +454,7 @@ class OperatorRegistry:
                    and not (on_card and table[name].oracle)}
         if len(counted) < 2:
             return {}
-        fast = min(counted.values(), key=lambda r: r["seconds"])
-        out = {}
-        for name, rec in counted.items():
-            margin = max(CALIBRATION_MARGIN * fast["seconds"],
-                         fast.get("spread", 0.0), rec.get("spread", 0.0))
-            behind = rec["seconds"] - fast["seconds"] > margin
-            out[name] = (rec["seconds"], rec["seconds"] if behind else 0.0)
-        return out
+        return calibration_ranks(counted)
 
     @staticmethod
     def _ranked(ctx: SelectContext, table: dict[str, Variant],
@@ -687,6 +681,24 @@ class OperatorRegistry:
                                        args, kwargs, scope=scope, mesh=mesh)
             return out if v.out_sharding is None else \
                 _attach_out_sharding(v, ctx, args, kwargs, out)
+
+
+def calibration_ranks(records: dict[str, dict]
+                      ) -> dict[str, tuple[float, float]]:
+    """The reorder rule of calibration: ``{name: (seconds, rank)}`` of
+    measured records ``{name: {"seconds", "spread"?}}``.  ``rank`` is 0 for
+    every variant no slower than the fastest by more than the margin (the
+    larger of :data:`CALIBRATION_MARGIN` of the fastest's seconds and
+    either's spread): those keep their static order.  A slower one ranks
+    by its seconds."""
+    fast = min(records.values(), key=lambda r: r["seconds"])
+    out = {}
+    for name, rec in records.items():
+        margin = max(CALIBRATION_MARGIN * fast["seconds"],
+                     fast.get("spread", 0.0), rec.get("spread", 0.0))
+        behind = rec["seconds"] - fast["seconds"] > margin
+        out[name] = (rec["seconds"], rec["seconds"] if behind else 0.0)
+    return out
 
 
 def _out_sharding_row(v: Variant, ctx: SelectContext, args: tuple,

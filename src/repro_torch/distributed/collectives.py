@@ -431,7 +431,11 @@ class ReducePlan:
     def psum_all(self, x: torch.Tensor, op=None) -> torch.Tensor:
         """All-reduce over every batch axis at once (one collective over
         their group; ``op`` default sum): the scalars of the mesh trainer
-        (token counts, the clip's squared norm, the loss)."""
+        (token counts, the clip's squared norm, the loss).  ``x`` itself
+        where the batch axes are one rank wide (a mesh of the model axis
+        alone)."""
+        if self.width == 1:
+            return x
         _plan_event("psum_all", self.batch_axes)
         g = self.groups
         return all_reduce(x, g.group(self.batch_axes), g.transport, op)

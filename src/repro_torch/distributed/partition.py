@@ -37,7 +37,8 @@ from repro_torch.core.sharding import NamedSharding, PartitionSpec as P
 from repro_torch.core.topology import topology_of
 
 __all__ = ["param_specs", "param_shardings", "batch_spec", "data_axes",
-           "zero1_specs", "fsdp_specs", "map_specs", "RULES"]
+           "zero1_specs", "fsdp_specs", "map_specs", "model_dims",
+           "kv_split_at_rest", "RULES"]
 
 Pytree = Any
 
@@ -83,6 +84,13 @@ MODEL_AXIS_WIDTH = 16
 LANE = 128
 
 
+def kv_split_at_rest(out_dim: int) -> bool:
+    """Whether the spec splits an attention ``wk`` / ``wv`` of ``out_dim``
+    output columns over ``model``: only where a shard of the 16-way axis
+    keeps a whole lane (the lane floor)."""
+    return out_dim >= LANE * MODEL_AXIS_WIDTH
+
+
 def _spec_for_path(path_s: str, shape: tuple[int, ...], n_stack: int,
                    replicate_attn: bool = False) -> P:
     ndim = len(shape)
@@ -96,8 +104,7 @@ def _spec_for_path(path_s: str, shape: tuple[int, ...], n_stack: int,
             # lane floor: replicate KV projections whose sharded dim would
             # fall under one lane per shard (MQA/GQA with few kv heads)
             elif re.search(r"/attn/w[kv]$", path_s):
-                out_dim = shape[-1]
-                if out_dim < LANE * MODEL_AXIS_WIDTH:
+                if not kv_split_at_rest(shape[-1]):
                     entries = entries[:-1] + (None,)
             return P(*entries)
     # default: replicate
@@ -273,3 +280,15 @@ def map_specs(fn, specs):
         return type(specs)(*(map_specs(fn, getattr(specs, f))
                              for f in specs._fields))
     return type(specs)(map_specs(fn, x) for x in specs)
+
+
+def model_dims(specs: Pytree) -> Pytree:
+    """Per leaf of a spec tree, the dim its spec splits over ``model``, or
+    None where the spec replicates it over ``model``."""
+    def dim(spec):
+        for i, e in enumerate(spec):
+            names = e if isinstance(e, tuple) else (e,)
+            if "model" in names:
+                return i
+        return None
+    return map_specs(dim, specs)

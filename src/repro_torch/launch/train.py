@@ -22,19 +22,24 @@ microbatch's activations (:func:`activation_bytes`, which grow with
 ``--batch`` x ``--seq``).  Step times read
 :func:`repro_torch.obs.trace.clock`.
 
-``Trainer(cfg, mesh=make_mesh(data=W))`` trains at mesh scope over the
-data axes (pod x data), on a world the caller started: the parameters
-replicated, the AdamW moments sharded by ``zero1_specs`` (``zero1=False``
-keeps them whole), the step of ``train.step.make_mesh_train_step``; under
-``use_level(O3|O4)`` attention runs over the ring on the trainer's mesh.
-A mesh whose ``model`` axis is wider than 1 raises (the model axis's
-compute split is ROADMAP queue 1 item 10b-iii).  Its checkpoints hold the
-moments whole, written by rank 0 with the stacked partition specs, and a
-restore keeps each rank's tiles for the current mesh, which may differ
-from the saver's.  The counts take the data width and the ranks that
-share a card: moments and the update's transients divide by the width,
-and the card holds every rank's peak.  ``main`` has no mesh option, as
-the JAX package's has none.
+``Trainer(cfg, mesh=make_mesh(data=D, model=M))`` trains at mesh scope,
+on a world the caller started: over the data axes (pod x data) each rank
+takes its rows of the batch, the AdamW moments sharded by ``zero1_specs``
+(``zero1=False`` keeps them whole); over a ``model`` axis wider than 1 the
+layers run split (``distributed.model_split``: Megatron's products, the
+vocab-parallel logits and cross entropy, expert parallelism), each rank
+holding its shard of every leaf ``param_specs`` splits over ``model``;
+the step is ``train.step.make_mesh_train_step``.  Under
+``use_level(O3|O4)`` attention runs over the ring on the trainer's mesh,
+at the rank's heads.  A one-process mesh (no process group) with a model
+axis wider than 1 raises.  Its checkpoints hold the parameters and the
+moments whole, written by the mesh's first rank with the stacked
+partition specs, and a restore keeps each rank's tiles for the current
+mesh, which may differ from the saver's in its data axes.  The counts
+take the data and model widths and the ranks that share a card: the
+parameters a rank holds are counted from the specs, its moments and the
+update's transients divide by the data width, and the card holds every
+rank's peak.  ``main`` has no mesh option, as the JAX package's has none.
 """
 from __future__ import annotations
 
@@ -55,8 +60,9 @@ from repro_torch.core.sharding import NamedSharding, PartitionSpec as P
 from repro_torch.core.topology import topology_of
 from repro_torch.data import ByteCorpus, SyntheticLM
 from repro_torch.distributed.collectives import reduce_plan
-from repro_torch.distributed.partition import (map_specs, param_specs,
-                                               zero1_specs)
+from repro_torch.distributed.model_split import split_of
+from repro_torch.distributed.partition import (map_specs, model_dims,
+                                               param_specs, zero1_specs)
 from repro_torch.models.lm import LM
 from repro_torch.obs.trace import clock
 from repro_torch.optim import adamw
@@ -67,9 +73,10 @@ from repro_torch.train import (TrainState, abstract_state, create,
                                make_train_step)
 from repro_torch.train.step import (make_mesh_train_step, mesh_state,
                                     moment_dims, whole_state)
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["reduce_config", "Trainer", "main", "update_peak_bytes",
-           "activation_bytes", "train_peak_bytes"]
+           "activation_bytes", "train_peak_bytes", "rank_param_count"]
 
 #: Bytes a bf16 parameter holds at a training step's peak, the AdamW
 #: update (measured on an H100 training qwen3-moe-30b-a3b and zamba2-7b
@@ -105,45 +112,66 @@ LAYER_BYTES, LAYER_BYTES_NO_REMAT = 2, 16
 TRAIN_SLACK_BYTES = 5_000_000_000
 
 
+def rank_param_count(cfg: ModelConfig, model_width: int = 1) -> int:
+    """The parameters a rank holds at a model width: every leaf
+    ``param_specs`` splits over ``model`` a ``1 / model_width`` share, the
+    others whole, counted on the leaves (the padded vocabulary's rows
+    included); at width 1 ``cfg.param_count()``, the analytic count the
+    refusals have always used."""
+    if model_width == 1:
+        return cfg.param_count()
+    params = LM(cfg).init(device="meta")
+    dims = model_dims(param_specs(params))
+    counts = tree_leaves(tree_map(
+        lambda p, m: p.numel() // (1 if m is None else model_width),
+        params, dims))
+    return sum(counts)
+
+
 def update_peak_bytes(cfg: ModelConfig, *, data_width: int = 1,
-                      ranks_per_card: int = 1) -> int:
+                      ranks_per_card: int = 1, model_width: int = 1) -> int:
     """The memory training ``cfg`` holds on a card at the AdamW update's
     peak: :data:`UPDATE_PEAK_BYTES` a bf16 parameter, the parameter's own
     bytes beside the rest at another ``cfg.pdtype`` (activations are freed
-    by then).  At mesh scope a rank holds its parameters and gradient whole
+    by then).  At mesh scope a rank holds its parameters
+    (:func:`rank_param_count` at ``model_width``) and their gradient whole
     and ``1 / data_width`` of the moments and transients, and
     ``ranks_per_card`` ranks share the card."""
     size = torch.empty((), dtype=cfg.pdtype).element_size()
     per = size + GRAD_BYTES \
         + (MOMENT_BYTES + UPDATE_TRANSIENT_BYTES) / data_width
-    return int(ranks_per_card * cfg.param_count() * per)
+    return int(ranks_per_card * rank_param_count(cfg, model_width) * per)
 
 
-def activation_bytes(cfg: ModelConfig, tokens: int) -> int:
+def activation_bytes(cfg: ModelConfig, tokens: int, *,
+                     model_width: int = 1) -> int:
     """The activations a microbatch of ``tokens`` positions (the
     frontend's counted) holds when its backward starts: the logits' chain
-    (:data:`LOGIT_BYTES` a vocabulary entry) and each layer's kept input
-    (:data:`LAYER_BYTES` a model dimension, more without remat)."""
+    (:data:`LOGIT_BYTES` a vocabulary entry, a rank's ``1 / model_width``
+    of the vocabulary) and each layer's kept input (:data:`LAYER_BYTES` a
+    model dimension, more without remat; whole on every model rank)."""
     layer = LAYER_BYTES if cfg.remat else LAYER_BYTES_NO_REMAT
-    return tokens * (LOGIT_BYTES * cfg.padded_vocab
+    return tokens * (LOGIT_BYTES * cfg.padded_vocab // model_width
                      + layer * cfg.num_layers * cfg.d_model)
 
 
 def train_peak_bytes(cfg: ModelConfig, tokens: int, *, data_width: int = 1,
-                     ranks_per_card: int = 1) -> int:
+                     ranks_per_card: int = 1, model_width: int = 1) -> int:
     """The memory a training step of ``cfg`` on microbatches of ``tokens``
     positions (a rank's, at mesh scope) holds on a card at its peak: the
     larger of the AdamW update's (:func:`update_peak_bytes`) and the
-    backward's start (the parameters, gradients and moments,
-    :data:`GRAD_AND_MOMENT_BYTES` a bf16 parameter with the moments divided
-    by ``data_width``, beside :func:`activation_bytes`), times the
-    ``ranks_per_card`` ranks that share the card."""
+    backward's start (the parameters a rank holds, their gradients and
+    moments, :data:`GRAD_AND_MOMENT_BYTES` a bf16 parameter with the
+    moments divided by ``data_width``, beside :func:`activation_bytes`,
+    whose logits divide by ``model_width``), times the ``ranks_per_card``
+    ranks that share the card."""
     size = torch.empty((), dtype=cfg.pdtype).element_size()
-    backward = cfg.param_count() * (size + GRAD_BYTES
-                                    + MOMENT_BYTES / data_width) \
-        + activation_bytes(cfg, tokens)
+    backward = rank_param_count(cfg, model_width) * (
+        size + GRAD_BYTES + MOMENT_BYTES / data_width) \
+        + activation_bytes(cfg, tokens, model_width=model_width)
     return max(update_peak_bytes(cfg, data_width=data_width,
-                                 ranks_per_card=ranks_per_card),
+                                 ranks_per_card=ranks_per_card,
+                                 model_width=model_width),
                int(ranks_per_card * backward))
 
 
@@ -213,7 +241,7 @@ class Trainer:
                  heartbeats: Optional[HeartbeatStore] = None):
         self.cfg = cfg
         self.mesh = mesh
-        self.plan = _data_plan(mesh)
+        self.plan, self.split = _mesh_plans(mesh)
         self.device = resolve_device(device)
         self.lm = LM(cfg)
         sched = wsd(lr, total_steps) if cfg.name.startswith("minicpm") \
@@ -234,11 +262,17 @@ class Trainer:
             self.moment_specs = zero1_specs(a.params, mesh) if zero1 \
                 else self.param_specs
             self.dims = moment_dims(self.moment_specs, a.params, self.plan)
+            self.mdims = None
+            if self.split is not None:
+                self.mdims = model_dims(self.param_specs)
+                _check_model_split(a.params, self.mdims, self.split.size)
             self.step_fn = make_mesh_train_step(
                 self.lm, self.opt, self.plan, self.dims,
-                microbatches=microbatches)
+                microbatches=microbatches, split=self.split,
+                mdims=self.mdims)
             self.state = mesh_state(self.lm.init(seed, device=self.device),
-                                    self.opt, self.plan, self.dims)
+                                    self.opt, self.plan, self.dims,
+                                    self.split, self.mdims)
         if self.ckpt and self.ckpt.latest_step() is not None:
             if self.plan is None:
                 self.state = self.ckpt.restore(self.state)
@@ -249,8 +283,17 @@ class Trainer:
 
     # -- mesh scope -----------------------------------------------------------
 
+    def mesh_index(self) -> int:
+        """This rank's flat index over the mesh (pod-major, the model axis
+        innermost); 0 without a mesh."""
+        if self.plan is None:
+            return 0
+        i = self.plan.shard_index()
+        return i if self.split is None else \
+            i * self.split.size + self.split.index
+
     def _say(self, text: str) -> None:
-        if self.plan is None or self.plan.shard_index() == 0:
+        if self.mesh_index() == 0:
             print(text)
 
     def shardings(self) -> TrainState:
@@ -275,16 +318,20 @@ class Trainer:
                           opt_state=AdamState(count=P(), mu=m, nu=m))
 
     def save(self, step: int) -> None:
-        """Checkpoint the state: at mesh scope the moments gathered whole
-        (every rank takes part) and rank 0 writes with the stacked specs,
-        the others waiting until it has."""
+        """Checkpoint the state: at mesh scope the parameters and moments
+        gathered whole (every rank takes part) and the mesh's first rank
+        writes with the stacked specs, the others waiting until it has."""
         if self.plan is None:
             self.ckpt.save(step, self.state)
             return
-        whole = whole_state(self.state, self.plan, self.dims)
-        if self.plan.shard_index() == 0:
+        whole = whole_state(self.state, self.plan, self.dims, self.split,
+                            self.mdims)
+        if self.mesh_index() == 0:
             self.ckpt.save(step, whole, specs=self.checkpoint_specs())
-        self.plan.psum_all(torch.zeros(1, device=self.device))  # a barrier
+        del whole
+        z = self.plan.psum_all(torch.zeros(1, device=self.device))
+        if self.split is not None:                       # a barrier
+            self.split.all_reduce(z)
 
     def fit(self, data, steps: int, *, log_every: int = 10,
             worker: Optional[int] = None) -> dict:
@@ -292,12 +339,11 @@ class Trainer:
         every ``log_every`` steps and at the first, the step, its loss and
         grad norm, and the seconds since ``fit`` began (host clock, read
         after the loss, which waits for the step to finish).  Heartbeats go
-        out as ``worker`` (default: this rank's index over the data axes at
-        mesh scope, else 0).  At mesh scope under ``use_level(O3|O4)`` the
-        steps run at that level on the trainer's mesh, so that attention
-        runs over its ring."""
+        out as ``worker`` (default: this rank's :meth:`mesh_index`).  At
+        mesh scope under ``use_level(O3|O4)`` the steps run at that level
+        on the trainer's mesh, so that attention runs over its ring."""
         if worker is None:
-            worker = 0 if self.plan is None else self.plan.shard_index()
+            worker = self.mesh_index()
         ctx = execlevel.current()
         level = execlevel.use_level(ctx.level, self.mesh) \
             if self.plan is not None and ctx.level >= execlevel.ExecLevel.O3 \
@@ -333,21 +379,32 @@ class Trainer:
                 "final_loss": history[-1]["loss"] if history else None}
 
 
-def _data_plan(mesh):
-    """The mesh's ReducePlan over its data axes, None without a mesh or
-    where they are one rank wide (the chip step then runs); a model axis
-    wider than 1 raises."""
+def _mesh_plans(mesh):
+    """(the mesh's ReducePlan over its data axes, its ModelSplit): (None,
+    None) without a mesh or where every axis is one rank wide (the chip
+    step then runs); the split None where the model axis is one rank wide.
+    A one-process mesh with a wider model axis raises (``model_split.
+    split_of``)."""
     if mesh is None:
-        return None
+        return None, None
     topo = topology_of(mesh)
-    if topo.extent("model") > 1:
-        raise NotImplementedError(
-            f"Trainer(mesh=...) on {topo.describe()}: the model axis's "
-            f"compute split (Megatron products, expert parallelism) is not "
-            f"ported yet (ROADMAP queue 1 item 10b-iii); train over the data "
-            f"axes with a model axis of 1")
+    split = split_of(mesh, held=True)
     plan = reduce_plan(mesh, topo)
-    return plan if plan.width > 1 else None
+    if plan.width == 1 and split is None:
+        return None, None
+    return plan, split
+
+
+def _check_model_split(params, mdims, width: int) -> None:
+    """Every dim the spec splits over ``model`` divides into ``width``
+    shards (ValueError naming the first that does not)."""
+    bad = []
+    tree_map(lambda p, m: bad.append((tuple(p.shape), m)) if m is not None
+             and p.shape[m] % width else None, params, mdims)
+    if bad:
+        shape, m = bad[0]
+        raise ValueError(f"a leaf of shape {shape} does not split into "
+                         f"{width} shards along dim {m} (the model axis)")
 
 
 def main(argv=None) -> int:

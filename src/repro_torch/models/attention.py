@@ -16,6 +16,12 @@ knows: a write lands only in the pages this rank owns (``kvcache.write``),
 a chunk's prefix is gathered over the ring (``kvcache.gather_row``) before
 ``chunk_attention``, so the chunk is bitwise the one-card chunk, and
 decode's ``paged_attention`` dispatch selects the ring variant by scope.
+
+Under the model axis's split (``distributed.model_split``) the
+full-sequence path and the fixed-cache decode run on this rank's heads
+(``_split_weights``): the q heads' columns of ``wq``, the kv heads they
+read, the rows of ``wo``, whose product ends in one all-reduce; the
+kernels see the local head counts.  The paged paths are not split.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from typing import Any
 import torch
 
 from repro_torch.core.registry import dispatch
+from repro_torch.distributed import model_split as ms
+from repro_torch.distributed.partition import kv_split_at_rest
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.models.layers import (apply_rope, dense_init, linear,
                                        rms_norm, rms_norm_init)
@@ -48,16 +56,70 @@ def attention_init(gen: torch.Generator, cfg) -> Params:
     return p
 
 
-def _project_qkv(x, p, cfg):
-    B, L, _ = x.shape
-    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(x, p["wq"]).reshape(B, L, h, hd)
-    k = linear(x, p["wk"]).reshape(B, L, hk, hd)
-    v = linear(x, p["wv"]).reshape(B, L, hk, hd)
+def _split_weights(p: Params, cfg):
+    """``(leaves, split)``: the attention leaves as this rank uses them, and
+    whether the block runs split by heads.  Outside the model axis's split
+    (``distributed.model_split``), ``p`` itself.  Split by heads
+    (``model_split.heads_split``): the tiles of ``wq`` and ``wo`` (the
+    rank's q heads); the columns of ``wk`` and ``wv`` of the kv heads those
+    q heads read (the shard itself where the spec splits them by whole kv
+    heads; where the lane floor replicates them, the leaf entering through
+    ``into`` and then sliced, so that the ranks' parts of its gradient add
+    up; where the spec cuts inside a kv head, gathered at use with the
+    parts summed backward); ``q_norm`` and ``k_norm`` through ``into``
+    (each rank normalises its own heads with them).  Heads that do not
+    divide: every leaf whole at use (gathered where held as shards) and
+    the block run whole on every rank, as the reference's
+    ``_replicate_attention`` intends; its sequence split of that case
+    (``repro/models/transformer.py:55-63``) is not taken."""
+    s = ms.current()
+    if s is None:
+        return p, False
+    kv_at_rest = kv_split_at_rest(cfg.num_kv_heads * cfg.head_dim)
+    if not ms.heads_split(cfg, s.size):
+        w = dict(p, wq=ms.whole(p["wq"], 1), wo=ms.whole(p["wo"], 0))
+        if kv_at_rest:
+            w.update(wk=ms.whole(p["wk"], 1), wv=ms.whole(p["wv"], 1))
+        return w, False
+    hd = cfg.head_dim
+    _, hk_l, _, k0 = ms.heads(cfg)
+    cols = slice(k0 * hd, (k0 + hk_l) * hd)
+    w = dict(p, wq=ms.local(p["wq"], 1), wo=ms.local(p["wo"], 0))
+    for name in ("wk", "wv"):
+        if not kv_at_rest:
+            w[name] = ms.into(p[name])[:, cols]
+        elif cfg.num_kv_heads % s.size == 0:
+            w[name] = ms.local(p[name], 1)
+        else:
+            w[name] = ms.whole(p[name], 1, partial=True)[:, cols]
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    return q, k, v
+        w["q_norm"] = {"scale": ms.into(p["q_norm"]["scale"])}
+        w["k_norm"] = {"scale": ms.into(p["k_norm"]["scale"])}
+    return w, True
+
+
+def _project_qkv(x, p, cfg):
+    """q, k, v (B, L, heads, hd) at this rank's heads (``model_split.
+    heads``), and ``out(o)``, the output product of o (B, L, heads * hd):
+    ``wo``, ending in the all-reduce over ``model`` when split by
+    heads."""
+    B, L, _ = x.shape
+    w, split = _split_weights(p, cfg)
+    if split:
+        x = ms.into(x)
+    h, hk = ms.heads(cfg)[:2]
+    hd = cfg.head_dim
+    q = linear(x, w["wq"]).reshape(B, L, h, hd)
+    k = linear(x, w["wk"]).reshape(B, L, hk, hd)
+    v = linear(x, w["wv"]).reshape(B, L, hk, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"])
+        k = rms_norm(k, w["k_norm"])
+
+    def out(o):
+        y = linear(o, w["wo"])
+        return ms.out_of(y) if split else y
+    return q, k, v, out
 
 
 def _rope_qk(q, k, cos, sin, cfg):
@@ -77,13 +139,13 @@ def attention_apply_kv(x, p: Params, cfg, cos, sin):
     """:func:`attention_apply` that also returns the rope-applied K/V in
     cache layout (B, hk, L, hd): the prefill path of the fixed engine."""
     B, L, _ = x.shape
-    q, k, v = _project_qkv(x, p, cfg)
+    q, k, v, wo = _project_qkv(x, p, cfg)
     q, k = _rope_qk(q, k, cos, sin, cfg)
     v = v.transpose(1, 2)
     out = dispatch("flash_attention", q, k, v, causal=True,
                    mask=cfg.attn_mask_spec())                # (B, H, L, D)
-    out = out.transpose(1, 2).reshape(B, L, cfg.num_heads * cfg.head_dim)
-    return linear(out, p["wo"]), k, v
+    out = out.transpose(1, 2).reshape(B, L, q.shape[1] * cfg.head_dim)
+    return wo(out), k, v
 
 
 def attention_decode(x, p: Params, cfg, cache_k, cache_v, cur_len: int,
@@ -92,8 +154,9 @@ def attention_decode(x, p: Params, cfg, cache_k, cache_v, cur_len: int,
     writes this token's K/V at ``cur_len`` in place and attends to
     positions ``<= cur_len``.  Returns (out, cache_k, cache_v)."""
     B = x.shape[0]
-    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(x, p, cfg)                     # (B, 1, ., hd)
+    hd = cfg.head_dim
+    q, k, v, wo = _project_qkv(x, p, cfg)                 # (B, 1, ., hd)
+    h, hk = q.shape[2], k.shape[2]
     q, k = _rope_qk(q, k, cos, sin, cfg)                  # (B, ., 1, hd)
     cache_k[:, :, cur_len] = k[:, :, 0].to(cache_k.dtype)
     cache_v[:, :, cur_len] = v[:, 0].to(cache_v.dtype)
@@ -114,7 +177,7 @@ def attention_decode(x, p: Params, cfg, cache_k, cache_v, cur_len: int,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", w, cache_v.float())
     o = o.reshape(B, 1, h * hd).to(x.dtype)
-    return linear(o, p["wo"]), cache_k, cache_v
+    return wo(o), cache_k, cache_v
 
 
 def attention_decode_paged(x, p: Params, cfg, kpages, vpages, table, lens,
@@ -128,14 +191,14 @@ def attention_decode_paged(x, p: Params, cfg, kpages, vpages, table, lens,
 
     B = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = _project_qkv(x, p, cfg)                     # (B, 1, ., hd)
+    q, k, v, wo = _project_qkv(x, p, cfg)                 # (B, 1, ., hd)
     q, k = _rope_qk(q, k, cos, sin, cfg)                  # (B, ., 1, hd)
     kvcache.write(kpages, vpages, write_page, write_off, k[:, :, 0],
                   v[:, 0], kvcache.pool_ring())           # (B, hk, hd)
 
     out = paged_attention(q, kpages, vpages, table, lens + active)
     out = out.transpose(1, 2).reshape(B, 1, h * hd).to(x.dtype)
-    return linear(out, p["wo"]), kpages, vpages
+    return wo(out), kpages, vpages
 
 
 def attention_chunk(x, p: Params, cfg, kpages, vpages, table_row, start: int,
@@ -149,7 +212,7 @@ def attention_chunk(x, p: Params, cfg, kpages, vpages, table_row, start: int,
 
     _, C, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = _project_qkv(x, p, cfg)                     # (1, C, ., hd)
+    q, k, v, wo = _project_qkv(x, p, cfg)                 # (1, C, ., hd)
     q, k = _rope_qk(q, k, cos, sin, cfg)                  # (1, ., C, hd)
     v = v.transpose(1, 2)
     plan = kvcache.pool_ring()
@@ -167,5 +230,5 @@ def attention_chunk(x, p: Params, cfg, kpages, vpages, table_row, start: int,
     plen = torch.full((1,), start, dtype=torch.int32, device=x.device)
     out = chunk_attention(q, kp, vp, plen, k, v)          # (1, h, C, hd)
     out = out.transpose(1, 2).reshape(1, C, h * hd).to(x.dtype)
-    return linear(out, p["wo"]), kpages, vpages
+    return wo(out), kpages, vpages
 

@@ -14,6 +14,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import model_split as ms
+
 __all__ = ["rms_norm", "rms_norm_init", "rope", "mrope_positions",
            "apply_rope", "mlp", "mlp_init", "dense_init", "linear"]
 
@@ -144,12 +146,17 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp(x: torch.Tensor, p: Params, kind: str = "swiglu") -> torch.Tensor:
-    gate = linear(x, p["wi_gate"])
-    up = linear(x, p["wi_up"])
+    """The gated MLP.  Under the model axis's split
+    (``distributed.model_split``) ``wi_gate`` and ``wi_up`` are column
+    products on this rank's columns of d_ff, and ``wo`` a row product
+    ending in one all-reduce over ``model``."""
+    x = ms.into(x)
+    gate = linear(x, ms.local(p["wi_gate"], 1))
+    up = linear(x, ms.local(p["wi_up"], 1))
     if kind == "swiglu":
         act = F.silu(gate.float()).to(x.dtype)
     elif kind == "geglu":
         act = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(kind)
-    return linear(act * up, p["wo"])
+    return ms.out_of(linear(act * up, ms.local(p["wo"], 0)))

@@ -46,6 +46,18 @@ patches at t = 0 on a ``grid_hw`` raster, text advancing in all three
 from ``frontend_len // grid_hw``), stitched along the feature dim by
 ``cfg.mrope_sections``; the decode step's text position is ``cur_len -
 frontend_len + frontend_len // grid_hw`` in all three streams.
+
+Under the model axis's split (``distributed.model_split``, entered by the
+mesh trainer and by the ``Engine`` on a mesh whose model axis is wider
+than 1) the residual stream stays whole on every rank of a model group:
+the embedding is a masked lookup of this rank's vocabulary rows, summed
+over the group; the logits are this rank's vocabulary columns (tied or
+not), gathered whole for ``forward``, ``prefill`` and the decode step and
+kept split for ``loss``, whose cross entropy is vocab-parallel
+(``model_split.vocab_cross_entropy``; the padded rows, which sit on the
+last ranks, masked as ``_logits`` slices them off); the fixed cache holds
+this rank's kv heads (``model_split.heads``).  The paged paths are not
+split.
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.containers import resolve_device
+from repro_torch.distributed import model_split as ms
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
@@ -163,10 +176,7 @@ class LM:
         frontend config, ``frontend_embeds`` (B, frontend_len, d_model)
         ahead of them.  Both are scaled where the config scales."""
         cfg = self.cfg
-        # F.embedding: its backward adds the rows' gradients in a fixed
-        # order on the card (a sort, then segment sums), so training steps
-        # give the same bits from run to run
-        x = F.embedding(tokens.long(), params["embed"]).to(cfg.act_dtype)
+        x = self._lookup(params["embed"], tokens)
         if prompt and cfg.frontend is not None:
             want = (x.shape[0], cfg.frontend_len, cfg.d_model)
             if frontend_embeds is None:
@@ -182,18 +192,49 @@ class LM:
                                  device=x.device)
         return x
 
-    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """Unembed (tied or not), slice off vocab padding, softcap."""
+    def _lookup(self, embed: torch.Tensor, tokens: torch.Tensor
+                ) -> torch.Tensor:
+        """The tokens' embedding rows in ``cfg.act_dtype``; under the model
+        axis's split a masked lookup of this rank's vocabulary rows, summed
+        over the group (each token's row is on one rank)."""
+        act = self.cfg.act_dtype
+        split = ms.current()
+        # F.embedding: its backward adds the rows' gradients in a fixed
+        # order on the card (a sort, then segment sums), so training steps
+        # give the same bits from run to run
+        if split is None:
+            return F.embedding(tokens.long(), embed).to(act)
+        # reference constrain site: lm.py:147 (the embeddings d-sharded)
+        rows = ms.local(embed, 0)
+        t = tokens.long() - split.index * rows.shape[0]
+        mine = (t >= 0) & (t < rows.shape[0])
+        x = F.embedding(torch.where(mine, t, 0), rows) * mine[..., None]
+        return ms.out_of(x.to(act))
+
+    def _logits_local(self, params: Params, x: torch.Tensor
+                      ) -> torch.Tensor:
+        """Unembed (tied or not) and softcap, over the padded vocabulary:
+        under the model axis's split this rank's columns of it."""
         cfg = self.cfg
         w_out = params.get("unembed")
         if w_out is None:
-            w_out = params["embed"].t()
-        logits = linear(x, w_out)
-        if cfg.padded_vocab != cfg.vocab_size:
-            logits = logits[..., :cfg.vocab_size]
+            w_out = ms.local(params["embed"], 0).t()
+        else:
+            w_out = ms.local(w_out, 1)
+        logits = linear(ms.into(x), w_out)
         if cfg.logit_softcap:
             c = cfg.logit_softcap
             logits = torch.tanh(logits.float() / c) * c
+        return logits
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Unembed (tied or not), softcap, slice off vocab padding; under
+        the model axis's split the ranks' columns gathered whole."""
+        cfg = self.cfg
+        # reference constrain site: lm.py:209 (the logits over the vocab)
+        logits = ms.gather(self._logits_local(params, x), -1)
+        if cfg.padded_vocab != cfg.vocab_size:
+            logits = logits[..., :cfg.vocab_size]
         return logits
 
     def _rope_tables(self, batch: int, seq_len: int, device):
@@ -233,6 +274,12 @@ class LM:
                 frontend_embeds=None):
         """Full-sequence forward -> (logits (B, S, V), aux); S counts the
         frontend's positions."""
+        x, aux = self._hidden(params, tokens, frontend_embeds)
+        return self._logits(params, x), aux
+
+    def _hidden(self, params: Params, tokens: torch.Tensor,
+                frontend_embeds=None):
+        """The final-normed residual stream (B, S, d) and the aux losses."""
         self._check_family()
         cfg = self.cfg
         x = self._embed(params, tokens, frontend_embeds)
@@ -247,8 +294,7 @@ class LM:
             block = tf.moe_block if cfg.family == "moe" else tf.dense_block
             x, aux = tf.stack_apply(x, params["layers"], functools.partial(
                 block, cfg=cfg, cos=cos, sin=sin), cfg)
-        x = rms_norm(x, params["final_norm"])
-        return self._logits(params, x), aux
+        return rms_norm(x, params["final_norm"]), aux
 
     def _hybrid_forward(self, params: Params, x, cos, sin):
         """Each group's mamba layers then the weight-shared attention block,
@@ -276,11 +322,15 @@ class LM:
         dev = params["embed"].device
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)
-        logits, aux = self.forward(params, tokens,
-                                   batch.get("frontend_embeds"))
+        x, aux = self._hidden(params, tokens, batch.get("frontend_embeds"))
+        split = ms.current() is not None
+        # split: this rank's columns of the padded vocabulary
+        logits = self._logits_local(params, x) if split \
+            else self._logits(params, x)
         if cfg.frontend is not None:
             logits = logits[:, cfg.frontend_len:, :]
-        loss, n = cross_entropy_loss(logits, labels)
+        loss, n = ms.vocab_cross_entropy(logits, labels, cfg.vocab_size) \
+            if split else cross_entropy_loss(logits, labels)
         metrics = {"loss": loss, "tokens": n}
         if cfg.family == "moe":
             loss = loss + 0.01 * aux["aux_lb"] / cfg.num_layers \
@@ -327,8 +377,10 @@ class LM:
 
     def _kv_cache(self, sites: int, batch: int, max_len: int, device,
                   dtype=None):
+        """Zeroed K/V (sites, B, kv heads, max_len, hd): this rank's kv
+        heads under the model axis's split."""
         cfg = self.cfg
-        shape = (sites, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        shape = (sites, batch, ms.heads(cfg)[1], max_len, cfg.head_dim)
         dtype = dtype or cfg.act_dtype
         return (torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(shape, dtype=dtype, device=device))

@@ -31,6 +31,18 @@ product of global means: inside ``sharded_rows`` the expert load is
 averaged over the ranks (an all-reduce, no gradient), and the importance
 stays this rank's, which the trainer's sum over the ranks makes global.
 
+Expert parallelism (the model axis's split, ``distributed.model_split``):
+each model rank holds ``E / M`` of the experts and the matching columns
+of the router.  The tokens and the gate weights enter the split region
+through ``into``; the router's column product gives this rank's logits,
+gathered over the model ranks into whole logits, so that top-k, capacity
+and drops are exactly the one-card dispatch's on every rank, as are the
+aux losses.  A rank scatters into, and runs, its own experts only (a
+slot of another rank's expert lands on a dustbin row), and the partial
+outputs leave the region with one all-reduce.  The dispatch groups stay
+the data shards.  The reference's all-to-all dispatch
+(``repro/models/moe.py`` ``a2a``) is not written out.
+
 Aux losses: the load-balancing loss ``sum(load * importance) * E`` and the
 router z-loss ``mean(logsumexp(logits) ** 2)``, returned for the caller to
 weight.
@@ -43,6 +55,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import model_split as ms
 from repro_torch.distributed import sharding
 from repro_torch.models.layers import dense_init
 
@@ -112,10 +125,16 @@ def moe_apply(x: torch.Tensor, p: Params, cfg, *,
     G = groups
     t = T // G
     assert t * G == T, (T, G)
+    split = ms.current()
+    x = ms.into(x)
     xt = x.reshape(G, t, d)
+    # this rank's experts [e0, e0 + El); all of them outside a split
+    El = E // split.size if split is not None else E
+    e0 = split.index * El if split is not None else 0
 
-    # router (f32)
-    logits = torch.matmul(xt.float(), p["router"].float())   # (G, t, E)
+    # router (f32): this rank's columns, gathered into whole logits
+    logits = ms.gather(torch.matmul(xt.float(), ms.local(
+        p["router"], 1).float()), -1)                          # (G, t, E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_i = _top_k(probs, k)                          # (G, t, k)
     gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
@@ -139,30 +158,34 @@ def moe_apply(x: torch.Tensor, p: Params, cfg, *,
 
     C = capacity(t, k, E, capacity_factor)
     keep = pos < C
-    gate_w = gate_w * keep
+    gate_w = ms.into(gate_w * keep)
     pos_c = torch.where(keep, pos, C)                          # dustbin row
 
-    # dispatch: scatter into (G, E, C + 1, d) rows, then drop the dustbin
+    # dispatch: scatter into (G, El, C + 1, d) rows, then drop the dustbin;
+    # a slot of another rank's expert goes to the group's first dustbin
     dev = x.device
     g_idx = torch.arange(G, device=dev)[:, None, None]
-    slot = ((g_idx * E + gate_i) * (C + 1) + pos_c).reshape(-1)
-    buf = torch.zeros((G * E * (C + 1), d), dtype=x.dtype, device=dev)
+    mine = (gate_i >= e0) & (gate_i < e0 + El)
+    slot = torch.where(mine, (g_idx * El + gate_i - e0) * (C + 1) + pos_c,
+                       g_idx * El * (C + 1) + C).reshape(-1)
+    buf = torch.zeros((G * El * (C + 1), d), dtype=x.dtype, device=dev)
     tok = torch.arange(t, device=dev).repeat_interleave(k)
     buf[slot] = xt[:, tok].reshape(-1, d)
-    buf = buf.view(G, E, C + 1, d)[:, :, :C]
+    buf = buf.view(G, El, C + 1, d)[:, :, :C]
 
-    # expert compute, batched over (G, E)
-    wg = p["wi_gate"].to(x.dtype)
-    wu = p["wi_up"].to(x.dtype)
-    wo = p["wo"].to(x.dtype)
+    # expert compute, batched over (G, El)
+    wg = ms.local(p["wi_gate"], 0).to(x.dtype)
+    wu = ms.local(p["wi_up"], 0).to(x.dtype)
+    wo = ms.local(p["wo"], 0).to(x.dtype)
     gate = torch.einsum("gecd,edf->gecf", buf, wg)
     up = torch.einsum("gecd,edf->gecf", buf, wu)
     act = F.silu(gate.float()).to(x.dtype) * up
-    out_buf = torch.einsum("gecf,efd->gecd", act, wo)          # (G, E, C, d)
+    out_buf = torch.einsum("gecf,efd->gecd", act, wo)          # (G, El, C, d)
 
-    # combine: gather each slot back (the dustbin reads a zero row) and sum
-    # the k slots by gate weight, in x's dtype
+    # combine: gather each slot back (a dustbin reads a zero row) and sum
+    # the k slots by gate weight, in x's dtype; the ranks' partial sums
+    # leave the split region with one all-reduce
     out_buf = F.pad(out_buf, (0, 0, 0, 1)).reshape(-1, d)
     gathered = out_buf[slot].view(G, t, k, d)
     y = torch.sum(gathered * gate_w[..., None].to(x.dtype), dim=2)
-    return y.reshape(B, L, d), {"aux_lb": aux_lb, "aux_z": aux_z}
+    return ms.out_of(y.reshape(B, L, d)), {"aux_lb": aux_lb, "aux_z": aux_z}

@@ -21,6 +21,14 @@ intra-chunk product and the conv run in the activation dtype.
 A prompt longer than :data:`CHUNK` tokens must be a multiple of it (the
 reference asserts so); :func:`ssd_chunked` raises ValueError otherwise,
 and nothing is padded, since padding would change the final state.
+
+Under the model axis's split (``distributed.model_split``) the spec
+column-splits ``in_proj``, ``conv_w`` and ``conv_b`` on their flat output
+dim and row-splits ``out_proj``, a cut that does not fall on SSD head
+boundaries: the trainer holds these leaves at rest as this rank's shards,
+and the block gathers them whole at use (:func:`_at_use`) and runs whole
+on every rank of the model group, as the reference's replicated SSD
+compute does.  An SSD split by heads is not written.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import model_split as ms
 from repro_torch.models.layers import (dense_init, linear, rms_norm,
                                        rms_norm_init)
 
@@ -163,6 +172,18 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, cfg, chunk: int = CHUNK):
     return y.reshape(B, L, H, P).to(x.dtype), s
 
 
+def _at_use(p: Params) -> Params:
+    """The block's leaves as it uses them: the spec-split ones whole
+    (gathered where held as shards; module docstring), the others as they
+    are."""
+    if ms.current() is None:
+        return p
+    return dict(p, in_proj=ms.whole(p["in_proj"], 1),
+                conv_w=ms.whole(p["conv_w"], 1),
+                conv_b=ms.whole(p["conv_b"], 0),
+                out_proj=ms.whole(p["out_proj"], 0))
+
+
 def mamba2_apply(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     """Full mamba2 block: in_proj -> conv -> SSD -> gated norm -> out_proj."""
     return mamba2_apply_state(x, p, cfg)[0]
@@ -176,6 +197,7 @@ def mamba2_apply_state(x: torch.Tensor, p: Params, cfg
     H, P = cfg.ssm_heads, cfg.ssm_headdim
     G, N = cfg.ssm_groups, cfg.ssm_state
     f32 = torch.float32
+    p = _at_use(p)
 
     proj = linear(x, p["in_proj"])
     z, xbc_raw, dt = _split_proj(proj, cfg)
@@ -231,6 +253,7 @@ def mamba2_decode(x: torch.Tensor, p: Params, cfg, state: dict
     G, N = cfg.ssm_groups, cfg.ssm_state
     rep = H // G
     f32 = torch.float32
+    p = _at_use(p)
 
     proj = linear(x[:, 0, :], p["in_proj"])                   # (B, .)
     z, xbc, dt = _split_proj(proj, cfg)

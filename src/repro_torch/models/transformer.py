@@ -7,8 +7,15 @@ dicts and the layer loop is a Python loop.  A block returns ``(x, aux)``,
 the auxiliary losses ``{"aux_lb", "aux_z"}`` (zeros for the dense block),
 and :func:`stack_apply` sums them over the layers.  The mamba2 blocks
 call ``models.ssm`` through the module attribute (``ssm_mod.
-mamba2_apply_state``), so that a profiler can wrap it; ``constrain`` (mesh
-sharding hints) is mesh scope and is left out.
+mamba2_apply_state``), so that a profiler can wrap it.
+
+Under the model axis's split (``distributed.model_split``) the blocks keep
+the residual stream whole on every rank of a model group; the attention,
+MLP, MoE and mamba2 layers split (or gather) their own leaves.  Where the
+reference constrains the residual d-sharded (``constrain(x, "batch",
+None, "model")``), a comment names the site and nothing is called:
+``distributed.sharding.constrain`` would gather and re-slice a DTensor and
+undo the split.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import execlevel, registry
-from repro_torch.distributed import sharding
+from repro_torch.distributed import model_split, sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -49,6 +56,8 @@ def dense_block_init(gen: torch.Generator, cfg) -> Params:
 
 
 def dense_block(x, p: Params, cfg, cos, sin):
+    # reference constrain sites: transformer.py:69 (S-sharded attention
+    # input), :71-74 (the residual d-sharded); whole here
     h = x + attn.attention_apply(rms_norm(x, p["attn_norm"]), p["attn"], cfg,
                                  cos, sin)
     return (h + mlp(rms_norm(h, p["mlp_norm"]), p["mlp"], cfg.mlp_kind),
@@ -58,6 +67,7 @@ def dense_block(x, p: Params, cfg, cos, sin):
 def dense_block_kv(x, p: Params, cfg, cos, sin):
     """:func:`dense_block` that also returns the layer's rope-applied K/V
     (B, hk, L, hd): the prefill path."""
+    # reference constrain sites: transformer.py:119-124; whole here
     a, k, v = attn.attention_apply_kv(rms_norm(x, p["attn_norm"]), p["attn"],
                                       cfg, cos, sin)
     h = x + a
@@ -89,6 +99,7 @@ def moe_ffn(h, p: Params, cfg, capacity_factor: float):
 
 
 def moe_block(x, p: Params, cfg, cos, sin):
+    # reference constrain sites: transformer.py:93 and :99; whole here
     h = x + attn.attention_apply(rms_norm(x, p["attn_norm"]), p["attn"], cfg,
                                  cos, sin)
     y, aux = moe_ffn(h, p, cfg, cfg.capacity_factor)
@@ -98,6 +109,7 @@ def moe_block(x, p: Params, cfg, cos, sin):
 def moe_block_kv(x, p: Params, cfg, cos, sin):
     """:func:`moe_block` that returns the layer's rope-applied K/V instead
     of its aux losses: the prefill path."""
+    # reference constrain sites: transformer.py:130 and :136; whole here
     a, k, v = attn.attention_apply_kv(rms_norm(x, p["attn_norm"]), p["attn"],
                                       cfg, cos, sin)
     h = x + a
@@ -119,6 +131,7 @@ def mamba_block(x, p: Params, cfg):
 def mamba_block_state(x, p: Params, cfg):
     """:func:`mamba_block` that returns the layer's decode state ``{conv,
     ssm}`` instead of its (zero) aux losses: the prefill path."""
+    # reference constrain sites: transformer.py:111 and :141; whole here
     y, st = ssm_mod.mamba2_apply_state(rms_norm(x, p["norm"]), p["mamba"],
                                        cfg)
     return x + y, st
@@ -151,13 +164,15 @@ def stack_apply(x, layers: list[Params], block_fn: Callable, cfg, *,
 def _recompute_on_this_plane():
     """checkpoint's (forward, recompute) contexts: the recompute runs under
     the plane requested now, at the execution level and on the mesh of now,
-    and with the rows sharded as now.  ``use_backend``, ``use_level`` and
-    ``sharded_rows`` are thread-local, and the autograd engine runs a CUDA
+    with the rows sharded and the layers split over the model axis as now.
+    ``use_backend``, ``use_level``, ``sharded_rows`` and ``model_split.
+    splitting`` are thread-local, and the autograd engine runs a CUDA
     backward (and so the recompute) on a thread of its own, where they
     would otherwise be lost."""
     plane = registry.requested_backend()
     level = execlevel.current()
     rows = sharding.rows_plan()
+    split = model_split.current()
 
     @contextlib.contextmanager
     def recompute():
@@ -166,6 +181,7 @@ def _recompute_on_this_plane():
                 stack.enter_context(registry.use_backend(plane))
             stack.enter_context(execlevel.use_level(level.level, level.mesh))
             stack.enter_context(sharding.sharded_rows(rows))
+            stack.enter_context(model_split.splitting(split))
             yield
     return contextlib.nullcontext(), recompute()
 

@@ -8,8 +8,10 @@ global batch by raising gradient accumulation.
 
 The checkpoint stores logical PartitionSpecs, not device ids, so a restore
 on the new mesh is ``Checkpointer.restore(..., shardings=)`` with
-shardings built for that mesh (each rank keeps its tiles); this module
-computes the new mesh shape and the new accumulation factor.
+shardings built for that mesh (each rank keeps its tiles, its shard of
+the model axis among them: ``Trainer(mesh=...)`` restores so); this module
+computes the new mesh shape, whose model axis is the saver's, and the new
+accumulation factor.
 """
 from __future__ import annotations
 

@@ -41,6 +41,14 @@ whole on every rank) and serves under the pinned level, so decode takes
 ``paged_attention``/``ring``.  Every rank of the world runs the same
 engine on the same requests; the collectives leave the same bits on every
 rank, so the ranks' host loops stay in step.
+
+On a pinned mesh whose ``model`` axis is wider than 1 the fixed engine's
+prefill and decode run split over it (``distributed.model_split``): each
+rank runs its heads, vocabulary columns and experts of the whole
+parameters it was handed (views, nothing copied), its cache holds its kv
+heads, and the logits are gathered whole before sampling, so every rank
+emits the same tokens.  The continuous engine's pool split by heads is
+ROADMAP queue 1 item 10b-iii-b: it raises on such a mesh.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import execlevel, registry
+from repro_torch.distributed import model_split
 from repro_torch.distributed.collectives import ambient_ring_plan
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.models.lm import LM
@@ -114,8 +123,12 @@ class Engine:
         self.active_backend = registry.requested_backend()
         # the level and mesh too: prefill re-enters them on every call, so
         # at O3/O4 a prompt the ring divides takes ring attention; decode
-        # (one token against the resident cache) runs outside them
+        # (one token against the resident cache) runs outside them; both
+        # run split over the mesh's model axis
         self.active_level = execlevel.current()
+        self.split = model_split.split_of(self.active_level.mesh,
+                                          held=False) \
+            if self.active_level.level >= execlevel.ExecLevel.O3 else None
 
     def generate(self, tokens: torch.Tensor, *, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None, seed: int = 0,
@@ -135,12 +148,13 @@ class Engine:
                 f"{cfg.name}: {front} frontend + {tokens.shape[1]} prompt + "
                 f"{max_new_tokens} new positions exceed the engine's max_len "
                 f"{self.max_len}")
-        if self.active_backend is None:
-            return self._generate(tokens, max_new_tokens, eos_id, seed,
-                                  frontend_embeds)
-        with registry.use_backend(self.active_backend):
-            return self._generate(tokens, max_new_tokens, eos_id, seed,
-                                  frontend_embeds)
+        with model_split.splitting(self.split):
+            if self.active_backend is None:
+                return self._generate(tokens, max_new_tokens, eos_id, seed,
+                                      frontend_embeds)
+            with registry.use_backend(self.active_backend):
+                return self._generate(tokens, max_new_tokens, eos_id, seed,
+                                      frontend_embeds)
 
     def _generate(self, tokens, max_new_tokens, eos_id, seed,
                   frontend_embeds):
@@ -227,6 +241,13 @@ class ContinuousEngine:
         self.chunk_size = chunk_size
         self.active_backend = registry.requested_backend()
         self.active_level = execlevel.current()
+        if self.active_level.level >= execlevel.ExecLevel.O3 and \
+                model_split.split_of(self.active_level.mesh,
+                                     held=False) is not None:
+            raise NotImplementedError(
+                "ContinuousEngine on a mesh whose model axis is wider than 1: "
+                "its page pool split by heads is not ported yet (ROADMAP "
+                "queue 1 item 10b-iii-b); serve there with the fixed Engine")
         with execlevel.use_level(self.active_level.level,
                                  self.active_level.mesh):
             plan = ambient_ring_plan()

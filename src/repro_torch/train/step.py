@@ -20,6 +20,20 @@ every rank's slices, updates its slices and all-gathers the parameters,
 every collective through the mesh's :class:`~repro_torch.distributed.
 collectives.ReducePlan`.  Every rank ends the step with the same bits in
 every parameter.
+
+On a mesh whose ``model`` axis is wider than 1 the layers run split over
+it (``distributed.model_split``, the Megatron products, the vocab-parallel
+logits and expert parallelism): the state holds each rank's shard of
+every leaf the spec splits over ``model`` (``partition.model_dims``), and
+the ZeRO-1 moments tile that shard over the data axes.  A gradient is
+reduced over the data axes only (the plan's groups are one per model
+coordinate): a split leaf's is its shard's, and a leaf the spec
+replicates ends the backward whole and the same on every rank of the
+model group, since a rank that uses part of one takes it through
+``model_split.into``, whose backward sums the parts.  The clip's norm
+counts each element once over the whole mesh: the split leaves' squares
+summed over ``model`` as well.  Ranks at the same model coordinate end
+the step with the same bits.
 """
 from __future__ import annotations
 
@@ -27,7 +41,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import model_split, sharding
 from repro_torch.optim import apply_updates, global_norm
 from repro_torch.train.state import TrainState
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -36,7 +50,7 @@ Pytree = Any
 
 __all__ = ["make_train_step", "make_eval_step", "value_and_grad",
            "shard_batch", "make_mesh_train_step", "mesh_loss",
-           "moment_dims", "mesh_state", "whole_state"]
+           "moment_dims", "mesh_state", "whole_state", "model_shard"]
 
 
 def _microbatch(batch: dict, n: int, i: int) -> dict:
@@ -168,23 +182,48 @@ def _tile(x: torch.Tensor, dim: Optional[int], plan) -> torch.Tensor:
     return x.narrow(dim, plan.shard_index() * n, n)
 
 
-def mesh_state(params: Pytree, opt, plan, dims: Pytree) -> TrainState:
-    """The mesh state of whole parameters: step 0, the parameters whole, the
-    optimizer's state over this rank's tiles (:func:`moment_dims`)."""
+def model_shard(x: torch.Tensor, dim: Optional[int], split
+                 ) -> torch.Tensor:
+    """This rank's shard of ``dim`` over the model axis, in storage of its
+    own (the whole leaf can go); ``x`` for None."""
+    if dim is None or split is None:
+        return x
+    return split.tile(x, dim).clone(memory_format=torch.contiguous_format)
+
+
+def mesh_state(params: Pytree, opt, plan, dims: Pytree, split=None,
+               mdims: Pytree = None) -> TrainState:
+    """The mesh state of whole parameters: step 0, the parameters whole
+    (with a model ``split``, this rank's shard of each leaf split over
+    ``model``, ``mdims`` from ``partition.model_dims``), the optimizer's
+    state over this rank's tiles (:func:`moment_dims`)."""
+    if split is not None:
+        params = tree_map(lambda p, m: model_shard(p, m, split), params,
+                          mdims)
     tiles = tree_map(lambda p, d: _tile(p, d, plan), params, dims)
     dev = tree_leaves(params)[0].device
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       params=params, opt_state=opt.init(tiles))
 
 
-def whole_state(state: TrainState, plan, dims: Pytree) -> TrainState:
-    """The state with the moments gathered whole over the batch axes (what
-    the checkpointer writes); collective, every rank calls it."""
+def whole_state(state: TrainState, plan, dims: Pytree, split=None,
+                mdims: Pytree = None) -> TrainState:
+    """The state with the moments gathered whole over the batch axes, and
+    with a model ``split`` the parameters and moments gathered over
+    ``model`` too (what the checkpointer writes); collective, every rank
+    calls it."""
+    def over_model(tree):
+        if split is None:
+            return tree
+        return tree_map(lambda x, m: x if m is None else
+                        split.all_gather(x, m), tree, mdims)
+
     def whole(tree):
-        return tree_map(lambda m, d: m if d is None else
-                        plan.zero_gather(m, d), tree, dims)
+        return over_model(tree_map(lambda m, d: m if d is None else
+                                   plan.zero_gather(m, d), tree, dims))
     opt = state.opt_state
-    return state._replace(opt_state=opt._replace(mu=whole(opt.mu),
+    return state._replace(params=over_model(state.params),
+                          opt_state=opt._replace(mu=whole(opt.mu),
                                                  nu=whole(opt.nu)))
 
 
@@ -209,13 +248,36 @@ def mesh_loss(loss_fn: Callable, plan) -> Callable:
     return piece
 
 
+def _clip_norm(grads: Pytree, dims: Pytree, mdims: Pytree, plan, split,
+               device) -> torch.Tensor:
+    """The global norm of the reduced gradients, each element counted once
+    over the mesh: sums of squares by (split over ``model``?, tiled over
+    the data axes?), the tiled ones summed over the data ranks, the split
+    ones over the model ranks."""
+    sums = {(m, t): torch.zeros((), device=device) for m in (0, 1)
+            for t in (0, 1)}
+    mdims = mdims if mdims is not None else tree_map(lambda g: None, grads)
+
+    def add(g, d, m):
+        key = (int(m is not None), int(d is not None))
+        sums[key] = sums[key] + torch.sum(torch.square(g))
+    tree_map(add, grads, dims, mdims)
+    tiled = plan.psum_all(torch.stack([sums[0, 1], sums[1, 1]]))
+    split_sq = tiled[1] + sums[1, 0]
+    if split is not None:
+        split_sq = split.all_reduce(split_sq.reshape(1))[0]
+    return torch.sqrt(tiled[0] + sums[0, 0] + split_sq)
+
+
 def make_mesh_train_step(lm, opt, plan, dims: Pytree, *,
                          microbatches: int = 1,
-                         loss_fn: Optional[Callable] = None) -> Callable:
+                         loss_fn: Optional[Callable] = None, split=None,
+                         mdims: Pytree = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)`` at mesh scope over
     ``plan``'s batch axes (module docstring).  ``batch`` is the global
-    batch; ``state`` holds whole parameters and the moments over this
-    rank's tiles of ``dims`` (:func:`mesh_state`).
+    batch; ``state`` holds whole parameters (with a model ``split``, the
+    shards of the leaves ``mdims`` names) and the moments over this rank's
+    tiles of ``dims`` (:func:`mesh_state`).
 
     The loss is the global token mean: each rank differentiates its piece
     (:func:`mesh_loss`).  Microbatch ``i`` is rows ``[i B / n,
@@ -229,7 +291,7 @@ def make_mesh_train_step(lm, opt, plan, dims: Pytree, *,
     def train_step(state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
         g_sum, l_sum = None, None
-        with sharding.sharded_rows(plan):
+        with sharding.sharded_rows(plan), model_split.splitting(split):
             for i in range(microbatches):
                 local = shard_batch(mesh, _microbatch(batch, microbatches, i)
                                     if microbatches > 1 else batch)
@@ -247,19 +309,19 @@ def make_mesh_train_step(lm, opt, plan, dims: Pytree, *,
                 lambda g, d: (plan.psum_all(g) if d is None
                               else plan.zero_scatter(g, d)).float() * inv,
                 g_sum, dims)
-            # the clip's norm: the tiles' squares summed over the ranks,
-            # the whole leaves' (the same on every rank) once
-            pairs: list = []
-            tree_map(lambda g, d: pairs.append((g, d)), grads, dims)
-            sq = [sum(torch.sum(torch.square(g)) for g, d in pairs
-                      if (d is None) == whole) + torch.zeros(
-                          (), device=l_sum.device) for whole in (0, 1)]
-            norm = torch.sqrt(plan.psum_all(sq[0].reshape(1))[0] + sq[1])
+            # the unreduced gradients go before the update's peak
+            del g_sum, g
+            # the clip's norm: the tiles' squares summed over the data
+            # ranks, the whole leaves' (the same on every data rank) once;
+            # the model-split leaves' squares summed over ``model`` too
+            norm = _clip_norm(grads, dims, mdims, plan, split,
+                              l_sum.device)
             tiles = tree_map(lambda p, d: _tile(p, d, plan), state.params,
                              dims)
             updates, opt_state = opt.update(grads, state.opt_state, tiles,
                                             grad_norm=norm)
             new = apply_updates(tiles, updates)
+            del grads, updates
             params = tree_map(lambda p, d: p if d is None else
                               plan.zero_gather(p, d), new, dims)
             loss = plan.psum_all(l_sum.reshape(1))[0] * inv

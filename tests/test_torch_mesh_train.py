@@ -5,7 +5,8 @@ the JAX package's on the same numpy inputs.
 
 The port runs on 8 gloo ranks of one spawned world (one per test module),
 on the meshes (data 8), (pod 2, data 4), (data 4) over the first four
-ranks, and (data 4, model 2); the JAX side runs the same calls on the 8
+ranks, and (data 4, model 2) (the model axis's split, whose own cases are
+tests/test_torch_model_axis.py's); the JAX side runs the same calls on the 8
 forced host devices while the world runs.  Both sides start from the
 port's seeded parameters: the ranks draw them, the JAX side gets them
 restacked (no JAX init).  A spawned rank imports this module by name, so
@@ -203,7 +204,7 @@ def _port_cases(rank, meshes, tmp):
     record(own, "compress", compress)
 
     def model_axis():
-        Trainer(qcfg, mesh=m42, device="cpu")
+        return trainer_run(qcfg, m42, None, STEPS)[1]["losses"]
     record(shared, "model_axis", model_axis)
     return shared, own
 
@@ -303,6 +304,9 @@ def _jax_cases(tmp):
     out["qwen data8 zero1=False"] = run(qcfg, qp, mesh8, None, STEPS,
                                         zero1=False)
     out["qwen O4"] = run(qcfg, qp, mesh24, O4, STEPS)
+    out["qwen m42"] = run(qcfg, qp, compat.make_mesh((4, 2),
+                                                     ("data", "model")),
+                          None, STEPS)
     for cf in MOE_CFS:
         out[f"moe {cf}"] = run(_moe(JCfg, cf),
                                _jax_params(_moe(ModelConfig, cf)), mesh8,
@@ -528,8 +532,12 @@ def test_moe_groups_match_reference(both, cf):
 
 
 def test_model_axis_raises_naming_10b_iii(both):
-    got = both[0]["model_axis"]
-    assert "queue 1 item 10b-iii" in got["raised"]
+    """(data 4, model 2), which raised before the model axis's compute
+    split was ported, now trains: its losses against the reference's
+    Trainer on the same mesh."""
+    shared, _, jx, _ = both
+    np.testing.assert_allclose(_ok(shared["model_axis"]), jx["qwen m42"],
+                               **TOL)
 
 
 def test_heartbeats_from_every_rank_reach_the_monitor(both):
